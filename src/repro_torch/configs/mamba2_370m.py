@@ -1,0 +1,9 @@
+"""Mamba2-370M — SSD (state-space duality) [arXiv:2405.21060; unverified]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-370m", family="ssm",
+    n_layers=48, d_model=1024, n_heads=1, n_kv_heads=1, d_ff=0,
+    vocab=50280, ssm_state=128, ssm_heads=32, ssm_head_dim=64,
+    ssm_expand=2, conv_width=4, ssd_chunk=256,
+)

@@ -1,0 +1,105 @@
+"""Unified model API for the `lm` family: spec resolution, init, the
+serving weight-plane cache, and the prefill / decode pair the serving
+engine drives.  Same signatures as the JAX package's `repro.models.api`,
+plus an explicit `device` where something is created.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.approx import gemm as gemm_mod
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+Params = dict[str, Any]
+
+
+def family_module(cfg: ModelConfig):
+    if cfg.family != "lm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (only 'lm')")
+    return transformer
+
+
+def make_spec(cfg: ModelConfig, mult: str | None = None,
+              device: str | torch.device | None = None
+              ) -> gemm_mod.MultSpec | None:
+    """Resolve the config's multiplier and its kernel-dispatch policy
+    (`mult` overrides `cfg.mult`).  None for the exact multiplier.  The
+    spec's tables live on `device` (default: the CUDA device)."""
+    name = cfg.mult if mult is None else mult
+    if name in ("exact", "", None):
+        return None
+    spec = gemm_mod.spec_from_name(name).with_policy(cfg.kernel_policy)
+    return spec.to(resolve_device(device))
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: str | torch.device | None = None) -> Params:
+    """Random params from a seeded `torch.Generator` on `device`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return family_module(cfg).init_params(cfg, gen, dev)
+
+
+def prepare_params(params: Params, cfg: ModelConfig,
+                   spec: gemm_mod.MultSpec | None = None) -> Params:
+    """Serving-time weight-plane cache: every leaf named in the family's
+    PREPARED_GEMM_WEIGHTS becomes a `PreparedWeight` (per-output-channel
+    int8 quantization, plus the pre-mapped planes of the plain path),
+    computed once instead of on every decode step.  Outputs through the
+    prepared tree are bit-identical to the raw tree.  `spec=None` resolves
+    through `make_spec(cfg)` on the params' device; identity for exact."""
+    if spec is None:
+        spec = make_spec(cfg, device=params["embed"].device)
+    if spec is None or spec.is_exact:
+        return params
+    names = family_module(cfg).PREPARED_GEMM_WEIGHTS
+
+    def prep(name, leaf):
+        if isinstance(leaf, dict):
+            return {k: prep(k, v) for k, v in leaf.items()}
+        if gemm_mod.is_prepared(leaf) or name not in names:
+            return leaf
+        if not torch.is_tensor(leaf) or leaf.ndim < 2 or \
+                not leaf.is_floating_point():
+            return leaf
+        return gemm_mod.prepare_weight(leaf, spec)
+
+    return {k: prep(k, v) for k, v in params.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device | None = None) -> dict:
+    return family_module(cfg).init_cache(cfg, batch, max_len,
+                                         resolve_device(device))
+
+
+@torch.no_grad()
+def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig, spec=None) -> tuple[torch.Tensor, dict]:
+    """tokens (b, 1) -> (logits (b, 1, v), cache with length + 1); the
+    cache's K/V buffers are updated in place."""
+    return family_module(cfg).decode_step(params, cache, tokens, cfg, spec)
+
+
+@torch.no_grad()
+def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            spec=None, max_len: int | None = None,
+            true_len: torch.Tensor | None = None) -> tuple:
+    """tokens (b, s) -> (last-valid-position logits (b, v), cache padded to
+    max_len).  `true_len` (b,) supports right-padded prompts."""
+    return family_module(cfg).prefill(params, tokens, cfg, spec,
+                                      max_len=max_len, true_len=true_len)
+
+
+def param_count(params: Params) -> int:
+    def count(x):
+        if isinstance(x, dict):
+            return sum(count(v) for v in x.values())
+        return x.numel() if torch.is_tensor(x) else 0
+    return count(params)

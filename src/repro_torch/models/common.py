@@ -1,0 +1,228 @@
+"""Shared model components: norms, RoPE, attention (naive / chunked /
+flash / decode), the KV-cache helpers, SwiGLU.
+
+All matmuls of the projections route through approx.layers so every model
+can run under a candidate approximate multiplier (`spec`).  Softmax, norms
+and rotary math stay in f32.  These are plain PyTorch ops, as they are XLA
+code in the JAX package; only flash attention has a kernel.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.approx import gemm as gemm_mod
+from repro_torch.approx import layers as AL
+
+MultSpec = gemm_mod.MultSpec
+Params = dict[str, Any]
+
+
+# --- norms ------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+# --- rotary embeddings --------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    """(hd/2,) inverse frequencies, cached per (hd, theta, device): every
+    layer of every step asks for the same ones.  Callers must not modify
+    the result."""
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., s, h, hd), positions (..., s) -> same shape."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., None].float() * freqs              # (..., s, hd/2)
+    cos = torch.cos(ang)[..., None, :]                      # (..., s, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- attention ----------------------------------------------------------------
+
+def _gqa_shape(q: torch.Tensor, kv_heads: int):
+    b, s, h, d = q.shape
+    g = h // kv_heads
+    return q.reshape(b, s, kv_heads, g, d), g
+
+
+def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (b,s,h,d), k/v (b,s,kv,d).  Materializes (s, s) scores."""
+    b, s, h, d = q.shape
+    qg, _ = _gqa_shape(q, k.shape[2])
+    scale = d ** -0.5
+    sc = torch.einsum("bqkgd,bmkd->bkgqm", qg.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqm,bmkd->bqkgd", p, v.float())
+    return o.reshape(b, s, h, d).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      chunk: int = 512, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention forward, O(chunk * s) live memory — the
+    plain twin of the flash kernel (the JAX package's blockwise attention;
+    its custom backward comes with training)."""
+    b, s_orig, h, d = q.shape
+    kvh = k.shape[2]
+    c = min(chunk, s_orig)
+    pad = (-s_orig) % c
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    s = s_orig + pad
+    qg, g = _gqa_shape(q, kvh)
+    scale = d ** -0.5
+    n = s // c
+    kc = k.reshape(b, n, c, kvh, d).float()
+    vc = v.reshape(b, n, c, kvh, d).float()
+    blocks = []
+    for iq in range(n):
+        qs = qg[:, iq * c:(iq + 1) * c].float() * scale     # (b,c,kv,g,d)
+        m_p = torch.full((b, kvh, g, c), -1e30, device=q.device)
+        l_p = torch.zeros((b, kvh, g, c), device=q.device)
+        acc = torch.zeros((b, kvh, g, c, d), device=q.device)
+        qi = iq * c + torch.arange(c, device=q.device)
+        for ik in range(n):
+            ki = ik * c + torch.arange(c, device=q.device)
+            sc = torch.einsum("bqkgd,bmkd->bkgqm", qs, kc[:, ik])
+            if causal:
+                mask = qi[:, None] >= ki[None, :]
+            else:
+                mask = (ki[None, :] < s_orig).expand(c, c)
+            sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
+            m_n = torch.maximum(m_p, sc.amax(dim=-1))
+            p = torch.exp(sc - m_n[..., None])
+            alpha = torch.exp(m_p - m_n)
+            l_p = alpha * l_p + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqm,bmkd->bkgqd", p, vc[:, ik])
+            m_p = m_n
+        out = acc / torch.clamp(l_p, min=1e-30)[..., None]  # (b,kv,g,c,d)
+        blocks.append(out.permute(0, 3, 1, 2, 4))           # (b,c,kv,g,d)
+    out = torch.cat(blocks, dim=1).reshape(b, s, h, d)
+    return out[:, :s_orig].to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """(b, s, h, d) attention through the flash kernel: KV heads repeated to
+    the query heads (the kernel has no GQA), heads folded into the batch."""
+    from repro_torch.kernels import ops as kops
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    ke = k.repeat_interleave(g, dim=2) if g > 1 else k
+    ve = v.repeat_interleave(g, dim=2) if g > 1 else v
+    qs = q.permute(0, 2, 1, 3).reshape(b * h, s, d)
+    ks = ke.permute(0, 2, 1, 3).reshape(b * h, s, d)
+    vs = ve.permute(0, 2, 1, 3).reshape(b * h, s, d)
+    o = kops.flash_attention(qs, ks, vs, causal=causal)
+    return o.reshape(b, h, s, d).permute(0, 2, 1, 3)
+
+
+def attention(q, k, v, impl: str = "chunked", chunk: int = 512,
+              causal: bool = True, window: int = 0,
+              policy: str | None = None) -> torch.Tensor:
+    """Dispatch.  "flash" takes the kernel when the dispatch policy says so
+    for this device (kernels/dispatch.py) and the plain chunked forward
+    otherwise; "chunked" is the plain online-softmax forward; "naive"
+    materializes the scores."""
+    if window:
+        raise NotImplementedError("windowed attention is not ported yet")
+    if impl == "naive":
+        return naive_attention(q, k, v, causal)
+    if impl == "flash":
+        from repro_torch.kernels import dispatch
+        if dispatch.use_pallas_attention(policy, q.device):
+            return flash_attention(q, k, v, causal)
+    return chunked_attention(q, k, v, chunk, causal)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+    """Single-token attention against a cache.
+
+    q (b,1,h,d); k/v_cache (b,smax,kv,d); length (b,) current cache fill."""
+    b, _, h, d = q.shape
+    smax = k_cache.shape[1]
+    qg, _ = _gqa_shape(q, k_cache.shape[2])                 # (b,1,kv,g,d)
+    scale = d ** -0.5
+    sc = torch.einsum("bqkgd,bmkd->bkgqm", (qg * scale).float(),
+                      k_cache.float())                      # (b,kv,g,1,smax)
+    pos = torch.arange(smax, device=q.device)
+    valid = pos[None, :] < length[:, None]                  # (b, smax)
+    sc = torch.where(valid[:, None, None, None, :], sc,
+                     torch.full_like(sc, -1e30))
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqm,bmkd->bqkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
+def rowwise_cache_update(cache: torch.Tensor, new: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """Write `new` (b, 1, ...) into `cache` (b, smax, ...) at per-row
+    positions `lengths` (b,).  Updates `cache` IN PLACE (and returns it):
+    the serving arena owns one cache and a copy per layer per step would
+    double its traffic.  Positions clamp to the last row, as the JAX
+    package's dynamic_update_slice does for slots decoding past max_len."""
+    pos = torch.clamp(lengths, max=cache.shape[1] - 1).long()
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, pos] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def cache_lengths(cache: dict, batch: int) -> torch.Tensor:
+    """cache["length"] — scalar (lock-step) or (b,) (per-slot) — as a
+    per-row (b,) int32 vector."""
+    return torch.broadcast_to(cache["length"], (batch,)).to(torch.int32)
+
+
+def last_valid_slice(h: torch.Tensor,
+                     true_len: torch.Tensor | None) -> torch.Tensor:
+    """h (b, s, d) -> (b, 1, d) hidden state of the last *valid* position."""
+    if true_len is None:
+        return h[:, -1:]
+    idx = torch.clamp(true_len - 1, 0, h.shape[1] - 1).long()
+    return h[torch.arange(h.shape[0], device=h.device), idx][:, None]
+
+
+def prefill_length(true_len: torch.Tensor | None, s: int,
+                   device=None) -> torch.Tensor:
+    """Cache "length" after prefilling s tokens: per-row (b,) with a
+    true_len vector, scalar otherwise."""
+    if true_len is None:
+        return torch.tensor(s, dtype=torch.int32, device=device)
+    return true_len.to(torch.int32)
+
+
+# --- MLP ----------------------------------------------------------------------
+
+def swiglu(x: torch.Tensor, w_gate, w_up, w_down,
+           spec: MultSpec | None) -> torch.Tensor:
+    gate = AL.gemm(x, w_gate, spec)
+    up = AL.gemm(x, w_up, spec)
+    return AL.gemm(F.silu(gate) * up, w_down, spec)

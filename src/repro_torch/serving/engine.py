@@ -1,0 +1,381 @@
+"""Continuous-batching inference engine over `models/api.py`.
+
+Requests are admitted from a FIFO queue (by arrival tick, then submission
+order) into free slots of a fixed-capacity decode arena — prefill, then
+join — every decode step advances all occupied slots at their own per-slot
+lengths, and finished requests (max tokens / EOS / deadline) are evicted so
+their slots can be reused mid-flight.
+
+Approximate serving composes transparently: the engine resolves
+`cfg.mult` / `cfg.kernel_policy` through `api.make_spec` and serves from a
+persistent weight-plane cache (`api.prepare_params`), so each GEMM weight
+is quantized once at construction.  `tiers=` names an ordered ladder of
+multipliers (index 0 serves by default); `set_tier` switches prefill and
+decode to another tier's artifacts without touching the KV arena, and
+every emitted token is attributed to the tier that produced it.
+
+Request lifecycle: per-request TTFT/total deadlines in ticks, with
+load-shedding (`finish_reason="shed"`) and mid-decode deadline eviction
+(`"deadline"`); a crash inside admission re-queues the request before
+propagating.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+from repro_torch.serving import sampling
+from repro_torch.serving.arena import SlotArena
+from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.types import Completion, Request
+
+
+class _Slot:
+    """Host-side record of one occupied arena slot."""
+
+    def __init__(self, request: Request, prompt_len: int, admitted_tick: int,
+                 ready_wall: float, admit_seq: int):
+        self.request = request
+        self.prompt_len = prompt_len
+        self.tokens: list[int] = []
+        self.admitted_tick = admitted_tick
+        self.ready_wall = ready_wall
+        self.first_wall = 0.0
+        self.first_tick = admitted_tick
+        self.admit_seq = admit_seq            # FIFO drain order
+        self.tier_tokens: dict[str, int] = {}
+
+
+class Engine:
+    """Slot-based continuous-batching engine.
+
+    Args:
+      cfg: model config (the dense `lm` family).
+      params: model params; initialized from `seed` when None.
+      capacity: decode-arena slots (max concurrent requests).
+      max_len: arena sequence horizon; prompt_len + max_new_tokens - 1
+        must fit.
+      prefill_buckets: prompt pad lengths (default (max_len,)).
+      seed: params init and per-request sampling streams.
+      on_token: streaming callback `f(request_id, token_id)`.
+      tiers: ordered multiplier-tier ladder (names resolvable by
+        `api.make_spec`); None keeps one tier named by `cfg.mult`.
+      device: where the engine runs; None means the CUDA device, and
+        raises when there is none.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any | None = None, *,
+                 capacity: int = 4, max_len: int = 256,
+                 prefill_buckets: tuple[int, ...] | None = None,
+                 seed: int = 0,
+                 on_token: Callable[[str, int], None] | None = None,
+                 tiers: tuple[str, ...] | None = None,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.cfg, self.seed = cfg, seed
+        self.capacity, self.max_len = capacity, max_len
+        self.buckets = tuple(sorted(prefill_buckets or (max_len,)))
+        self.on_token = on_token
+        self.tiers = tuple(tiers) if tiers else (cfg.mult or "exact",)
+        if len(set(self.tiers)) != len(self.tiers):
+            raise ValueError(f"duplicate tier names in {self.tiers}")
+        self.params = params if params is not None else api.init_params(
+            cfg, seed, self.device)
+
+        self._arena = SlotArena(cfg, capacity, max_len, self.device)
+        self._tok = torch.zeros((capacity, 1), dtype=torch.int64,
+                                device=self.device)
+        self._temps = [0.0] * capacity
+        self._topks = [0] * capacity
+        self._gens: list[torch.Generator | None] = [None] * capacity
+
+        # Per-tier serving artifacts: the weight-plane cache is built once
+        # per (weight, multiplier); switching tiers is a pointer swap.
+        self._tier_specs: dict[str, Any] = {}
+        self._tier_exec: dict[str, Any] = {}
+        for name in self.tiers:
+            spec = api.make_spec(cfg, mult=name, device=self.device)
+            self._tier_specs[name] = spec
+            self._tier_exec[name] = api.prepare_params(self.params, cfg,
+                                                       spec)
+        self._tier = self.tiers[0]
+        self._tier_tokens: dict[str, int] = {t: 0 for t in self.tiers}
+        self._tier_switches: list[dict] = []
+        self._activate(self._tier)
+
+        self._sched = Scheduler()
+        self._ids: set[str] = set()
+        self._slots: list[_Slot | None] = [None] * capacity
+        self._free = list(range(capacity - 1, -1, -1))
+        self._tick = 0
+        self._decode_steps = 0
+        self._admitted = 0
+        self._prefill_s = 0.0
+        self._decode_s = 0.0
+        self._queue_wait_ticks = 0.0
+        self._evictions = {"eos": 0, "length": 0}
+        self.completions: list[Completion] = []
+
+    # --- degradation tiers ------------------------------------------------
+
+    @property
+    def tier(self) -> str:
+        """Name of the multiplier tier currently serving."""
+        return self._tier
+
+    @property
+    def tier_index(self) -> int:
+        return self.tiers.index(self._tier)
+
+    def _activate(self, name: str) -> None:
+        self._spec = self._tier_specs[name]
+        self.exec_params = self._tier_exec[name]
+
+    def set_tier(self, name: str) -> None:
+        """Switch the serving tier (prefill AND decode).  In-flight
+        requests keep their KV; tokens emitted after the switch are
+        attributed to the new tier."""
+        if name not in self._tier_specs:
+            raise ValueError(
+                f"unknown tier {name!r}; engine tiers: {self.tiers}")
+        if name == self._tier:
+            return
+        self._tier_switches.append(
+            {"tick": self._tick, "from": self._tier, "to": name})
+        self._tier = name
+        self._activate(name)
+
+    # --- submission -------------------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        """Queue a request for admission at its arrival tick."""
+        n = len(request.tokens)
+        sp = request.sampling
+        if request.request_id in self._ids:
+            raise ValueError(
+                f"duplicate request_id {request.request_id!r}")
+        if n < 1:
+            raise ValueError(f"{request.request_id}: empty prompt")
+        if n > self.buckets[-1]:
+            raise ValueError(
+                f"{request.request_id}: prompt len {n} exceeds largest "
+                f"prefill bucket {self.buckets[-1]}")
+        if sp.max_new_tokens < 1:
+            raise ValueError(f"{request.request_id}: max_new_tokens < 1")
+        if n + sp.max_new_tokens - 1 > self.max_len:
+            raise ValueError(
+                f"{request.request_id}: prompt {n} + {sp.max_new_tokens} "
+                f"new tokens exceeds arena max_len {self.max_len}")
+        for field in ("ttft_deadline_ticks", "deadline_ticks"):
+            v = getattr(request, field)
+            if v is not None and v < 1:
+                raise ValueError(f"{request.request_id}: {field} must be "
+                                 f">= 1 tick (got {v})")
+        if request.extras:
+            raise ValueError(f"{request.request_id}: extras (frames / "
+                             "image embeddings) need a family that is not "
+                             "ported yet")
+        self._ids.add(request.request_id)
+        self._sched.submit(request)
+
+    # --- admission (prefill-then-join) -----------------------------------
+
+    def _request_generator(self, sp) -> torch.Generator:
+        seed = sp.seed if sp.seed is not None else \
+            self.seed * 1_000_003 + 1 + self._admitted
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _admit(self, request: Request, ready_wall: float,
+               slot_id: int) -> None:
+        sp = request.sampling
+        n = len(request.tokens)
+        bucket = next(b for b in self.buckets if b >= n)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :n] = np.asarray(request.tokens, np.int64)
+        t0 = time.perf_counter()
+        logits, req_cache = api.prefill(
+            self.exec_params, torch.from_numpy(padded).to(self.device),
+            self.cfg, self._spec, max_len=self.max_len,
+            true_len=torch.tensor([n], dtype=torch.int32,
+                                  device=self.device))
+        gen = self._request_generator(sp)
+        first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
+                                       [gen])
+        first_tok = int(first[0])           # syncs the prefill
+        self._prefill_s += time.perf_counter() - t0
+        self._admitted += 1
+
+        self._arena.insert(req_cache, slot_id)
+        self._tok[slot_id, 0] = first_tok
+        self._temps[slot_id] = sp.temperature
+        self._topks[slot_id] = sp.top_k
+        self._gens[slot_id] = gen
+
+        slot = _Slot(request, n, self._tick, ready_wall, self._admitted)
+        slot.first_wall = time.perf_counter()
+        self._slots[slot_id] = slot
+        self._emit(slot_id, first_tok)
+
+    # --- token accounting / eviction -------------------------------------
+
+    def _emit(self, slot_id: int, token: int) -> None:
+        slot = self._slots[slot_id]
+        slot.tokens.append(token)
+        slot.tier_tokens[self._tier] = \
+            slot.tier_tokens.get(self._tier, 0) + 1
+        self._tier_tokens[self._tier] += 1
+        if self.on_token is not None:
+            self.on_token(slot.request.request_id, token)
+        sp = slot.request.sampling
+        req = slot.request
+        if sp.eos_id >= 0 and token == sp.eos_id:
+            self._evict(slot_id, "eos")
+        elif len(slot.tokens) >= sp.max_new_tokens:
+            self._evict(slot_id, "length")
+        elif req.deadline_ticks is not None and \
+                self._tick - req.arrival + 1 >= req.deadline_ticks:
+            self._evict(slot_id, "deadline")
+
+    def _evict(self, slot_id: int, reason: str) -> None:
+        slot = self._slots[slot_id]
+        now = time.perf_counter()
+        self._evictions[reason] = self._evictions.get(reason, 0) + 1
+        self._queue_wait_ticks += max(
+            0.0, slot.admitted_tick - slot.request.arrival)
+        self.completions.append(Completion(
+            request_id=slot.request.request_id,
+            prompt_len=slot.prompt_len,
+            tokens=slot.tokens,
+            finish_reason=reason,
+            arrival=slot.request.arrival,
+            admitted_tick=slot.admitted_tick,
+            finished_tick=self._tick,
+            ttft_s=slot.first_wall - slot.ready_wall,
+            ttft_ticks=slot.first_tick - slot.request.arrival + 1.0,
+            latency_s=now - slot.ready_wall,
+            attempt=slot.request.attempt,
+            tier_tokens=dict(slot.tier_tokens)))
+        self._slots[slot_id] = None
+        self._gens[slot_id] = None
+        self._free.append(slot_id)
+
+    def _shed(self, request: Request) -> None:
+        """Complete a never-admitted request whose deadline is already
+        unmeetable (load shedding at admission)."""
+        self._evictions["shed"] = self._evictions.get("shed", 0) + 1
+        self._sched._ready_wall.pop(request.request_id, None)
+        self.completions.append(Completion(
+            request_id=request.request_id,
+            prompt_len=len(request.tokens),
+            tokens=[],
+            finish_reason="shed",
+            arrival=request.arrival,
+            admitted_tick=-1,
+            finished_tick=self._tick,
+            ttft_s=0.0,
+            latency_s=0.0,
+            attempt=request.attempt,
+            tier_tokens={}))
+
+    # --- the serving loop -------------------------------------------------
+
+    @property
+    def tick(self) -> int:
+        """Current virtual-clock tick (one decode step per tick)."""
+        return self._tick
+
+    @property
+    def n_active(self) -> int:
+        return self.capacity - len(self._free)
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._sched)
+
+    def pending_requests(self) -> list[Request]:
+        """Every submitted-but-unfinished request in FIFO order: slot
+        occupants by admission order, then the waiting queue."""
+        active = sorted((s for s in self._slots if s is not None),
+                        key=lambda s: s.admit_seq)
+        out = [s.request for s in active]
+        out.extend(self._sched.pending())
+        return out
+
+    def active_request_ids(self) -> set[str]:
+        return {s.request.request_id for s in self._slots if s is not None}
+
+    def _decode(self) -> np.ndarray:
+        logits, cache = api.decode_step(self.exec_params, self._arena.cache,
+                                        self._tok, self.cfg, self._spec)
+        self._arena.cache = cache
+        tok = sampling.sample_tokens(logits[:, -1], self._temps,
+                                     self._topks, self._gens)
+        self._tok = tok[:, None]
+        return tok.cpu().numpy()              # syncs the step
+
+    def step(self) -> None:
+        """One engine tick: shed dead-on-arrival requests, admit due
+        requests into free slots, then run one decode step across the
+        whole arena."""
+        now = self._tick
+        self._sched.note_ready(now, time.perf_counter())
+        for request in self._sched.pop_expired(now):
+            self._shed(request)
+        while self._free:
+            request = self._sched.pop_ready(now)
+            if request is None:
+                break
+            ready_wall = self._sched.ready_wall(request.request_id)
+            slot_id = self._free.pop()
+            try:
+                self._admit(request, ready_wall, slot_id)
+            except Exception:
+                # keep the request drainable: back on the queue, slot freed
+                if self._slots[slot_id] is None:
+                    self._free.append(slot_id)
+                    self._sched.restore(request, ready_wall)
+                raise
+        if self.n_active:
+            t0 = time.perf_counter()
+            tok_host = self._decode()
+            self._decode_steps += 1
+            self._decode_s += time.perf_counter() - t0
+            for slot_id in range(self.capacity):
+                if self._slots[slot_id] is not None:
+                    self._emit(slot_id, int(tok_host[slot_id]))
+        self._tick += 1
+
+    def run_until_complete(self) -> list[Completion]:
+        """Drive step() until the queue and the arena are both empty;
+        idle ticks fast-forward to the next arrival."""
+        while self.n_queued or self.n_active:
+            if not self.n_active:
+                nxt = self._sched.next_arrival()
+                if nxt is not None and nxt > self._tick:
+                    self._tick = int(math.ceil(nxt))
+            self.step()
+        return self.completions
+
+    def stats(self) -> dict:
+        done = len(self.completions)
+        return {"ticks": self._tick, "decode_steps": self._decode_steps,
+                "admitted": self._admitted,
+                "completed": done,
+                "prefill_s": self._prefill_s, "decode_s": self._decode_s,
+                "queue_wait_ticks_total": self._queue_wait_ticks,
+                "queue_wait_ticks_mean":
+                    self._queue_wait_ticks / done if done else 0.0,
+                "evictions": dict(self._evictions),
+                "device": str(self.device),
+                "tiers": {"active": self._tier,
+                          "ladder": list(self.tiers),
+                          "tokens": dict(self._tier_tokens),
+                          "switches": list(self._tier_switches)}}

@@ -22,6 +22,12 @@ os.environ.setdefault(
                  "absent.json"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the repro_torch CUDA "
+        "kernels have no CPU mode); skips without one")
+
+
 @pytest.fixture
 def retrace_sanitizer():
     from repro.analysis.retrace import RetraceSanitizer

@@ -1,0 +1,57 @@
+"""repro_torch stands alone: no module of it imports JAX or the JAX
+package, and its entry points never fall back to the CPU on their own."""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import json, pkgutil, importlib, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.serving.engine" in res["modules"]
+    assert "repro_torch.kernels.qgemm" in res["modules"]
+    assert res["bad"] == []
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """Called without `device` on a machine with no CUDA device, the entry
+    points raise instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch import configs
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api
+    from repro_torch.serving import Engine
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
+                          mult="trunc2x2")
+    for call in (lambda: api.init_params(cfg),
+                 lambda: api.make_spec(cfg),
+                 lambda: api.init_cache(cfg, 1, 8),
+                 lambda: Engine(cfg),
+                 lambda: resolve_device("cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
