@@ -5,22 +5,43 @@
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
-  1. probe    — the card's name and power limit (nvidia-smi);
-  2. build    — nvcc builds the kernel library from csrc/ (timed);
-  3. kernels  — every kernel of the serving path against its plain PyTorch
-                version on the card, at the serving shapes and at odd ones:
-                quantize_rows, the plane-0 GEMM and the skinny GEMM (every
-                rank) bit-exact, flash attention within 2e-6 (f32) / 2e-2
-                (bf16); then each kernel's time per serving unit (CUDA
-                events) beside its plain version, one PyTorch library call
-                where one computes the same function, and the card's bound;
-  4. serve    — full-width TinyLlama-1.1B (22 layers, random f32 weights
-                from a seeded CUDA generator) under the trunc2x2 multiplier
-                through the port's slot Engine: 6 requests x 16 greedy
-                tokens, every kernel's launch counter read around the run;
-  5. check    — a 2-layer full-width model served once through the kernels
-                and once through the plain versions on the card: prefill
-                logits and greedy tokens compared.
+  1. probe     — the card's name and power limit (nvidia-smi);
+  2. build     — nvcc builds the kernel library from csrc/ (timed);
+  3. kernels   — every kernel against its plain PyTorch version on the
+                 card, at the main paths' shapes and at odd ones:
+                 quantize_rows, the plane-0 GEMM, the skinny GEMM (every
+                 rank), the fused and the stacked low-rank GEMMs (ranks 1, 2,
+                 4, 8, every VGG16 conv shape; stacked bit-identical to
+                 fused, its launches counted over these parity calls)
+                 bit-exact, flash attention within 2e-6 (f32) / 2e-2
+                 (bf16); then each kernel's time per unit of its main path
+                 (CUDA events) beside its plain version, a PyTorch library
+                 yardstick and the card's bound;
+  4. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
+                 from a seeded CUDA generator) under the trunc2x2 multiplier
+                 through the port's slot Engine: 6 requests x 16 greedy
+                 tokens, every kernel's launch counter read around the run;
+  5. check     — a 2-layer full-width model served once through the kernels
+                 and once through the plain versions on the card: logits and
+                 greedy tokens compared, under trunc2x2 and under the
+                 rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
+                 the fused kernel, decode on the skinny one, both sides on
+                 the plain attention; flash's o-projection inputs go
+                 through the kernel and the plain GEMM, which must agree
+                 to the bit, and flash-vs-chunked divergence is printed);
+  6. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+                 f32 weights calibrated layer by layer to mean 0, var 1)
+                 under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
+                 GEMMs on the skinny kernel, launch counters read around
+                 one forward, the smallest row absmax each GEMM quantizes,
+                 forward time, device busy share;
+  7. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+                 through the plain versions on the card: logits compared,
+                 top-1 equal;
+  8. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+                 top-1 and drop under every truncation and Pareto
+                 multiplier, through the kernels and through the plain
+                 versions (top-1 equal).
 
 The line before the card line is a JSON object with one entry per kernel;
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -45,6 +66,11 @@ PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 
 MULT = "trunc2x2"
+#: The CNN path's multiplier: the rank-5 gate-pruned Pareto multiplier.
+CNN_MULT = "pareto:0.01"
+#: The quantizers' scale floor: a row whose absmax is below it gets
+#: coarser codes, so the CNN path must keep its rows far above it.
+QUANT_FLOOR = 1e-8
 
 
 def log(msg: str) -> None:
@@ -141,8 +167,9 @@ def _lowrank_specs(dev):
     return {r: G.from_multiplier(m, rank=r).to(dev) for r in (1, 2, 4, 8)}
 
 
-def check_kernels(dev) -> dict:
-    """Kernel vs plain version on the card; returns max |err| per kernel."""
+def check_kernels(dev) -> tuple[dict, int]:
+    """Kernel vs plain version on the card; returns max |err| per kernel
+    and the stacked kernel's launches over its parity calls."""
     import torch
     from repro_torch.approx import gemm as G
     from repro_torch.kernels import approx_qgemm as qk
@@ -152,7 +179,8 @@ def check_kernels(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"quantize_rows": 0.0, "approx_qgemm_plane0": 0.0,
-           "approx_qgemm_skinny": 0.0, "flash_attention": 0.0}
+           "approx_qgemm_skinny": 0.0, "flash_attention": 0.0,
+           "approx_qgemm_fused": 0.0, "approx_qgemm_stacked": 0.0}
 
     def rand_q(*shape):
         return torch.randint(-128, 128, shape, generator=gen, device=dev,
@@ -206,6 +234,41 @@ def check_kernels(dev) -> dict:
             ref = G.approx_qgemm(a, b, spec)
             torch.testing.assert_close(got[:, :n], ref, rtol=1e-6, atol=1.0)
 
+    # fused / stacked: every distinct VGG16 im2col shape, the TinyLlama
+    # prefill shapes, odd shapes, every rank; then a K tail that is a whole
+    # padded tile.  The stacked kernel is on no main path: its launches are
+    # counted over these parity calls.
+    def parity():
+        for m, k, n in list(dict.fromkeys(vgg16_convs())) + [
+                (128, 2048, 2048), (128, 2048, 256), (128, 2048, 5632),
+                (128, 5632, 2048), (33, 257, 65), (300, 64, 512)]:
+            a, b = rand_q(m, k), rand_q(k, n)
+            for rank, spec in lowrank.items():
+                what = f"({m},{k},{n}) rank {rank}"
+                got = ops.approx_qgemm(a, b, spec)
+                exact("approx_qgemm_fused", got,
+                      qgemm.approx_qgemm_fused_plain(
+                          a, b, spec.fu_q, spec.fv_q,
+                          ops.plane_scales(spec, rank, dev), k_valid=k), what)
+                exact("approx_qgemm_stacked",
+                      ops.approx_qgemm(a, b, spec, fused=False), got,
+                      what + " (stacked vs fused)")
+                torch.testing.assert_close(got, G.approx_qgemm(a, b, spec),
+                                           rtol=1e-6, atol=1.0)
+                del got
+            del a, b
+
+    _, n = counted(parity)
+    stacked_launches = n["approx_qgemm_stacked"]
+    spec = lowrank[2]
+    a, b = rand_q(128, 128), rand_q(128, 128)
+    ap = torch.cat([a, torch.zeros_like(a)], 1)
+    bp = torch.cat([b, torch.zeros_like(b)], 0)
+    exact("approx_qgemm_fused", qgemm.approx_qgemm_fused(
+        ap, bp, spec.fu_q, spec.fv_q, ops.plane_scales(spec, 2, dev),
+        k_valid=128), G.approx_qgemm(a, b, spec), "fully padded K tile")
+    torch.cuda.empty_cache()
+
     for bh, s, d in [(32, 128, 64), (2, 256, 128), (1, 64, 256), (3, 77, 64),
                      (4, 100, 32)]:
         for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
@@ -222,8 +285,9 @@ def check_kernels(dev) -> dict:
                         err["flash_attention"],
                         (got - want).abs().max().item())
     torch.cuda.synchronize()
-    log("[kernels] all kernels agree with their plain versions")
-    return err
+    log(f"[kernels] all kernels agree with their plain versions; "
+        f"{stacked_launches} stacked launches in the parity calls")
+    return err, stacked_launches
 
 
 def time_kernels(dev, cfg, errs: dict) -> list[dict]:
@@ -325,9 +389,71 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
                  for q, k, v_ in qkv],
         len(qkv) * 4 * bh * bucket * hd * 4,
         len(qkv) * bh * pairs * 4 * hd, PEAK_F32)
-    del weights, head
+    del weights, head, acts, dec, pre, xs, qkv
+    torch.cuda.empty_cache()
+
+    # fused: the 13 conv GEMMs of one VGG16 forward (batch 8, 224x224)
+    # under the rank-5 Pareto multiplier; stacked: the same GEMMs through
+    # the stacked route, on stacks built beforehand
+    lspec = G.spec_from_name(CNN_MULT).to(dev)
+    rank = lspec.rank
+    planes = rank + 1
+    scales = ops.plane_scales(lspec, rank, dev)
+    convs = [(torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                            dtype=torch.int8),
+              torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                            dtype=torch.int8)) for m, k, n in vgg16_convs()]
+    mkn = [(a.shape[0], a.shape[1], w.shape[1]) for a, w in convs]
+    # torch._int_mm takes K and N in multiples of 8: conv 1's K = 27 pads
+    padded8 = [(ops._pad_to(a, 1, 8), ops._pad_to(w, 0, 8))
+               for a, w in convs]
+
+    def int_mm_planes():
+        return [torch._int_mm(a, w) for a, w in padded8
+                for _ in range(planes)]
+
+    row("approx_qgemm_fused", "cuda", "src/repro_torch/csrc/qgemm.cu",
+        "src/repro/kernels/approx_qgemm.py:273",
+        "VGG16 forward, batch 8 (13 conv GEMMs)", len(convs),
+        lambda: [ops.approx_qgemm(a, w, lspec) for a, w in convs],
+        lambda: [qgemm.approx_qgemm_fused_plain(
+            a, w, lspec.fu_q, lspec.fv_q, scales, k_valid=a.shape[1])
+            for a, w in convs],
+        int_mm_planes,
+        sum(m * k + k * n + 4 * m * n for m, k, n in mkn),
+        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
+    stacks = []
+    for a, w in convs:
+        a_s, b_s, s_ = ops.build_stacks(a, w, lspec)
+        stacks.append((ops._pad_to(ops._pad_to(a_s, 1, 128), 2, 32),
+                       ops._pad_to(ops._pad_to(b_s, 1, 32), 2, 128), s_))
+    del convs
+    row("approx_qgemm_stacked", "cuda", "src/repro_torch/csrc/qgemm.cu",
+        "src/repro/kernels/approx_qgemm.py:157",
+        "VGG16 forward's 13 conv GEMMs, pre-mapped stacks", len(stacks),
+        lambda: [qgemm.approx_qgemm_stacked(a_s, b_s, s_)
+                 for a_s, b_s, s_ in stacks],
+        lambda: [qgemm.approx_qgemm_stacked_plain(a_s, b_s, s_)
+                 for a_s, b_s, s_ in stacks],
+        int_mm_planes,
+        sum(planes * (m * k + k * n) + 4 * m * n for m, k, n in mkn),
+        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
+    del stacks, padded8
     torch.cuda.empty_cache()
     return out
+
+
+def vgg16_convs(batch: int = 8, image: int = 224) -> list[tuple]:
+    """(M, K, N) of VGG16's 13 im2col conv GEMMs."""
+    from repro_torch.models import cnn
+    shapes, c_in, hw = [], 3, image
+    for v in cnn.VGG_CFG["vgg16"]:
+        if v == "M":
+            hw //= 2
+            continue
+        shapes.append((batch * hw * hw, 9 * c_in, v))
+        c_in = v
+    return shapes
 
 
 # ---------------------------------------------------------------------------
@@ -335,13 +461,28 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 def counters():
+    """Every kernel wrapper, by kernel name: each counts its launches."""
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import qgemm
     from repro_torch.kernels import quantize as qz
     return {"quantize_rows": qz.quantize_rows,
             "approx_qgemm_plane0": qgemm.approx_qgemm_plane0,
             "approx_qgemm_skinny": qgemm.approx_qgemm_skinny,
-            "flash_attention": fk.flash_attention}
+            "flash_attention": fk.flash_attention,
+            "approx_qgemm_fused": qgemm.approx_qgemm_fused,
+            "approx_qgemm_stacked": qgemm.approx_qgemm_stacked}
+
+
+def counted(fn) -> tuple:
+    """(result of fn(), launches of every kernel during it): the counters
+    are set to 0 just before and read just after."""
+    import torch
+    ctr = counters()
+    for f in ctr.values():
+        f.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {name: f.launches for name, f in ctr.items()}
 
 
 def serve_phase(dev, cfg) -> dict:
@@ -364,14 +505,9 @@ def serve_phase(dev, cfg) -> dict:
     for i, (n, t) in enumerate(zip(lens, arrivals)):
         eng.submit(Request(f"r{i}", rng.integers(0, cfg.vocab, n).tolist(),
                            sp, arrival=t))
-    ctr = counters()
-    for fn in ctr.values():
-        fn.launches = 0
     t0 = time.perf_counter()
-    done = eng.run_until_complete()
-    torch.cuda.synchronize()
+    done, launches = counted(eng.run_until_complete)
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in ctr.items()}
 
     assert len(done) == 6, [c.request_id for c in done]
     for c in done:
@@ -383,10 +519,9 @@ def serve_phase(dev, cfg) -> dict:
     want = {"quantize_rows": (n_gemm + 1) * (steps + adm),
             "approx_qgemm_skinny": (n_gemm + 1) * steps + adm,
             "approx_qgemm_plane0": n_gemm * adm,
-            "flash_attention": cfg.n_layers * adm}
-    for name, n in launches.items():
-        assert n > 0, f"{name} never launched on the main path"
-        assert n == want[name], (name, n, want[name])
+            "flash_attention": cfg.n_layers * adm,
+            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+    assert launches == want, (launches, want)
     toks = sum(len(c.tokens) - 1 for c in done)
     log(f"[serve] 6 requests x 16 tokens in {wall:.2f}s: prefill "
         f"{st['prefill_s']:.3f}s for {adm} requests "
@@ -442,15 +577,24 @@ def profile_decode(eng, rng, cfg, steps: int = 4) -> None:
     eng.run_until_complete()
 
 
-def check_phase(dev, cfg_full) -> None:
-    """Kernels vs plain versions through the whole model on the card."""
+def check_phase(dev, cfg_full, mult: str, attn_impl: str) -> None:
+    """Kernels vs plain versions through the whole model on the card.
+
+    Under trunc2x2 the kernel run takes flash attention and the plain run
+    the plain chunked forward.  Under pareto:0.01 both runs take the plain
+    chunked attention, so that only the GEMM and quantize kernels differ:
+    flash's f32 rounding moves int8 codes at the o-projection input, which
+    the rank-5 multiplier, masking no LSBs, carries to the logits.
+    `flash_witness` measures that and holds the GEMM kernels to the plain
+    path on flash's own o-projection inputs."""
     import dataclasses
 
     import numpy as np
     import torch
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    cfg = dataclasses.replace(cfg_full, n_layers=2, mult=mult,
+                              attn_impl=attn_impl)
     params = api.init_params(cfg, seed=1, device=dev)
     rng = np.random.default_rng(1)
     # a full arena (m = 4 on the skinny kernel) at per-row lengths
@@ -462,14 +606,21 @@ def check_phase(dev, cfg_full) -> None:
         c = dataclasses.replace(cfg, kernel_policy=policy)
         spec = api.make_spec(c, device=dev)
         p = api.prepare_params(params, c, spec)
-        logits, cache = api.prefill(p, tokens, c, spec, max_len=160,
-                                    true_len=true_len)
+        (logits, cache), n = counted(lambda: api.prefill(
+            p, tokens, c, spec, max_len=160, true_len=true_len))
+        if policy == "pallas":
+            tiled = "approx_qgemm_fused" if spec.mode == "lowrank" \
+                else "approx_qgemm_plane0"
+            assert n[tiled] == 7 * cfg.n_layers, (mult, n)
         runs[policy] = [c, spec, p, cache, logits]
+    if attn_impl != "flash":
+        flash_witness(runs, tokens, true_len)
     # Both paths decode the same greedy tokens (the kernel path's), so each
     # step's logits compare on equal inputs.  Only flash vs the plain
     # chunked attention differ, by f32 rounding (a few 1e-7 here); the
     # other kernels are bit-exact, so 1e-4 leaves room for rounding but
-    # not for one int8 code moving (O(1e-3) on a logit).
+    # not for one int8 code moving (O(1e-3) on a logit).  The decode
+    # attention is plain PyTorch in both runs.
     tol = 1e-4
     diffs, match = [], []
     for step in range(9):
@@ -486,12 +637,264 @@ def check_phase(dev, cfg_full) -> None:
             c, spec, p, cache, _ = run
             run[4], run[3] = api.decode_step(p, cache, tok[:, None], c, spec)
     share = sum(match) / len(match)
-    log(f"[check] 2-layer full width, kernels vs plain on the card: prefill "
+    log(f"[check] {mult}, attention {attn_impl}, 2-layer full width, "
+        f"kernels vs plain on the card: prefill "
         f"logits max|diff| {diffs[0]:.3e}, decode steps 1-8 max|diff| "
         f"{max(diffs[1:]):.3e} (limit {tol:g}; |logits| <= "
         f"{lx.abs().max().item():.3f}), greedy token match {share:.3f}")
     assert max(diffs) <= tol, diffs
     assert share == 1.0, match
+
+
+def flash_witness(runs: dict, tokens, true_len) -> None:
+    """Flash vs the plain chunked attention at layer 0 of the model that
+    `check_phase` runs on chunked attention: their divergence at the
+    o-projection input, the int8 codes it moves and what it makes of the
+    prefill logits are printed as readings; the o-projection GEMM through
+    the kernels and through the plain path must agree to the bit on
+    flash's outputs and on chunked's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.approx import layers as AL
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.models import api
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+
+    c, spec, p = runs["pallas"][:3]
+    cx, spec_x, px = runs["xla"][:3]
+    b, s = tokens.shape
+    lp, lpx = T._layer(p["layers"], 0), T._layer(px["layers"], 0)
+    with torch.no_grad():
+        x = C.rmsnorm(AL.embed(tokens, p["embed"]), lp["ln1"])
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        q, k, v = T._qkv(x, lp, c, spec, positions)
+        inputs = {"flash": C.flash_attention(q, k, v, True),
+                  "chunked": C.chunked_attention(q, k, v, c.attn_chunk, True)}
+        inputs = {name: o.reshape(b, s, -1) for name, o in inputs.items()}
+        for name, o in inputs.items():
+            got = AL.dense(o, lp["wo"], None, spec)
+            want = AL.dense(o, lpx["wo"], None, spec_x)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"o-projection on {name}'s output: kernels != plain "
+                    f"(max |diff| {(got - want).abs().max().item():.3e})")
+        div = (inputs["flash"] - inputs["chunked"]).abs().max().item()
+        codes = [qz.quantize_rows_plain(o.reshape(b * s, -1), 0)[0]
+                 for o in inputs.values()]
+        moved = (codes[0] != codes[1]).sum().item()
+        cf = dataclasses.replace(c, attn_impl="flash")
+        lf, _ = api.prefill(p, tokens, cf, spec, max_len=160,
+                            true_len=true_len)
+        ldiff = (lf - runs["pallas"][4]).abs().max().item()
+    log(f"[check] flash witness, layer 0 o-projection input: flash vs "
+        f"chunked max|diff| {div:.3e}, {moved} of {codes[0].numel()} int8 "
+        f"codes moved; the o-projection GEMM through the kernels equals the "
+        f"plain path's on both; prefill logits with flash vs chunked "
+        f"attention (kernels on both) max|diff| {ldiff:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# the CNN path: full-width VGG16 / ResNet50 under a Pareto multiplier
+# ---------------------------------------------------------------------------
+
+def _cnn_spec(dev, policy: str):
+    from repro_torch.approx import gemm as G
+    spec = G.spec_from_name(CNN_MULT).with_policy(policy).to(dev)
+    assert spec.mode == "lowrank" and spec.rank == 5, (spec.mode, spec.rank)
+    return spec
+
+
+def vgg_replay(params, x, arch: str, spec, calibrate: bool = False
+               ) -> tuple:
+    """`cnn.vgg_forward` layer by layer: (logits, the smallest absmax of
+    the rows each of its GEMMs quantizes, the share of each conv's outputs
+    above 0).  An im2col row's absmax is the 3x3 window's max of the
+    per-pixel channel absmax.  With `calibrate`, each layer's weight and
+    bias are first set in place so that its output over `x` has mean 0
+    and variance 1 (a data-dependent init, as LSUV's), which stands in for
+    the normalisation a trained network folds in.  The reference's init
+    needs it under a low-rank multiplier: the multiplier errs low on the
+    non-negative activations, so ReLU zeroes most outputs, the scale
+    shrinks layer by layer towards the quantizers' floor, and whole FC
+    rows die."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.approx import layers as AL
+    from repro_torch.models import cnn
+
+    def layer(x, p, op):
+        y = op(x, p["w"])
+        if calibrate:
+            std, mean = torch.std_mean(y)
+            p["w"].div_(std)
+            p["b"].fill_(-(mean / std).item())
+            y = op(x, p["w"])
+        return y + p["b"]
+
+    mins, live = [], []
+    convs = iter(params["convs"])
+    for v in cnn.VGG_CFG[arch]:
+        if v == "M":
+            x = cnn._max_pool(x, 2, 2, same=False)
+            continue
+        amax = x.abs().amax(-1)[:, None]
+        mins.append(F.max_pool2d(amax, 3, 1, padding=1).min().item())
+        y = layer(x, next(convs), lambda x, w: AL.conv2d(x, w, 1, 1, spec))
+        live.append((y > 0).float().mean().item())
+        x = torch.relu(y)
+    x = x.reshape(x.shape[0], -1)
+    for i, p in enumerate(params["fcs"]):
+        mins.append(x.abs().amax(-1).min().item())
+        x = layer(x, p, lambda x, w: AL.dense(x, w, None, spec))
+        if i < len(params["fcs"]) - 1:
+            x = torch.relu(x)
+    return x, mins, live
+
+
+def vgg16_params(dev, seed: int, x) -> tuple:
+    """VGG16's parameters from a seeded CUDA generator, calibrated on the
+    plain path under the CNN multiplier on `x`; with the reference init's
+    row-absmax minima and live shares."""
+    import torch
+    from repro_torch.models import cnn
+    params = cnn.init_vgg("vgg16", seed=seed, n_classes=1000, image=224,
+                          device=dev)
+    spec = _cnn_spec(dev, "xla")
+    with torch.no_grad():
+        _, raw, live = vgg_replay(params, x, "vgg16", spec)
+        vgg_replay(params, x, "vgg16", spec, calibrate=True)
+    return params, raw, live
+
+
+def cnn_phase(dev) -> dict:
+    """One VGG16 forward (224x224, batch 8) under pareto:0.01 with every
+    kernel counter read around it; then the smallest row absmax each of its
+    GEMMs quantizes, its time and its device profile."""
+    import torch
+    from repro_torch.models import cnn
+
+    t0 = time.perf_counter()
+    spec = _cnn_spec(dev, "pallas")
+    log(f"[cnn] {CNN_MULT} -> {spec.name}: rank {spec.rank}, nmed "
+        f"{spec.nmed:.5f} (front ready in {time.perf_counter() - t0:.1f}s)")
+    x = torch.randn((8, 224, 224, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    params, raw, raw_live = vgg16_params(dev, 0, x)
+
+    def fwd():
+        return cnn.vgg_forward(params, x, "vgg16", spec=spec)
+
+    with torch.no_grad():
+        fwd()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, launches = counted(fwd)
+        first = time.perf_counter() - t0
+        want = {"quantize_rows": 16, "approx_qgemm_fused": 13,
+                "approx_qgemm_skinny": 3, "approx_qgemm_plane0": 0,
+                "approx_qgemm_stacked": 0, "flash_attention": 0}
+        assert launches == want, (launches, want)
+        assert logits.shape == (8, 1000) and torch.isfinite(logits).all()
+        replayed, mins, live = vgg_replay(params, x, "vgg16", spec)
+        assert torch.equal(replayed, logits), "replay != vgg_forward"
+
+        def fmt(vals, f):
+            return "[" + ", ".join(format(v, f) for v in vals) + "]"
+
+        log(f"[cnn] smallest row absmax per GEMM (16; quantizer floor "
+            f"{QUANT_FLOOR:g}): reference init {fmt(raw, '.2e')}, calibrated "
+            f"{fmt(mins, '.2e')}")
+        log(f"[cnn] share of conv outputs > 0 (13): reference init "
+            f"{fmt(raw_live, '.3f')}, calibrated {fmt(live, '.3f')}")
+        assert min(mins) >= 1e4 * QUANT_FLOOR, mins
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        log(f"[cnn] VGG16 224x224 batch 8 under {CNN_MULT}: launches "
+            f"{launches}; forward {first * 1e3:.2f} ms (counted run), "
+            f"{ms:.2f} ms (mean of {reps}); |logits| <= "
+            f"{logits.abs().max().item():.3e}")
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = device_events(prof.key_averages())
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    if dev_us <= 0:
+        log("[cnn] no device time in the trace: busy share not measured")
+    else:
+        log(f"[cnn] profiled forward: wall {wall * 1e3:.2f} ms, device busy "
+            f"{dev_us / 1e3:.2f} ms ({dev_us / 1e6 / wall:.1%}); "
+            f"{sum(e.count for e in kernels)} device ops")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[cnn]   {e.self_device_time_total / 1e3:8.3f} ms  "
+                f"{e.count:4d} calls  {e.key[:70]}")
+    del params, x, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cnn_check_phase(dev) -> None:
+    """VGG16 (calibrated as in the cnn phase) and ResNet50 (224x224, batch 2,
+    pareto:0.01) through the kernels and the plain versions on the card.
+    The kernels and the plain versions compute the same integer planes and
+    flush them in the same order, so the logits should agree to the bit;
+    the limit, 1e-4 of the logits' scale, leaves room for rounding but not
+    for one int8 code moving."""
+    import torch
+    from repro_torch.models import cnn
+
+    kern, plain = _cnn_spec(dev, "pallas"), _cnn_spec(dev, "xla")
+    x = torch.randn((2, 224, 224, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    for arch in ("vgg16", "resnet50"):
+        if arch == "vgg16":
+            params = vgg16_params(dev, 1, x)[0]
+            fwd = cnn.vgg_forward
+        else:
+            params = cnn.init_resnet(arch, seed=1, device=dev)
+            fwd = cnn.resnet_forward
+        with torch.no_grad():
+            lk, nk = counted(lambda: fwd(params, x, arch, spec=kern))
+            lx = fwd(params, x, arch, spec=plain)
+        assert nk["approx_qgemm_fused"] > 0, nk
+        assert torch.isfinite(lk).all() and lk.shape == (2, 1000)
+        diff = (lk - lx).abs().max().item()
+        scale = lx.abs().max().item()
+        same_top1 = torch.equal(lk.argmax(-1), lx.argmax(-1))
+        log(f"[cnn-check] {arch} batch 2 under {CNN_MULT}: kernels "
+            f"{ {k: v for k, v in nk.items() if v} }; logits max|diff| "
+            f"kernels vs plain {diff:.3e} (|logits| <= {scale:.3e}, limit "
+            f"{1e-4 * scale:.3e}); top-1 equal {same_top1}")
+        assert diff <= 1e-4 * scale and same_top1
+        del params, lk, lx
+        torch.cuda.empty_cache()
+
+
+def accuracy_phase(dev) -> None:
+    """repro_torch.launch.accuracy on the card: vgg_mini trained 260 steps,
+    every multiplier's top-1 through the kernels and the plain versions."""
+    from repro_torch.launch import accuracy as acc
+
+    t0 = time.perf_counter()
+    params, rows = acc.run(policy="pallas", device=dev)
+    plain = acc.report(params, "xla")
+    for line in acc.format_lines(rows):
+        log(f"[accuracy] {line}")
+    for r, q in zip(rows, plain, strict=True):
+        assert r["name"] == q["name"] and r["top1"] == q["top1"], (r, q)
+    log("[accuracy] ranks " + ", ".join(
+        f"{r['name']}={r['mode']}/{r['rank']}" for r in rows[1:])
+        + f"; kernels and plain versions give the same top-1 for all "
+        f"{len(rows)}; {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -514,11 +917,23 @@ def main() -> int:
     cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
                              kernel_policy="pallas", attn_impl="flash",
                              dtype="float32")
-    table = time_kernels(dev, cfg, check_kernels(dev))
+    errs, stacked_launches = check_kernels(dev)
+    table = time_kernels(dev, cfg, errs)
+    log(f"[kernels] {time.perf_counter() - t_start:.1f}s")
+    # each kernel's launches come from the main path that runs it
     launches = serve_phase(dev, cfg)
+    check_phase(dev, cfg, MULT, "flash")
+    check_phase(dev, cfg, CNN_MULT, "chunked")
+    log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
+    cnn_launches = cnn_phase(dev)
+    cnn_check_phase(dev)
+    launches["approx_qgemm_fused"] = cnn_launches["approx_qgemm_fused"]
+    launches["approx_qgemm_stacked"] = stacked_launches
+    log(f"[cnn] {time.perf_counter() - t_start:.1f}s")
+    accuracy_phase(dev)
     for row in table:
         row["launches"] = launches[row["name"]]
-    check_phase(dev, cfg)
+        assert row["launches"] > 0, row["name"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

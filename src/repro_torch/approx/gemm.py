@@ -257,8 +257,9 @@ def _quantize_activations(x2: torch.Tensor, spec: MultSpec, use_kernels: bool
 
 def _gemm_plan(spec: MultSpec, m: int, k: int, n: int, device):
     from repro_torch.kernels import dispatch
+    rank = spec.rank if spec.mode == "lowrank" else 0
     return dispatch.choose_gemm_path(spec.policy, m=m, k=k, n=n,
-                                     device=device)
+                                     device=device, rank=rank)
 
 
 def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,

@@ -127,9 +127,11 @@ def get_multiplier(name: str) -> ApproxMultiplier:
     lib = static_library()
     if name in lib:
         return lib[name]
-    # Pareto-searched multipliers ("pareto:<nmed_band>") come from the
-    # NSGA-II front of core/pareto.py, which this package does not carry yet.
+    # Lazily extend with Pareto-searched multipliers by convention
+    # "pareto:<nmed_band>" e.g. "pareto:0.005".
     if name.startswith("pareto:"):
-        raise NotImplementedError(
-            f"{name!r}: core/pareto.py is not ported to repro_torch yet")
+        from . import pareto as paretomod
+        band = float(name.split(":", 1)[1])
+        front = paretomod.default_front()
+        return paretomod.pick_by_nmed(front, band)
     raise KeyError(f"unknown multiplier {name!r}; have {sorted(lib)}")

@@ -40,6 +40,47 @@
 // the planes in order with __fmul_rn / __fadd_rn, so no FMA contraction can
 // change a bit against the plain version.  Rank 0 passes no tables at all.
 // Operands are padded by the wrapper: K a multiple of 4, N of 128.
+//
+// ---------------------------------------------------------------------------
+// repro_qgemm_fused
+// Replaces: src/repro/kernels/approx_qgemm.py, approx_qgemm_fused
+// (_fused_kernel + _correction_dots).  The low-rank GEMM at any M:
+//   acc_0 = (A & mask_a) . (B & mask_b)
+//   acc_r = U_r(A) . V_r(B), r = 1..R   (U_r(a) = fu[r-1][a & 0xFF], zero
+//                                        at k >= k_valid; V_r likewise)
+//   C = ((0 + 1 acc_0) + s_1 acc_1) + ...   (s_r = -s_r of the spec)
+// with A (M, K) and B (K, N) raw int8, R <= 8.
+//
+// Bound on the H100: operations, 2 M K N (R + 1) at the int8 tensor-core
+// rate, once M K N is large (every im2col GEMM of the CNNs); bytes (the raw
+// operands once, M K + K N + 4 M N) below that.  The TPU kernel keeps all
+// R + 1 int32 accumulators of a 128 x 128 tile live at once; at rank 8 that
+// is 576 KiB, more than an SM's register file.  Design: the plane-0 block
+// tile (128 x 128 x 32, eight warps of 64 x 32, mma.sync m16n8k32) with
+// the planes as the OUTERMOST loop of each block: one int32 accumulator and
+// one f32 output accumulator live per thread.  The (R, 256) tables sit in
+// shared memory, loaded once per block; plane r >= 1 maps each staged A
+// and B word through them byte by byte before the shared-memory store, and
+// zeroes mapped A bytes at k >= k_valid (pad zeros map to tbl[0] != 0).
+// Pad rows of M and pad columns of N map to garbage that the wrapper crops.
+// After each plane's K loop the int32 sum is flushed into the output as
+// out = __fadd_rn(out, __fmul_rn(s_r, (float)acc)), in plane order, so no
+// FMA contraction can change a bit against the plain version.  The cost of
+// this design: the operands are re-read R + 1 times (from L2 where a tile
+// row fits), and the loads are not pipelined.  No split-K.  Operands are
+// padded by the wrapper: M, N multiples of 128, K a multiple of 32.
+//
+// ---------------------------------------------------------------------------
+// repro_qgemm_stacked
+// Replaces: src/repro/kernels/approx_qgemm.py, approx_qgemm_stacked
+// (_stacked_kernel).  C = sum_p scales[p] * (A_p . B_p) over P <= 9 planes of
+// pre-mapped (P, M, K) / (P, K, N) int8 stacks (kernels/ops.py build_stacks
+// maps the operands in PyTorch and pads after mapping, so pads are zero in
+// every plane).  Bound on the H100: bytes of the P-fold stacks, or
+// operations 2 M K N P, whichever is larger.  Design: the same kernel as
+// fused, with the table map and the K mask compiled out and plane p read
+// from its own slice of the stacks; the same flush, in the same order, so
+// the two kernels agree bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -56,6 +97,32 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One 32-deep K step of a block's 128 x 128 tile: the warp's 64 x 32 piece
+// of As [m][k] x Bs [n][k] into its int32 accumulators.
+__device__ __forceinline__ void tile_mma(const uint8_t* As, const uint8_t* Bs,
+                                         int acc[4][4][4], int wm, int wn,
+                                         int g, int t) {
+  uint32_t af[4][4], bf[4][2];
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    const uint8_t* p = As + (wm * 64 + mi * 16 + g) * P0_LD + t * 4;
+    af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
+    af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * P0_LD);
+    af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+    af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * P0_LD + 16);
+  }
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const uint8_t* p = Bs + (wn * 32 + ni * 8 + g) * P0_LD + t * 4;
+    bf[ni][0] = *reinterpret_cast<const uint32_t*>(p);
+    bf[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
 }
 
 __global__ void __launch_bounds__(P0_THREADS)
@@ -104,25 +171,7 @@ plane0_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     }
     __syncthreads();
 
-    uint32_t af[4][4], bf[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const uint8_t* p = As + (wm * 64 + mi * 16 + g) * P0_LD + t * 4;
-      af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * P0_LD);
-      af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-      af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * P0_LD + 16);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const uint8_t* p = Bs + (wn * 32 + ni * 8 + g) * P0_LD + t * 4;
-      bf[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-      bf[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+    tile_mma(As, Bs, acc, wm, wn, g, t);
     __syncthreads();
   }
 
@@ -257,6 +306,151 @@ __global__ void skinny_flush_kernel(const int* __restrict__ acc,
   out[i] = o;
 }
 
+// ----------------------------- low rank: fused / stacked -------------------
+constexpr int LR_MAX_RANK = 8;
+
+// w with the bytes at columns col + j >= k_valid set to zero (byte j of a
+// little-endian word is column col + j).
+__device__ __forceinline__ uint32_t keep_below(uint32_t w, int col,
+                                               int k_valid) {
+  const int n = k_valid - col;
+  if (n >= 4) return w;
+  if (n <= 0) return 0u;
+  return w & (0xFFFFFFFFu >> (8 * (4 - n)));
+}
+
+template <bool kStacked>
+__global__ void __launch_bounds__(P0_THREADS)
+lowrank_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
+               const int8_t* __restrict__ fu, const int8_t* __restrict__ fv,
+               const float* __restrict__ scales, float* __restrict__ C,
+               int M, int K, int N, int planes, int k_valid, uint32_t mask_a,
+               uint32_t mask_b) {
+  __shared__ __align__(16) uint8_t As[P0_BM * P0_LD];  // [m][k]
+  __shared__ __align__(16) uint8_t Bs[P0_BN * P0_LD];  // [n][k]
+  __shared__ int8_t tu[kStacked ? 1 : LR_MAX_RANK * 256];
+  __shared__ int8_t tv[kStacked ? 1 : LR_MAX_RANK * 256];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 x 32 each
+  const int g = lane >> 2, t = lane & 3;
+  // N blocks fastest: the blocks that share an A tile run together.
+  const int n_blocks = N / P0_BN;
+  const int m0 = (int)(blockIdx.x / n_blocks) * P0_BM;
+  const int n0 = (int)(blockIdx.x % n_blocks) * P0_BN;
+
+  if (!kStacked) {
+    for (int i = tid; i < (planes - 1) * 256; i += P0_THREADS) {
+      tu[i] = fu[i];
+      tv[i] = fv[i];
+    }
+    __syncthreads();
+  }
+
+  const int a_row = tid >> 1, a_col = (tid & 1) * 16;
+  const int b_k = (tid >> 5) * 4, b_n = (tid & 31) * 4;
+
+  float out[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[i][j][e] = 0.f;
+
+  for (int p = 0; p < planes; ++p) {
+    const size_t a_off = kStacked ? (size_t)p * M * K : 0;
+    const size_t b_off = kStacked ? (size_t)p * K * N : 0;
+    const int8_t* a_ptr = A + a_off + (size_t)(m0 + a_row) * K + a_col;
+    const int8_t* b_ptr = B + b_off + (size_t)b_k * N + n0 + b_n;
+    const int8_t* ta = tu + (kStacked || p == 0 ? 0 : (p - 1) * 256);
+    const int8_t* tb = tv + (kStacked || p == 0 ? 0 : (p - 1) * 256);
+
+    int acc[4][4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+    for (int k0 = 0; k0 < K; k0 += P0_BK) {
+      uint4 av = *reinterpret_cast<const uint4*>(a_ptr + k0);
+      uint32_t r[4], c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        r[i] = *reinterpret_cast<const uint32_t*>(b_ptr + (size_t)(k0 + i) * N);
+      }
+      if (!kStacked) {
+        if (p == 0) {
+          av.x &= mask_a;
+          av.y &= mask_a;
+          av.z &= mask_a;
+          av.w &= mask_a;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) r[i] &= mask_b;
+        } else {
+          av.x = map_bytes(av.x, ta);
+          av.y = map_bytes(av.y, ta);
+          av.z = map_bytes(av.z, ta);
+          av.w = map_bytes(av.w, ta);
+          const int kc = k0 + a_col;
+          if (kc + 16 > k_valid) {
+            av.x = keep_below(av.x, kc, k_valid);
+            av.y = keep_below(av.y, kc + 4, k_valid);
+            av.z = keep_below(av.z, kc + 8, k_valid);
+            av.w = keep_below(av.w, kc + 12, k_valid);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) r[i] = map_bytes(r[i], tb);
+        }
+      }
+      *reinterpret_cast<uint4*>(As + a_row * P0_LD + a_col) = av;
+      repro_transpose4x4(r, c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<uint32_t*>(Bs + (b_n + j) * P0_LD + b_k) = c[j];
+      }
+      __syncthreads();
+      tile_mma(As, Bs, acc, wm, wn, g, t);
+      __syncthreads();
+    }
+
+    const float s = scales[p];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          out[i][j][e] = __fadd_rn(out[i][j][e],
+                                   __fmul_rn(s, (float)acc[i][j][e]));
+        }
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    const int row = m0 + wm * 64 + mi * 16 + g;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = n0 + wn * 32 + ni * 8 + t * 2;
+      *reinterpret_cast<float2*>(C + (size_t)row * N + col) =
+          make_float2(out[mi][ni][0], out[mi][ni][1]);
+      *reinterpret_cast<float2*>(C + (size_t)(row + 8) * N + col) =
+          make_float2(out[mi][ni][2], out[mi][ni][3]);
+    }
+  }
+}
+
+// Blocks of the low-rank kernels' grid, or 0 when the shape is refused.
+long long lowrank_blocks(int m, int k, int n) {
+  if (m < P0_BM || n < P0_BN || k < P0_BK || m % P0_BM || n % P0_BN ||
+      k % P0_BK) {
+    return 0;
+  }
+  const long long blocks = (long long)(m / P0_BM) * (n / P0_BN);
+  return blocks > 0x7FFFFFFFLL ? 0 : blocks;
+}
+
 }  // namespace
 
 REPRO_API int repro_qgemm_plane0(const void* a, const void* b, void* out,
@@ -293,5 +487,36 @@ REPRO_API int repro_qgemm_skinny(const void* a, const void* b, const void* fu,
   skinny_flush_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0,
                         s>>>((const int*)acc, (const float*)scales,
                              (float*)out, (int)mn, planes);
+  return (int)cudaGetLastError();
+}
+
+REPRO_API int repro_qgemm_fused(const void* a, const void* b, const void* fu,
+                                const void* fv, const void* scales, void* out,
+                                int m, int k, int n, int k_valid, int rank,
+                                int mask_a, int mask_b, void* stream) {
+  const long long blocks = lowrank_blocks(m, k, n);
+  if (!blocks || rank < 0 || rank > LR_MAX_RANK || k_valid < 1 ||
+      k_valid > k) {
+    return (int)cudaErrorInvalidValue;
+  }
+  lowrank_kernel<false><<<(unsigned)blocks, P0_THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const int8_t*)a, (const int8_t*)b, (const int8_t*)fu,
+      (const int8_t*)fv, (const float*)scales, (float*)out, m, k, n,
+      rank + 1, k_valid, repro_word_mask(mask_a), repro_word_mask(mask_b));
+  return (int)cudaGetLastError();
+}
+
+REPRO_API int repro_qgemm_stacked(const void* a, const void* b,
+                                  const void* scales, void* out, int planes,
+                                  int m, int k, int n, void* stream) {
+  const long long blocks = lowrank_blocks(m, k, n);
+  if (!blocks || planes < 1 || planes > LR_MAX_RANK + 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  lowrank_kernel<true><<<(unsigned)blocks, P0_THREADS, 0,
+                         (cudaStream_t)stream>>>(
+      (const int8_t*)a, (const int8_t*)b, nullptr, nullptr,
+      (const float*)scales, (float*)out, m, k, n, planes, k, ~0u, ~0u);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,12 @@ SIGNATURES = {
     # mask_b, splits, stream
     "repro_qgemm_skinny": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _P),
+    # a, b, fu, fv, scales, out, m, k, n, k_valid, rank, mask_a, mask_b,
+    # stream
+    "repro_qgemm_fused": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P),
+    # a_stack, b_stack, scales, out, planes, m, k, n, stream
+    "repro_qgemm_stacked": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # q, k, v, o, bh, sq, skv, d, causal, is_bf16, scale, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _P),

@@ -14,9 +14,16 @@ carried over to this port:
 
 The policy rides on `MultSpec.policy`, is settable per model through
 `ModelConfig.kernel_policy`, per run through `--kernel-policy`, and
-process-wide through `$REPRO_KERNEL_POLICY`.  The autotune cache and the
-roofline plan of the JAX package are not ported yet: the "pallas" plan is
-the static one (skinny for m <= 32, the tiled plane-0 kernel otherwise).
+process-wide through `$REPRO_KERNEL_POLICY`.
+
+The kernel plan is static: the skinny kernel for m <= 32 at any rank;
+above that the tiled kernels, the plane-0 kernel for exact/trunc specs
+and the fused low-rank kernel for low-rank ones (plan path "fused").  Path
+"stacked" — the fused kernel's parity twin over pre-mapped operand stacks
+— is a valid plan that `choose_gemm_path` never returns: a caller asks for
+it with `GemmPlan("stacked", ...)` or `ops.approx_qgemm(fused=False)`.
+(The JAX package reaches it through its autotune cache; that cache and its
+roofline plan are not ported yet.)
 """
 
 from __future__ import annotations
@@ -61,10 +68,11 @@ def use_kernels(policy: str | None, device: torch.device) -> bool:
 class GemmPlan:
     """Execution plan for one approximate GEMM.
 
-    `path` is "fused" (the kernels: the tiled plane-0 kernel, or the
-    skinny kernel when `skinny`) or "xla" (the plain PyTorch path of
-    approx/gemm.py); `bm/bk/bn` are the padding multiples (bm is the true
-    row count on the skinny kernel)."""
+    `path` is "fused" (the kernels on raw operands: the plane-0 kernel
+    or the fused low-rank kernel, or the skinny kernel when `skinny`),
+    "stacked" (the stacked kernel on pre-mapped planes) or "xla" (the
+    plain PyTorch path of approx/gemm.py); `bm/bk/bn` are the padding
+    multiples (bm is the true row count on the skinny kernel)."""
     path: str
     bm: int
     bk: int
@@ -77,13 +85,16 @@ class GemmPlan:
 
 
 def choose_gemm_path(policy: str | None, *, m: int, k: int, n: int,
-                     device: torch.device | str = "cuda") -> GemmPlan:
+                     device: torch.device | str = "cuda",
+                     rank: int = 0) -> GemmPlan:
     """The GEMM dispatch: the kernels (skinny for m <= SKINNY_MAX_M, the
-    tiled kernel otherwise) or the plain path, per the policy and the
-    operands' device."""
+    tiled kernel of the spec's mode otherwise) or the plain path, per the
+    policy and the operands' device.  `rank` is the spec's low-rank rank
+    (0 for exact/trunc)."""
     from repro_torch.kernels import approx_qgemm as qk
 
-    bm, bk, bn = qk.choose_blocks(m, k, n)
+    bm, bk, bn = qk.choose_blocks(m, k, n,
+                                  kernel="fused" if rank else "plane0")
     if not use_kernels(policy, torch.device(device)):
         return GemmPlan("xla", bm, bk, bn)
     if m <= qk.SKINNY_MAX_M:

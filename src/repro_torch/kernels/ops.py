@@ -5,6 +5,12 @@ Each wrapper takes the kernel for a CUDA tensor and the kernel's plain
 PyTorch version for a CPU tensor (the CPU counterpart of the JAX package
 running its Pallas kernels in interpret mode).  A CUDA tensor never falls
 back: what no ported kernel computes raises.
+
+The approximate GEMM runs FUSED by default: raw quantized operands go
+straight into the kernel, which applies the truncation mask and the
+per-rank table maps itself.  The stacked path — `build_stacks` pre-maps
+the operands in PyTorch into (P, M, K) / (P, K, N) intermediates — is kept
+behind `fused=False` as the fused kernel's parity twin.
 """
 
 from __future__ import annotations
@@ -28,6 +34,27 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     widths = [0, 0] * x.ndim
     widths[2 * (x.ndim - 1 - axis) + 1] = pad
     return F.pad(x, widths)
+
+
+def build_stacks(a_q: torch.Tensor, b_q: torch.Tensor,
+                 spec: gemm_mod.MultSpec
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Build (P, M, K) / (P, K, N) int8 operand stacks + (P, 1) f32 scales.
+
+    Plane 0 carries the raw (or truncation-masked) operands with scale +1;
+    planes 1..R carry the table-mapped correction operands with scale -s_r.
+    """
+    one = torch.ones((1,), dtype=torch.float32, device=a_q.device)
+    if spec.mode == "trunc":
+        a0 = gemm_mod._trunc_mask(a_q, spec.trunc_a)
+        b0 = gemm_mod._trunc_mask(b_q, spec.trunc_b)
+        return a0[None], b0[None], one[:, None]
+    planes_a, planes_b = [a_q], [b_q]
+    for r in range(spec.rank):
+        planes_a.append(gemm_mod._table_map(spec.fu_q[r], a_q))
+        planes_b.append(gemm_mod._table_map(spec.fv_q[r], b_q))
+    scales = torch.cat([one, -spec.s_r[:spec.rank].to(a_q.device)])
+    return torch.stack(planes_a), torch.stack(planes_b), scales[:, None]
 
 
 def _spec_kernel_args(spec: gemm_mod.MultSpec) -> tuple[int, int, int]:
@@ -55,42 +82,57 @@ def plane_scales(spec: gemm_mod.MultSpec, rank: int,
 def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
                  spec: gemm_mod.MultSpec, *, bm: int | None = None,
                  bk: int | None = None, bn: int | None = None,
-                 skinny: bool = False) -> torch.Tensor:
+                 fused: bool = True, skinny: bool = False) -> torch.Tensor:
     """int8 (m, k) x int8 (k, n) -> f32 (m, n) through the kernels.
 
+    `fused=True` (default) hands the raw operands to the kernels, which
+    map and mask them themselves: the plane-0 kernel for exact/trunc
+    specs, the fused low-rank kernel for low-rank ones.  `fused=False`
+    runs the stacked twin on `build_stacks`' pre-mapped planes.
     `skinny=True` routes a decode-shaped GEMM (m <= SKINNY_MAX_M) to the
-    skinny kernel, M unpadded; otherwise exact/trunc specs take the tiled
-    plane-0 kernel.  Low-rank specs at m > SKINNY_MAX_M need the fused
-    low-rank kernel, which is not ported yet: on CUDA they raise."""
+    skinny kernel, M unpadded, at any rank."""
     m, k = a_q.shape
     k2, n = b_q.shape
     assert k == k2, (a_q.shape, b_q.shape)
     trunc_a, trunc_b, rank = _spec_kernel_args(spec)
-    if skinny:
+    if fused and skinny:
         assert m <= qk.SKINNY_MAX_M, (m, qk.SKINNY_MAX_M)
         bk, bn = qk.choose_skinny_blocks(k, n, bk, bn)
         ap = _aligned(_pad_to(a_q, 1, bk))
         bp = _aligned(_pad_to(_pad_to(b_q, 0, bk), 1, bn))
-        fu, fv = spec.fu_q, spec.fv_q
-        if rank:
-            fu, fv = fu[:rank].to(a_q.device), fv[:rank].to(a_q.device)
+        fu, fv = _tables(spec, rank, a_q.device)
         out = qgemm.approx_qgemm_skinny(
             ap, bp, fu, fv, plane_scales(spec, rank, a_q.device),
             trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
         return out[:, :n]
-    bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn)
+    if not fused:
+        bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel="stacked")
+        a_s, b_s, s = build_stacks(a_q, b_q, spec)
+        a_s = _aligned(_pad_to(_pad_to(a_s, 1, bm), 2, bk))
+        b_s = _aligned(_pad_to(_pad_to(b_s, 1, bk), 2, bn))
+        return qgemm.approx_qgemm_stacked(a_s, b_s, s)[:m, :n]
+    kernel = "fused" if rank else "plane0"
+    bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel=kernel)
     ap = _aligned(_pad_to(_pad_to(a_q, 0, bm), 1, bk))
     bp = _aligned(_pad_to(_pad_to(b_q, 0, bk), 1, bn))
     if rank:
-        if a_q.device.type != "cpu":
-            raise NotImplementedError("approx_qgemm_fused not ported yet")
-        out = qgemm.planes_plain(
-            ap, bp, spec.fu_q, spec.fv_q, plane_scales(spec, rank, "cpu"),
-            k_valid=k)
+        fu, fv = _tables(spec, rank, a_q.device)
+        out = qgemm.approx_qgemm_fused(
+            ap, bp, fu, fv, plane_scales(spec, rank, a_q.device),
+            trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
     else:
         out = qgemm.approx_qgemm_plane0(ap, bp, trunc_a=trunc_a,
                                         trunc_b=trunc_b)
     return out[:m, :n]
+
+
+def _tables(spec: gemm_mod.MultSpec, rank: int, device
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The spec's (rank, 256) factor tables on `device` ((0, 256) at rank
+    0: the kernels then read no table)."""
+    if not rank:
+        return spec.fu_q[:0], spec.fv_q[:0]
+    return spec.fu_q[:rank].to(device), spec.fv_q[:rank].to(device)
 
 
 def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
@@ -98,7 +140,9 @@ def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
                          plan: dispatch.GemmPlan) -> torch.Tensor:
     """Execute a GEMM per a `dispatch.choose_gemm_path` kernel plan (the
     plain path belongs to approx/gemm.py, which knows prepared weights)."""
-    assert plan.path == "fused", plan
+    assert plan.path in ("fused", "stacked"), plan
+    if plan.path == "stacked":
+        return approx_qgemm(a_q, b_q, spec, fused=False)
     if plan.skinny:
         return approx_qgemm(a_q, b_q, spec, bk=plan.bk, bn=plan.bn,
                             skinny=True)

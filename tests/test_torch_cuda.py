@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from repro_torch.approx import gemm as G
+from repro_torch.approx import layers as L
 from repro_torch.core import multipliers as mm
 from repro_torch.core import netlist as nl
 from repro_torch.kernels import approx_qgemm as qk
 from repro_torch.kernels import flash_attention as fk
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, qgemm
 from repro_torch.kernels import quantize as qz
 
 
@@ -78,3 +79,55 @@ def test_cuda_flash_attention(cuda_dev, dtype, tol, causal):
     want = fk.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=3 * tol)
+
+
+# --- low rank: fused and stacked kernels --------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(128, 256, 128), (300, 257, 65),
+                                   (256, 576, 64), (33, 4608, 512)])
+def test_cuda_fused_lowrank_bitexact_with_plain(cuda_dev, shape, rank):
+    """Fused kernel vs its plain version at a padded K tail (K = 257,
+    4608 is a tile multiple), and the stacked twin bit-identical to it."""
+    m, k, n = shape
+    spec = _lowrank_spec(rank, seed=rank).to(cuda_dev)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_dev)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda_dev)
+    got = ops.approx_qgemm(a, b, spec)
+    assert torch.equal(got, G.approx_qgemm(a, b, spec))
+    assert torch.equal(ops.approx_qgemm(a, b, spec, fused=False), got)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_masks_fully_padded_k_tile(cuda_dev):
+    """k_valid = 128 of K = 256: a whole K tile of pad zeros, which map to
+    tbl[0] != 0 and must be masked in the mapped planes."""
+    spec = _lowrank_spec(2, seed=9).to(cuda_dev)
+    a = torch.randint(-128, 128, (128, 128), dtype=torch.int8,
+                      device=cuda_dev)
+    b = torch.randint(-128, 128, (128, 128), dtype=torch.int8,
+                      device=cuda_dev)
+    ap = torch.zeros((128, 256), dtype=torch.int8, device=cuda_dev)
+    ap[:, :128] = a
+    bp = torch.zeros((256, 128), dtype=torch.int8, device=cuda_dev)
+    bp[:128] = b
+    got = qgemm.approx_qgemm_fused(ap, bp, spec.fu_q, spec.fv_q,
+                                   ops.plane_scales(spec, 2, cuda_dev),
+                                   k_valid=128)
+    assert torch.equal(got, G.approx_qgemm(a, b, spec))
+
+
+@pytest.mark.cuda
+def test_cuda_conv2d_kernel_path_matches_plain_path(cuda_dev):
+    """conv2d under a rank-5 pruned multiplier (im2col M = 2*32*32 > 32:
+    quantize_rows + the fused kernel) against the plain versions."""
+    spec = _lowrank_spec(5, seed=5).to(cuda_dev)
+    gen = torch.Generator(device=cuda_dev).manual_seed(0)
+    x = torch.randn((2, 32, 32, 16), generator=gen, device=cuda_dev)
+    w = torch.randn((3, 3, 16, 32), generator=gen, device=cuda_dev)
+    n0 = qgemm.approx_qgemm_fused.launches
+    got = L.conv2d(x, w, 1, 1, spec.with_policy("pallas"))
+    assert qgemm.approx_qgemm_fused.launches == n0 + 1
+    want = L.conv2d(x, w, 1, 1, spec.with_policy("xla"))
+    assert torch.equal(got, want)

@@ -71,14 +71,39 @@ def test_lowrank_spec_tables_match(rank):
     assert ts.residual_nmed == js.residual_nmed
 
 
-def test_rank_suffix_and_pareto_names():
+def test_rank_suffix_and_pareto_names(monkeypatch, tmp_path):
+    """"pareto:<band>" resolves through each package's own NSGA-II front
+    and disk cache.  Both fronts are cut to pop 8 x 3 generations here (the
+    default 56 x 44 costs ~15 s a package), each cached in its own temporary
+    directory, so neither package can read the other's file."""
     assert G.spec_from_name("trunc2x2:r3").mode == "trunc"
     assert G.spec_from_name("exact").is_exact
-    with pytest.raises(NotImplementedError, match="pareto"):
-        G.spec_from_name("pareto:0.02:r2")
     with pytest.raises(KeyError):
         G.spec_from_name("nope")
     assert lutmod.effective_rank(mm.truncated(2, 2).lut) >= 1
+
+    from repro.core import pareto as jpareto
+    from repro_torch.core import pareto
+    small = dict(pop_size=8, generations=3, seed=0)
+    j_front, t_front = jpareto.default_front, pareto.default_front
+    monkeypatch.setattr(jpareto, "_CACHE_DIR", tmp_path / "jax")
+    monkeypatch.setattr(jpareto, "default_front", lambda: j_front(**small))
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "torch"))
+    monkeypatch.setattr(pareto, "default_front", lambda: t_front(**small))
+    t_front.cache_clear()
+    js = JG.spec_from_name("pareto:0.02:r2")
+    ts = G.spec_from_name("pareto:0.02:r2")
+    assert (tmp_path / "torch" / "torch_nsga_front_p8_g3_s0.json").exists()
+    assert ts.name == js.name and ts.mode == js.mode == "lowrank"
+    assert ts.rank == js.rank == 2 and ts.nmed == js.nmed
+    np.testing.assert_array_equal(ts.fu_q.numpy(), np.asarray(js.fu_q))
+    np.testing.assert_array_equal(ts.fv_q.numpy(), np.asarray(js.fv_q))
+    np.testing.assert_array_equal(ts.s_r.numpy(), np.asarray(js.s_r))
+    # a second process would read the front back from its disk cache
+    t_front.cache_clear()
+    assert [m.name for m in pareto.default_front()] == \
+        [m.name for m in jpareto.default_front()]
+    t_front.cache_clear()
 
 
 # --- quantization ------------------------------------------------------------
@@ -237,14 +262,17 @@ def test_gemm_plan_by_policy_and_device(monkeypatch):
 
 
 def test_lowrank_prefill_gemm_is_not_ported_on_the_card():
-    """m > SKINNY_MAX_M with a low-rank spec needs the fused kernel: on a
-    device other than the CPU the wrapper raises instead of falling back;
-    on the CPU it runs the plain planes."""
+    """m > SKINNY_MAX_M with a low-rank spec reaches the fused kernel's
+    wrapper (fused=False the stacked one), which raises on a device other
+    than CUDA instead of falling back; on the CPU it runs the plain
+    planes.  (The name predates the fused kernel's port.)"""
     _, spec = _lowrank_pair(2, seed=2)
     a = torch.empty((64, 128), dtype=torch.int8, device="meta")
     b = torch.empty((128, 128), dtype=torch.int8, device="meta")
-    with pytest.raises(NotImplementedError, match="approx_qgemm_fused"):
+    with pytest.raises(ValueError, match="approx_qgemm_fused"):
         ops.approx_qgemm(a, b, spec)
+    with pytest.raises(ValueError, match="approx_qgemm_stacked"):
+        ops.approx_qgemm(a, b, spec, fused=False)
     a = _t(RNG.integers(-128, 128, (64, 100)).astype(np.int8))
     b = _t(RNG.integers(-128, 128, (100, 40)).astype(np.int8))
     assert torch.equal(ops.approx_qgemm(a, b, spec),
