@@ -9,14 +9,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   2. build     — nvcc builds the kernel library from csrc/ (timed);
   3. kernels   — every kernel against its plain PyTorch version on the
                  card, at the main paths' shapes and at odd ones:
-                 quantize_rows, the plane-0 GEMM, the skinny GEMM (every
-                 rank), the fused and the stacked low-rank GEMMs (ranks 1, 2,
-                 4, 8, every VGG16 conv shape; stacked bit-identical to
-                 fused, its launches counted over these parity calls)
-                 bit-exact, flash attention within 2e-6 (f32) / 2e-2
-                 (bf16); then each kernel's time per unit of its main path
-                 (CUDA events) beside its plain version, a PyTorch library
-                 yardstick and the card's bound;
+                 quantize_rows, the plane-0 GEMM (also on K-major weights
+                 as prepared weights hand it, at the prefill shapes and a
+                 large-M VGG16 im2col shape, its K split logged), the
+                 skinny GEMM (every rank), the fused and the stacked
+                 low-rank GEMMs (ranks 1, 2, 4, 8, every VGG16 conv shape;
+                 stacked bit-identical to fused, its launches counted over
+                 these parity calls) bit-exact, flash attention within
+                 2e-6 (f32) / 2e-2 (bf16); then each kernel's time per unit
+                 of its main path (CUDA events) beside its plain version, a
+                 PyTorch library yardstick (`torch._int_mm` on K-major
+                 weights, SDPA pinned to its memory-efficient backend) and
+                 the card's bound, and plane 0's time over VGG16's 13 conv
+                 GEMMs under trunc2x2;
   4. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
@@ -148,7 +153,9 @@ def build_phase() -> None:
         f"{build.last_build.get('built')} in "
         f"{time.perf_counter() - t0:.2f}s")
     for line in build.last_build.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "Compiling entry function" in line:
+            log(f"[build] {line.split(chr(39))[1]}")    # the mangled name
+        elif "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
 
 
@@ -203,13 +210,36 @@ def check_kernels(dev) -> tuple[dict, int]:
 
     specs = {name: G.spec_from_name(name).to(dev)
              for name in ("exact", "trunc2x2", "trunc3x1")}
-    for m, k, n in [(128, 2048, 2048), (128, 2048, 256), (128, 2048, 5632),
-                    (128, 5632, 2048), (33, 257, 65), (300, 64, 512)]:
+    # plane 0: unprepared operands (transposed per call), then the K-major
+    # weight that prepared weights hand the kernel, at the prefill shapes
+    # and at a large-M VGG16 im2col shape (conv 3 at batch 8)
+    prefill = [(128, 2048, 2048), (128, 2048, 256), (128, 2048, 5632),
+               (128, 5632, 2048)]
+    for m, k, n in prefill + [(33, 257, 65), (300, 64, 512)]:
         a, b = rand_q(m, k), rand_q(k, n)
         for name, spec in specs.items():
             got = ops.approx_qgemm(a, b, spec)
             exact("approx_qgemm_plane0", got, G.approx_qgemm(a, b, spec),
                   f"({m},{k},{n}) {name}")
+    for m, k, n in prefill + [(100352, 1152, 128)]:
+        a, b = rand_q(m, k), rand_q(k, n)
+        bt = b.T.contiguous()
+        names = specs if m == 128 else ["trunc2x2"]
+        for name in names:
+            spec = specs[name]
+            got = ops.approx_qgemm(a, b, spec, b_t=bt)
+            exact("approx_qgemm_plane0", got, G.approx_qgemm(a, b, spec),
+                  f"({m},{k},{n}) {name}, K-major weight")
+            ta, tb, _ = ops._spec_kernel_args(spec)
+            exact("approx_qgemm_plane0", got,
+                  qgemm.approx_qgemm_plane0_plain(a, bt, trunc_a=ta,
+                                                  trunc_b=tb),
+                  f"({m},{k},{n}) {name}, K-major weight vs plain")
+        splits, k_chunk = qgemm.plane0_splits(m, k, n)
+        tm, _, tn = qk.PLANE0_TILE
+        log(f"[kernels] plane0 ({m},{k},{n}): {splits} K split(s) of "
+            f"{k_chunk}, {(m // tm) * (n // tn) * splits} blocks")
+        del a, b, bt
 
     lowrank = _lowrank_specs(dev)
     for m, k, n in [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 5632),
@@ -294,6 +324,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     """Per-kernel time over one serving unit of its main-path calls."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.approx import gemm as G
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, qgemm
@@ -308,6 +339,9 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
                for _ in range(cfg.n_layers) for kn in shapes]
     head = torch.randint(-128, 128, (d, v), generator=gen, device=dev,
                          dtype=torch.int8)
+    # the library yardstick's weights, K-major (cuBLAS's int8 GEMMs want a
+    # K-major B), made once outside the timed loops
+    kmajor = {id(w): w.t().contiguous().t() for w in weights + [head]}
     cap, bucket = 4, 128
     acts = {(m, k): torch.randint(-128, 128, (m, k), generator=gen,
                                   device=dev, dtype=torch.int8)
@@ -331,10 +365,12 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             "bound_ms": b, "bound_by": by,
             "library_ms": lib_ms,
             "unit": unit, "calls": calls, "device_ms": device_ms(kernel)})
+        dms = out[-1]["device_ms"]
+        share = f"{b / dms:.1%}" if dms else "not measured"
         log(f"[time] {name}: {out[-1]['ms']:.4f} ms per {unit} "
-            f"(device {out[-1]['device_ms']}, plain "
-            f"{out[-1]['plain_ms']:.4f}, bound {b:.4f} by {by}, library "
-            f"{out[-1]['library_ms']})")
+            f"(device {dms}, plain {out[-1]['plain_ms']:.4f}, bound "
+            f"{b:.4f} by {by}, device time at {share} of the bound, "
+            f"library {out[-1]['library_ms']})")
 
     # skinny: one decode step of the arena (m = capacity)
     dec = [(acts[(cap, w.shape[0])], w) for w in weights + [head]]
@@ -345,24 +381,52 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         lambda: [qgemm.approx_qgemm_skinny_plain(
             a, w, spec.fu_q, spec.fv_q, ops.plane_scales(spec, 0, dev),
             trunc_a=2, trunc_b=2, k_valid=a.shape[1]) for a, w in dec],
-        lambda: [torch._int_mm(acts[(32, w.shape[0])], w) for _, w in dec],
+        lambda: [torch._int_mm(acts[(32, w.shape[0])], kmajor[id(w)])
+                 for _, w in dec],
         sum(a.numel() + w.numel() + a.shape[0] * w.shape[1] * 4
             for a, w in dec),
         sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w in dec),
         PEAK_INT8)
 
-    # plane0: the GEMMs of one admitted request's prefill (m = bucket)
-    pre = [(acts[(bucket, w.shape[0])], w) for w in weights]
+    # plane0: the GEMMs of one admitted request's prefill (m = bucket), on
+    # the K-major weights that prepared weights keep: (N, K) contiguous,
+    # the storage of the yardstick's K-major views
+    pre = [(acts[(bucket, w.shape[0])], w, kmajor[id(w)].t())
+           for w in weights]
     row("approx_qgemm_plane0", "cuda", "src/repro_torch/csrc/qgemm.cu",
         "src/repro/kernels/approx_qgemm.py:338", "prefill (m=128)", len(pre),
-        lambda: [ops.approx_qgemm(a, w, spec) for a, w in pre],
-        lambda: [qgemm.approx_qgemm_plane0_plain(a, w, trunc_a=2, trunc_b=2)
-                 for a, w in pre],
-        lambda: [torch._int_mm(a, w) for a, w in pre],
+        lambda: [ops.approx_qgemm(a, w, spec, b_t=wt) for a, w, wt in pre],
+        lambda: [qgemm.approx_qgemm_plane0_plain(a, wt, trunc_a=2,
+                                                 trunc_b=2)
+                 for a, _, wt in pre],
+        lambda: [torch._int_mm(a, kmajor[id(w)]) for a, w, _ in pre],
         sum(a.numel() + w.numel() + a.shape[0] * w.shape[1] * 4
-            for a, w in pre),
-        sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w in pre),
+            for a, w, _ in pre),
+        sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w, _ in pre),
         PEAK_INT8)
+    # where plane 0's time goes: device time per call at each prefill shape
+    shapes = {}
+    for a, w, wt in pre:
+        mkn_ = (a.shape[0], a.shape[1], w.shape[1])
+        shapes.setdefault(mkn_, [a, wt, 0])[2] += 1
+    parts = []
+    for (m, k, n), (a, wt, count) in shapes.items():
+        dms = device_ms(lambda: [ops.approx_qgemm(a, wt.T, spec, b_t=wt)
+                                 for _ in range(count)])
+        us = f"{dms / count * 1e3:.2f} us" if dms else "not measured"
+        parts.append(f"({m},{k},{n}) x{count}: {us}, "
+                     f"{qgemm.plane0_splits(m, k, n)[0]} split(s)")
+    log("[time] approx_qgemm_plane0 device time per call: "
+        + "; ".join(parts))
+    # the earlier yardstick, on row-major weights, read once beside it
+    row_major = {
+        "prefill": cuda_ms(lambda: [torch._int_mm(a, w) for a, w, _ in pre]),
+        "decode step": cuda_ms(lambda: [torch._int_mm(acts[(32, w.shape[0])],
+                                                      w) for _, w in dec])}
+    log(f"[time] torch._int_mm on row-major (K, N) weights: "
+        + ", ".join(f"{u} {t:.4f} ms" for u, t in row_major.items())
+        + " (K-major: the library_ms of rows approx_qgemm_plane0 and "
+        "approx_qgemm_skinny)")
 
     # quantize_rows: the activation rows of one decode step
     xs = [torch.randn((cap, w.shape[0]), generator=gen, device=dev)
@@ -379,17 +443,24 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     qkv = [tuple(torch.randn((bh, bucket, hd), generator=gen, device=dev)
                  for _ in range(3)) for _ in range(cfg.n_layers)]
     pairs = bucket * (bucket + 1) // 2
+
+    def sdpa():  # one named backend, the same kernel in every run
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return [F.scaled_dot_product_attention(
+                q[None], k[None], v_[None], is_causal=True)
+                for q, k, v_ in qkv]
+
+    log("[time] flash_attention library yardstick: SDPA pinned to "
+        f"{SDPBackend.EFFICIENT_ATTENTION.name}")
     row("flash_attention", "cuda", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:76", "prefill (s=128)",
         len(qkv),
         lambda: [fk.flash_attention(q, k, v_) for q, k, v_ in qkv],
         lambda: [fk.flash_attention_plain(q, k, v_) for q, k, v_ in qkv],
-        lambda: [F.scaled_dot_product_attention(q[None], k[None], v_[None],
-                                                is_causal=True)
-                 for q, k, v_ in qkv],
+        sdpa,
         len(qkv) * 4 * bh * bucket * hd * 4,
         len(qkv) * bh * pairs * 4 * hd, PEAK_F32)
-    del weights, head, acts, dec, pre, xs, qkv
+    del weights, head, kmajor, acts, dec, pre, xs, qkv
     torch.cuda.empty_cache()
 
     # fused: the 13 conv GEMMs of one VGG16 forward (batch 8, 224x224)
@@ -438,7 +509,33 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         int_mm_planes,
         sum(planes * (m * k + k * n) + 4 * m * n for m, k, n in mkn),
         sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
-    del stacks, padded8
+    # the same yardstick on K-major weights (made once, untimed), logged
+    # beside the rows: rows 5 and 6 keep the row-major reading
+    kmajor8 = [(a, w.t().contiguous().t()) for a, w in padded8]
+    kmajor_ms = cuda_ms(lambda: [torch._int_mm(a, w) for a, w in kmajor8
+                                 for _ in range(planes)])
+    log(f"[time] {planes} x torch._int_mm per VGG16 conv GEMM on K-major "
+        f"weights: {kmajor_ms:.4f} ms")
+    del stacks, padded8, kmajor8
+    torch.cuda.empty_cache()
+
+    # plane 0 at large M: the 13 conv GEMMs of one VGG16 forward (batch 8)
+    # under trunc2x2, on K-major weights (a log line, not a row)
+    convs = [(torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                            dtype=torch.int8),
+              torch.randint(-128, 128, (n, k), generator=gen, device=dev,
+                            dtype=torch.int8)) for m, k, n in mkn]
+
+    def vgg_plane0():
+        return [ops.approx_qgemm(a, wt.T, spec, b_t=wt) for a, wt in convs]
+
+    b, by = bound_ms(sum(m * k + k * n + 4 * m * n for m, k, n in mkn),
+                     sum(2 * m * k * n for m, k, n in mkn), PEAK_INT8)
+    log(f"[time] approx_qgemm_plane0 at large M, VGG16 forward's 13 conv "
+        f"GEMMs (batch 8) under {MULT}: {cuda_ms(vgg_plane0, reps=3):.4f} "
+        f"ms (device {device_ms(vgg_plane0)}, bound {b:.4f} by {by}); "
+        f"splits {sorted({qgemm.plane0_splits(*s)[0] for s in mkn})}")
+    del convs
     torch.cuda.empty_cache()
     return out
 
@@ -488,6 +585,7 @@ def counted(fn) -> tuple:
 def serve_phase(dev, cfg) -> dict:
     import numpy as np
     import torch
+    from repro_torch.approx import gemm as G
     from repro_torch.models import api
     from repro_torch.serving import Engine, Request, SamplingParams
 
@@ -498,6 +596,15 @@ def serve_phase(dev, cfg) -> dict:
     torch.cuda.synchronize()
     log(f"[serve] {cfg.name}: {api.param_count(params) / 1e9:.3f}B params, "
         f"engine ready in {time.perf_counter() - t0:.1f}s")
+
+    def kmajor_bytes(tree):
+        if isinstance(tree, dict):
+            return sum(kmajor_bytes(v) for v in tree.values())
+        return tree.wq_t.numel() if G.is_prepared(tree) and \
+            tree.wq_t is not None else 0
+
+    log(f"[serve] K-major int8 weight copies kept for the plane-0 kernel: "
+        f"{kmajor_bytes(eng._tier_exec[eng.tiers[0]]) / 1e9:.4f} GB")
     rng = np.random.default_rng(0)
     lens = [40, 128, 77, 100, 64, 115]
     arrivals = [0, 0, 0, 0, 3, 5]

@@ -148,6 +148,10 @@ class PreparedWeight:
 
       wq      int8 (..., k, n)    per-output-channel quantized weight (the
                                   kernels consume it raw and map it in-kernel)
+      wq_t    int8 (..., n, k)    wq K-major, made once for the plane-0
+                                  kernel (exact/trunc GEMMs at m > 32) where
+                                  the kernels run; None elsewhere.  One more
+                                  byte per weight parameter
       sw      f32  (..., 1, n)    dequant scales
       planes  int8 (..., P', k, n) pre-mapped weight planes for the plain
                                   path: the R table-mapped corrections
@@ -164,10 +168,13 @@ class PreparedWeight:
     planes: torch.Tensor
     mode: str
     mult: str
+    wq_t: torch.Tensor | None = None
 
     def layer(self, i: int) -> "PreparedWeight":
-        return dataclasses.replace(self, w=self.w[i], wq=self.wq[i],
-                                   sw=self.sw[i], planes=self.planes[i])
+        return dataclasses.replace(
+            self, w=self.w[i], wq=self.wq[i], sw=self.sw[i],
+            planes=self.planes[i],
+            wq_t=None if self.wq_t is None else self.wq_t[i])
 
 
 def is_prepared(w) -> bool:
@@ -179,7 +186,8 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
     spec.  Identity for exact/absent specs.  Accepts stacked (..., k, n)
     leaves; scales reduce over the contraction dim only.  The pre-mapped
     planes serve the plain path only, so a "pallas"-pinned policy skips
-    them."""
+    them; the K-major copy serves the plane-0 kernel only, so it is made
+    where the kernels run and the spec reaches that kernel."""
     if spec is None or spec.is_exact or is_prepared(w):
         return w
     from repro_torch.kernels import dispatch
@@ -196,8 +204,13 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
                               for r in range(spec.rank)], dim=-3)
     else:  # lowrank rank 0 degenerates to the raw plane
         planes = no_planes
+    wq_t = None
+    if dispatch.use_kernels(spec.policy, w.device) and \
+            (spec.mode == "trunc" or not spec.rank):
+        wq_t = wq.transpose(-1, -2).contiguous()
     return PreparedWeight(w=w, wq=wq, sw=sw.to(torch.float32),
-                          planes=planes, mode=spec.mode, mult=spec.name)
+                          planes=planes, mode=spec.mode, mult=spec.name,
+                          wq_t=wq_t)
 
 
 def approx_qgemm_prepared(a_q: torch.Tensor, pw: PreparedWeight,
@@ -263,9 +276,11 @@ def _gemm_plan(spec: MultSpec, m: int, k: int, n: int, device):
 
 
 def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                    spec: MultSpec, plain) -> torch.Tensor:
+                    spec: MultSpec, plain,
+                    wq_t: torch.Tensor | None = None) -> torch.Tensor:
     """Shared forward: quantize rows, run the planned GEMM, dequantize.
-    `plain(xq)` is the plain-path GEMM for this weight."""
+    `plain(xq)` is the plain-path GEMM for this weight; `wq_t` its K-major
+    copy, where one is kept."""
     from repro_torch.kernels import ops as kops
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -274,7 +289,7 @@ def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     plan = _gemm_plan(spec, x2.shape[0], k, n, x.device)
     xq, sx = _quantize_activations(x2, spec, plan.use_pallas)
     if plan.use_pallas:
-        acc = kops.approx_qgemm_planned(xq, wq, spec, plan)
+        acc = kops.approx_qgemm_planned(xq, wq, spec, plan, wq_t)
     else:
         acc = plain(xq)
     out = acc * (sx * sw)                     # (m, n) * (m, 1) * (1, n)
@@ -313,7 +328,8 @@ class _ApproxMatmulPrepared(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, pw, spec):
         return _approx_forward(x, pw.wq, pw.sw, spec,
-                               lambda xq: approx_qgemm_prepared(xq, pw, spec))
+                               lambda xq: approx_qgemm_prepared(xq, pw, spec),
+                               pw.wq_t)
 
     @staticmethod
     def backward(ctx, g):

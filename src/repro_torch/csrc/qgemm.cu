@@ -5,20 +5,35 @@
 // ---------------------------------------------------------------------------
 // repro_qgemm_plane0
 // Replaces: src/repro/kernels/approx_qgemm.py, approx_qgemm_plane0
-// (_plane0_kernel).  C (M, N) f32 = sum_k (A & mask_a)[m, k] * (B & mask_b)[k, n]
-// with A (M, K) and B (K, N) int8 row-major, accumulated in int32.
+// (_plane0_kernel).  C (M, N) f32 = sum_k (A & mask_a)[m, k] *
+// (B & mask_b)[k, n] with A (M, K) int8 row-major and B given K-major, as
+// Bt (N, K) int8, accumulated in int32.
 //
-// Bound on the H100: operations at large M; at the prefill shapes of the
-// serving path (M = 128) a 128 x 128 tile grid gives only N / 128 blocks, so
-// the grid, not the tensor cores, is what limits it.  Design: 128 x 128 x 32
-// block tiles through shared memory, eight warps each owning a 64 x 32 piece,
-// int8 tensor-core MMAs (mma.sync m16n8k32 s8.s8.s32).  B is (K, N) with N
-// contiguous while the MMA wants K contiguous, so each thread reads a 4 x 4
-// byte block of B and transposes it in registers before the shared-memory
-// store.  The truncation masks are ANDed as the tiles are loaded.  The K loop
-// runs inside the block, so the int32 accumulators never leave registers and
-// the result is exact by construction.  Operands are padded by the wrapper:
-// M, N multiples of 128, K a multiple of 32.
+// Bound on the H100: bytes at the prefill shapes of the serving path
+// (M = 128: the weight, K x N bytes, is read once and dominates; 0.3645 ms
+// for the 154 GEMMs of one TinyLlama-1.1B prefill), operations at large M
+// (the CNN im2col GEMMs).  At M = 128 a grid of M / BM x N / BN tiles is far
+// short of the 132 SMs (16 blocks of 128 x 128 at N = 2048), and a block
+// that streams its K slice one tile at a time waits on every load.  Design:
+//   - 64 x 64 block tiles, four warps of 32 x 32, int8 tensor-core MMAs
+//     (mma.sync m16n8k32 s8.s8.s32) fed by ldmatrix;
+//   - both operands K-major, so tiles go from global to shared memory as
+//     16-byte cp.async copies, 128 bytes of each row per stage, through a
+//     ring of four stages: the MMAs on stage i overlap the copies of the
+//     next three.  A K chunk that ends inside a stage zero-fills the rest;
+//   - the truncation masks are ANDed into each 32-bit fragment register as
+//     it is read from shared memory;
+//   - split-K where the tile grid is short (kernels/qgemm.py plane0_splits:
+//     at most half the SMs): split z sums its own K chunk in int32 into a
+//     workspace slice, and a second small kernel adds the slices in split
+//     order and converts once to f32.  int32 sums are exact in any order,
+//     so the result is bit-exact whatever the split; f32 atomics would not
+//     be (sums over K = 5632 reach 9.2e7 > 2^24).  With one split the block
+//     writes f32 itself.
+// Operands are padded by the wrapper: M, N and K multiples of 64.  Tile
+// shapes from 64 x 64 to 128 x 128, K stages of 64 to 256 bytes and two to
+// eight stages measured alike at the prefill shapes (within the spread
+// between runs), so the smallest tile that fills the card was kept.
 //
 // ---------------------------------------------------------------------------
 // repro_qgemm_skinny
@@ -55,8 +70,8 @@
 // rate, once M K N is large (every im2col GEMM of the CNNs); bytes (the raw
 // operands once, M K + K N + 4 M N) below that.  The TPU kernel keeps all
 // R + 1 int32 accumulators of a 128 x 128 tile live at once; at rank 8 that
-// is 576 KiB, more than an SM's register file.  Design: the plane-0 block
-// tile (128 x 128 x 32, eight warps of 64 x 32, mma.sync m16n8k32) with
+// is 576 KiB, more than an SM's register file.  Design: a 128 x 128 x 32
+// block tile (eight warps of 64 x 32, mma.sync m16n8k32) with
 // the planes as the OUTERMOST loop of each block: one int32 accumulator and
 // one f32 output accumulator live per thread.  The (R, 256) tables sit in
 // shared memory, loaded once per block; plane r >= 1 maps each staged A
@@ -85,7 +100,8 @@
 
 namespace {
 
-// ----------------------------- plane 0 -------------------------------------
+// ------------- block tile of the low-rank kernels (fused, stacked) ---------
+// (named P0_ after the first plane-0 kernel, which used it too)
 constexpr int P0_BM = 128, P0_BN = 128, P0_BK = 32;
 constexpr int P0_LD = 48;  // shared row stride in bytes: conflict-free frags
 constexpr int P0_THREADS = 256;
@@ -125,68 +141,160 @@ __device__ __forceinline__ void tile_mma(const uint8_t* As, const uint8_t* Bs,
     for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
 }
 
-__global__ void __launch_bounds__(P0_THREADS)
-plane0_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-              float* __restrict__ C, int M, int K, int N, uint32_t mask_a,
-              uint32_t mask_b) {
-  __shared__ __align__(16) uint8_t As[P0_BM * P0_LD];  // [m][k]
-  __shared__ __align__(16) uint8_t Bs[P0_BN * P0_LD];  // [n][k]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 x 32 each
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * P0_BM, n0 = blockIdx.x * P0_BN;
+// ------------------------- plane 0 (redesigned) ---------------------------
+constexpr int PL0_BM = 64, PL0_BN = 64;  // block tile: 2 x 2 warps of 32
+constexpr int PL0_BK = 128;              // K bytes per stage
+constexpr int PL0_KT = 64;               // K multiple the kernel takes
+constexpr int PL0_STAGES = 4;
+constexpr int PL0_THREADS = PL0_BM * PL0_BN / 32;
+constexpr int PL0_LD = PL0_BK + 16;      // 16 bytes of pad: ldmatrix
+                                         // conflict-free
+constexpr int PL0_STAGE = (PL0_BM + PL0_BN) * PL0_LD;
+constexpr int PL0_SMEM = PL0_STAGES * PL0_STAGE;
 
-  int acc[4][4][4];
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const uint8_t* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// Block (blockIdx.x, blockIdx.y) computes the 64 x 64 tile at (m0, n0) over
+// K chunk blockIdx.z, one warp per 32 x 32 piece: f32 into C with one split,
+// int32 into W's slice z otherwise.
+__global__ void __launch_bounds__(PL0_THREADS)
+plane0_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ Bt,
+              float* __restrict__ C, int* __restrict__ W, int M, int K, int N,
+              int k_chunk, uint32_t mask_a, uint32_t mask_b) {
+  constexpr int BM = PL0_BM, BN = PL0_BN, BK = PL0_BK, STAGES = PL0_STAGES;
+  constexpr int THREADS = PL0_THREADS, STAGE = PL0_STAGE;
+  extern __shared__ __align__(128) uint8_t smem[];  // [STAGES][STAGE]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / (BN / 32), wn = warp % (BN / 32);
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int k_begin = blockIdx.z * k_chunk;
+  const int k_len = min(K, k_begin + k_chunk) - k_begin;
+  const int k_tiles = (k_len + BK - 1) / BK;
+  const int8_t* a_src = A + (size_t)m0 * K + k_begin;
+  const int8_t* b_src = Bt + (size_t)n0 * K + k_begin;
+
+  // One stage: BM rows of A and BN rows of B, BK bytes each, as 16-byte
+  // chunks spread over the threads; columns past the chunk are zero-filled.
+  auto load = [&](int stage, int kt) {
+    constexpr int CPR = BK / 16;         // chunks per row
+    uint8_t* as = smem + stage * STAGE;
+    uint8_t* bs = as + BM * PL0_LD;
+    const int k0 = kt * BK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int c = tid; c < (BM + BN) * CPR; c += THREADS) {
+      const int r = c / CPR, col = (c % CPR) * 16;
+      const bool in = k0 + col < k_len;
+      const int kc = in ? k0 + col : 0;
+      if (r < BM) {
+        repro_cp_async16(as + r * PL0_LD + col,
+                         a_src + (size_t)r * K + kc, in);
+      } else {
+        repro_cp_async16(bs + (r - BM) * PL0_LD + col,
+                         b_src + (size_t)(r - BM) * K + kc, in);
+      }
+    }
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
-  // A tile 128 x 32 bytes: 16 bytes per thread.
-  const int a_row = tid >> 1, a_col = (tid & 1) * 16;
-  // B tile 32 (k) x 128 (n): a 4 x 4 byte block per thread.
-  const int b_k = (tid >> 5) * 4, b_n = (tid & 31) * 4;
-  const int8_t* a_ptr = A + (size_t)(m0 + a_row) * K + a_col;
-  const int8_t* b_ptr = B + (size_t)b_k * N + n0 + b_n;
-
-  for (int k0 = 0; k0 < K; k0 += P0_BK) {
-    uint4 av = *reinterpret_cast<const uint4*>(a_ptr + k0);
-    av.x &= mask_a;
-    av.y &= mask_a;
-    av.z &= mask_a;
-    av.w &= mask_a;
-    *reinterpret_cast<uint4*>(As + a_row * P0_LD + a_col) = av;
-    uint32_t r[4], c[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      r[i] = *reinterpret_cast<const uint32_t*>(b_ptr + (size_t)(k0 + i) * N)
-             & mask_b;
-    }
-    repro_transpose4x4(r, c);
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < k_tiles) load(st, st);
+    repro_cp_async_commit();
+  }
+  // ldmatrix row addresses: A matrices (rows 0-7 | 8-15) x (bytes 0-15 |
+  // 16-31) give a0..a3; B matrices (n tile j: bytes 0-15 | 16-31, then n
+  // tile j + 1) give b[j][0..1], b[j+1][0..1].
+  const int a_row = wm * 32 + (lane & 15), a_col = (lane >> 4) * 16;
+  const int b_row = wn * 32 + ((lane >> 4) << 3) + (lane & 7);
+  const int b_col = ((lane >> 3) & 1) * 16;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    repro_cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < k_tiles) load(next % STAGES, next);
+    repro_cp_async_commit();
+    const uint8_t* as = smem + (kt % STAGES) * STAGE;
+    const uint8_t* bs = as + BM * PL0_LD;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<uint32_t*>(Bs + (b_n + j) * P0_LD + b_k) = c[j];
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      uint32_t af[2][4], bf[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldmatrix_x4(af[mi],
+                    as + (a_row + mi * 16) * PL0_LD + ks * 32 + a_col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[mi][e] &= mask_a;
+      }
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t r[4];
+        ldmatrix_x4(r, bs + (b_row + nj * 16) * PL0_LD + ks * 32 + b_col);
+        bf[2 * nj][0] = r[0] & mask_b;
+        bf[2 * nj][1] = r[1] & mask_b;
+        bf[2 * nj + 1][0] = r[2] & mask_b;
+        bf[2 * nj + 1][1] = r[3] & mask_b;
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
     }
-    __syncthreads();
-
-    tile_mma(As, Bs, acc, wm, wn, g, t);
-    __syncthreads();
   }
 
+  int* w = W + (size_t)blockIdx.z * M * N;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int row = m0 + wm * 64 + mi * 16 + g;
+  for (int mi = 0; mi < 2; ++mi) {
+    const int row = m0 + wm * 32 + mi * 16 + g;
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn * 32 + ni * 8 + t * 2;
-      *reinterpret_cast<float2*>(C + (size_t)row * N + col) =
-          make_float2((float)acc[mi][ni][0], (float)acc[mi][ni][1]);
-      *reinterpret_cast<float2*>(C + (size_t)(row + 8) * N + col) =
-          make_float2((float)acc[mi][ni][2], (float)acc[mi][ni][3]);
+      const size_t i0 = (size_t)row * N + col, i1 = i0 + (size_t)8 * N;
+      const int* c = acc[mi][ni];
+      if (gridDim.z == 1) {
+        *reinterpret_cast<float2*>(C + i0) =
+            make_float2((float)c[0], (float)c[1]);
+        *reinterpret_cast<float2*>(C + i1) =
+            make_float2((float)c[2], (float)c[3]);
+      } else {
+        *reinterpret_cast<int2*>(w + i0) = make_int2(c[0], c[1]);
+        *reinterpret_cast<int2*>(w + i1) = make_int2(c[2], c[3]);
+      }
     }
   }
+}
+
+// C = float(sum over the split slices of W, in split order), four
+// elements a thread.
+__global__ void plane0_reduce_kernel(const int* __restrict__ W,
+                                     float* __restrict__ C, size_t mn,
+                                     int splits) {
+  const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= mn) return;
+  int4 s = *reinterpret_cast<const int4*>(W + i);
+#pragma unroll 8
+  for (int z = 1; z < splits; ++z) {
+    const int4 v = *reinterpret_cast<const int4*>(W + (size_t)z * mn + i);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  *reinterpret_cast<float4*>(C + i) =
+      make_float4((float)s.x, (float)s.y, (float)s.z, (float)s.w);
 }
 
 // ----------------------------- skinny --------------------------------------
@@ -453,14 +561,31 @@ long long lowrank_blocks(int m, int k, int n) {
 
 }  // namespace
 
-REPRO_API int repro_qgemm_plane0(const void* a, const void* b, void* out,
-                                 int m, int k, int n, int mask_a, int mask_b,
-                                 void* stream) {
-  if (m % P0_BM || n % P0_BN || k % P0_BK) return (int)cudaErrorInvalidValue;
-  dim3 grid(n / P0_BN, m / P0_BM);
-  plane0_kernel<<<grid, P0_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)b, (float*)out, m, k, n,
-      repro_word_mask(mask_a), repro_word_mask(mask_b));
+REPRO_API int repro_qgemm_plane0(const void* a, const void* bt, void* out,
+                                 void* ws, int m, int k, int n, int mask_a,
+                                 int mask_b, int k_chunk, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || m % PL0_BM || n % PL0_BN || k % PL0_KT ||
+      k_chunk < PL0_KT || k_chunk % PL0_KT || m / PL0_BM > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int splits = (k + k_chunk - 1) / k_chunk;
+  if (splits > 65535 || (splits > 1 && !ws)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = repro_smem_limit<plane0_kernel>(PL0_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid(n / PL0_BN, m / PL0_BM, splits);
+  plane0_kernel<<<grid, PL0_THREADS, PL0_SMEM, s>>>(
+      (const int8_t*)a, (const int8_t*)bt, (float*)out, (int*)ws, m, k, n,
+      k_chunk, repro_word_mask(mask_a), repro_word_mask(mask_b));
+  if (splits > 1) {
+    // small blocks: a short grid (m n / 4 threads) still spreads its
+    // splits-deep reads over many SMs
+    const size_t mn = (size_t)m * n;
+    const int threads = 64;
+    const size_t blocks = (mn / 4 + threads - 1) / threads;
+    plane0_reduce_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+        (const int*)ws, (float*)out, mn, splits);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -8,10 +8,11 @@ versions share, under the names the JAX package uses.
 
 from __future__ import annotations
 
-#: (M, K, N) multiples the plane-0 kernel tiles by (csrc/qgemm.cu P0_*).
-PLANE0_TILE = (128, 32, 128)
-#: (M, K, N) multiples of the fused low-rank kernel: the plane-0 block
-#: tile, walked once per plane (csrc/qgemm.cu lowrank_kernel).
+#: (M, K, N) multiples of the plane-0 kernel: its 64 x 64 block tile and
+#: 64-byte K stage (csrc/qgemm.cu PL0_BM, PL0_BK, PL0_BN).
+PLANE0_TILE = (64, 64, 64)
+#: (M, K, N) multiples of the fused low-rank kernel: its block tile,
+#: walked once per plane (csrc/qgemm.cu P0_*, lowrank_kernel).
 FUSED_TILE = (128, 32, 128)
 #: (M, K, N) multiples of the stacked kernel (the same block tile).
 STACKED_TILE = (128, 32, 128)

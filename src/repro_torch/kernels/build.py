@@ -36,8 +36,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, q, scale, m, k, mask, stream
     "repro_quantize_rows": (_P, _P, _P, _I, _I, _I, _P),
-    # a, b, out, m, k, n, mask_a, mask_b, stream
-    "repro_qgemm_plane0": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, b_t (K-major), out, workspace, m, k, n, mask_a, mask_b, k_chunk,
+    # stream
+    "repro_qgemm_plane0": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # a, b, fu, fv, scales, acc, out, m, k, n, k_valid, rank, mask_a,
     # mask_b, splits, stream
     "repro_qgemm_skinny": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -153,5 +154,9 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current stream on `device`, read without
+    building a Stream object (a few microseconds of host time per launch)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

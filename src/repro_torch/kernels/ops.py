@@ -82,15 +82,18 @@ def plane_scales(spec: gemm_mod.MultSpec, rank: int,
 def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
                  spec: gemm_mod.MultSpec, *, bm: int | None = None,
                  bk: int | None = None, bn: int | None = None,
-                 fused: bool = True, skinny: bool = False) -> torch.Tensor:
+                 fused: bool = True, skinny: bool = False,
+                 b_t: torch.Tensor | None = None) -> torch.Tensor:
     """int8 (m, k) x int8 (k, n) -> f32 (m, n) through the kernels.
 
     `fused=True` (default) hands the raw operands to the kernels, which
     map and mask them themselves: the plane-0 kernel for exact/trunc
-    specs, the fused low-rank kernel for low-rank ones.  `fused=False`
-    runs the stacked twin on `build_stacks`' pre-mapped planes.
-    `skinny=True` routes a decode-shaped GEMM (m <= SKINNY_MAX_M) to the
-    skinny kernel, M unpadded, at any rank."""
+    specs, the fused low-rank kernel for low-rank ones.  The plane-0
+    kernel takes the weight K-major: `b_t` (n, k), equal to `b_q.T`, when
+    the caller keeps one (a prepared weight), else `b_q` is transposed
+    here.  `fused=False` runs the stacked twin on `build_stacks`'
+    pre-mapped planes.  `skinny=True` routes a decode-shaped GEMM
+    (m <= SKINNY_MAX_M) to the skinny kernel, M unpadded, at any rank."""
     m, k = a_q.shape
     k2, n = b_q.shape
     assert k == k2, (a_q.shape, b_q.shape)
@@ -114,14 +117,17 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
     kernel = "fused" if rank else "plane0"
     bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel=kernel)
     ap = _aligned(_pad_to(_pad_to(a_q, 0, bm), 1, bk))
-    bp = _aligned(_pad_to(_pad_to(b_q, 0, bk), 1, bn))
     if rank:
+        bp = _aligned(_pad_to(_pad_to(b_q, 0, bk), 1, bn))
         fu, fv = _tables(spec, rank, a_q.device)
         out = qgemm.approx_qgemm_fused(
             ap, bp, fu, fv, plane_scales(spec, rank, a_q.device),
             trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
     else:
-        out = qgemm.approx_qgemm_plane0(ap, bp, trunc_a=trunc_a,
+        bt = b_q.T if b_t is None else b_t
+        assert bt.shape == (n, k), (bt.shape, n, k)
+        btp = _aligned(_pad_to(_pad_to(bt, 0, bn), 1, bk))
+        out = qgemm.approx_qgemm_plane0(ap, btp, trunc_a=trunc_a,
                                         trunc_b=trunc_b)
     return out[:m, :n]
 
@@ -136,17 +142,19 @@ def _tables(spec: gemm_mod.MultSpec, rank: int, device
 
 
 def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
-                         spec: gemm_mod.MultSpec,
-                         plan: dispatch.GemmPlan) -> torch.Tensor:
+                         spec: gemm_mod.MultSpec, plan: dispatch.GemmPlan,
+                         b_t: torch.Tensor | None = None) -> torch.Tensor:
     """Execute a GEMM per a `dispatch.choose_gemm_path` kernel plan (the
-    plain path belongs to approx/gemm.py, which knows prepared weights)."""
+    plain path belongs to approx/gemm.py, which knows prepared weights).
+    `b_t` is the weight's K-major copy, for the plane-0 kernel."""
     assert plan.path in ("fused", "stacked"), plan
     if plan.path == "stacked":
         return approx_qgemm(a_q, b_q, spec, fused=False)
     if plan.skinny:
         return approx_qgemm(a_q, b_q, spec, bk=plan.bk, bn=plan.bn,
                             skinny=True)
-    return approx_qgemm(a_q, b_q, spec, bm=plan.bm, bk=plan.bk, bn=plan.bn)
+    return approx_qgemm(a_q, b_q, spec, bm=plan.bm, bk=plan.bk, bn=plan.bn,
+                        b_t=b_t)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -2,7 +2,9 @@
 csrc/qgemm.cu and their plain PyTorch versions.
 
 `approx_qgemm_plane0` — exact / truncation multipliers, any M: one masked
-int8 product accumulated in int32, f32 out.
+int8 product accumulated in int32, f32 out.  It takes the weight K-major,
+as (N, K): both MMA operands are then K-major and tiles copy to shared
+memory without a transpose.  `plane0_splits` chooses its split of K.
 
 `approx_qgemm_fused` — low-rank multipliers, any M: plane 0 plus R
 table-mapped correction planes (tables (R, 256) int8 indexed by
@@ -31,9 +33,10 @@ from repro_torch.approx.gemm import _table_map, _trunc_mask, qgemm_int32
 from repro_torch.kernels import approx_qgemm as qk
 from repro_torch.kernels import build
 
-#: The card's SM count: the skinny kernel splits K until the grid covers
-#: about two blocks per SM.
-_TARGET_BLOCKS = 2 * 132
+#: The card's SM count.  The skinny kernel splits K until the grid covers
+#: about two blocks per SM, the plane-0 kernel until it covers every SM.
+_SM_COUNT = 132
+_TARGET_BLOCKS = 2 * _SM_COUNT
 
 
 def planes_plain(a_q: torch.Tensor, b_q: torch.Tensor, fu_q: torch.Tensor,
@@ -75,37 +78,59 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
-def approx_qgemm_plane0_plain(a_q: torch.Tensor, b_q: torch.Tensor, *,
+def approx_qgemm_plane0_plain(a_q: torch.Tensor, b_t: torch.Tensor, *,
                               trunc_a: int = 0, trunc_b: int = 0
                               ) -> torch.Tensor:
     return qgemm_int32(_trunc_mask(a_q, trunc_a),
-                       _trunc_mask(b_q, trunc_b)).to(torch.float32)
+                       _trunc_mask(b_t, trunc_b).T).to(torch.float32)
 
 
-def approx_qgemm_plane0(a_q: torch.Tensor, b_q: torch.Tensor, *,
+def plane0_splits(m: int, k: int, n: int) -> tuple[int, int]:
+    """(splits, k_chunk) of the plane-0 kernel's K for an (m, k, n) GEMM:
+    split z sums K rows [z * k_chunk, (z + 1) * k_chunk), k_chunk a
+    multiple of the K tile.  A grid of at most half the SMs splits K until
+    it covers every SM; a larger grid would only gain a second wave."""
+    tm, tk, tn = qk.PLANE0_TILE
+    blocks = -(-m // tm) * -(-n // tn)
+    k_tiles = -(-k // tk)
+    if 2 * blocks > _SM_COUNT:
+        return 1, k_tiles * tk
+    want = -(-_SM_COUNT // blocks)
+    chunk = -(-k_tiles // want)
+    while chunk > 1 and -(-k_tiles // chunk) < want:
+        chunk -= 1
+    return -(-k_tiles // chunk), chunk * tk
+
+
+def approx_qgemm_plane0(a_q: torch.Tensor, b_t: torch.Tensor, *,
                         trunc_a: int = 0, trunc_b: int = 0) -> torch.Tensor:
-    """a_q (M, K) x b_q (K, N) int8 -> f32 (M, N), truncation masks in the
-    kernel.  On CUDA: (M, K, N) multiples of `qk.PLANE0_TILE`."""
+    """a_q (M, K) x b_t (N, K) int8, the weight K-major -> f32 (M, N),
+    truncation masks in the kernel.  On CUDA: (M, K, N) multiples of
+    `qk.PLANE0_TILE`."""
     if a_q.device.type == "cpu":
-        return approx_qgemm_plane0_plain(a_q, b_q, trunc_a=trunc_a,
+        return approx_qgemm_plane0_plain(a_q, b_t, trunc_a=trunc_a,
                                          trunc_b=trunc_b)
     m, k = a_q.shape
-    k2, n = b_q.shape
-    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8 or k != k2:
+    n, k2 = b_t.shape
+    if a_q.dtype != torch.int8 or b_t.dtype != torch.int8 or k != k2:
         raise ValueError(f"approx_qgemm_plane0: bad operands {a_q.dtype} "
-                         f"{tuple(a_q.shape)} x {b_q.dtype} "
-                         f"{tuple(b_q.shape)}")
+                         f"{tuple(a_q.shape)} x {b_t.dtype} "
+                         f"{tuple(b_t.shape)} (K-major)")
     tm, tk, tn = qk.PLANE0_TILE
-    if m % tm or k % tk or n % tn:
+    if not (m and k and n) or m % tm or k % tk or n % tn:
         raise ValueError(f"approx_qgemm_plane0: ({m}, {k}, {n}) is not "
                          f"padded to {qk.PLANE0_TILE} multiples")
-    _check_cuda("approx_qgemm_plane0", a_q, b_q)
+    _check_cuda("approx_qgemm_plane0", a_q, b_t)
+    splits, k_chunk = plane0_splits(m, k, n)
     out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
+    ws = torch.empty((splits, m, n), dtype=torch.int32,
+                     device=a_q.device) if splits > 1 else None
     lib = build.load()
     err = lib.repro_qgemm_plane0(
-        a_q.data_ptr(), b_q.data_ptr(), out.data_ptr(), m, k, n,
+        a_q.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, k, n,
         qk.signed_trunc_mask(trunc_a), qk.signed_trunc_mask(trunc_b),
-        build.stream_ptr(a_q.device))
+        k_chunk, build.stream_ptr(a_q.device))
     build.check(err, "approx_qgemm_plane0")
     approx_qgemm_plane0.launches += 1
     return out

@@ -131,3 +131,44 @@ def test_cuda_conv2d_kernel_path_matches_plain_path(cuda_dev):
     assert qgemm.approx_qgemm_fused.launches == n0 + 1
     want = L.conv2d(x, w, 1, 1, spec.with_policy("xla"))
     assert torch.equal(got, want)
+
+
+# --- the redesigned plane-0 and flash kernels ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mult", ["exact", "trunc2x2"])
+@pytest.mark.parametrize("shape", [(128, 2048, 2048), (128, 2048, 256),
+                                   (128, 2048, 5632), (128, 5632, 2048),
+                                   (25088, 1152, 256)])
+def test_cuda_plane0_k_major_bitexact(cuda_dev, shape, mult):
+    """The plane-0 kernel on a K-major weight (split K at the prefill
+    shapes, none at large M) and on a transposed-per-call one, against the
+    plain GEMM path."""
+    m, k, n = shape
+    spec = G.spec_from_name(mult).to(cuda_dev)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_dev)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda_dev)
+    want = G.approx_qgemm(a, b, spec)
+    n0 = qgemm.approx_qgemm_plane0.launches
+    assert torch.equal(ops.approx_qgemm(a, b, spec, b_t=b.T.contiguous()),
+                       want)
+    assert torch.equal(ops.approx_qgemm(a, b, spec), want)
+    assert qgemm.approx_qgemm_plane0.launches == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bh,s,d", [(32, 128, 64), (3, 77, 32),
+                                    (2, 256, 128), (1, 64, 256)])
+def test_cuda_flash_attention_tensor_core_widths(cuda_dev, bh, s, d, dtype,
+                                                 tol):
+    gen = torch.Generator(device=cuda_dev).manual_seed(d)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=cuda_dev)
+               .to(dtype) for _ in range(3))
+    for causal in (True, False):
+        got = fk.flash_attention(q, k, v, causal=causal)
+        want = fk.flash_attention_plain(q, k, v, causal=causal, bq=64,
+                                        bkv=64)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=3 * tol)
