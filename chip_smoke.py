@@ -19,9 +19,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  2e-6 (f32) / 2e-2 (bf16); then each kernel's time per unit
                  of its main path (CUDA events) beside its plain version, a
                  PyTorch library yardstick (`torch._int_mm` on K-major
-                 weights, SDPA pinned to its memory-efficient backend) and
-                 the card's bound, and plane 0's time over VGG16's 13 conv
-                 GEMMs under trunc2x2;
+                 weights, SDPA pinned to its memory-efficient backend; wall
+                 and device time) and the card's bound; the fused kernel's
+                 device time per VGG16 conv shape and at the TinyLlama
+                 prefill shapes under pareto:0.01, and plane 0's time over
+                 VGG16's 13 conv GEMMs under trunc2x2;
   4. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
@@ -278,7 +280,7 @@ def check_kernels(dev) -> tuple[dict, int]:
                 got = ops.approx_qgemm(a, b, spec)
                 exact("approx_qgemm_fused", got,
                       qgemm.approx_qgemm_fused_plain(
-                          a, b, spec.fu_q, spec.fv_q,
+                          a, b.T, spec.fu_q, spec.fv_q,
                           ops.plane_scales(spec, rank, dev), k_valid=k), what)
                 exact("approx_qgemm_stacked",
                       ops.approx_qgemm(a, b, spec, fused=False), got,
@@ -295,8 +297,9 @@ def check_kernels(dev) -> tuple[dict, int]:
     ap = torch.cat([a, torch.zeros_like(a)], 1)
     bp = torch.cat([b, torch.zeros_like(b)], 0)
     exact("approx_qgemm_fused", qgemm.approx_qgemm_fused(
-        ap, bp, spec.fu_q, spec.fv_q, ops.plane_scales(spec, 2, dev),
-        k_valid=128), G.approx_qgemm(a, b, spec), "fully padded K tile")
+        ap, bp.T.contiguous(), spec.fu_q, spec.fv_q,
+        ops.plane_scales(spec, 2, dev), k_valid=128),
+        G.approx_qgemm(a, b, spec), "fully padded K tile")
     torch.cuda.empty_cache()
 
     for bh, s, d in [(32, 128, 64), (2, 256, 128), (1, 64, 256), (3, 77, 64),
@@ -326,6 +329,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.approx import gemm as G
+    from repro_torch.kernels import approx_qgemm as qk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, qgemm
     from repro_torch.kernels import quantize as qz
@@ -351,10 +355,11 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     def row(name, route, source, replaces, unit, calls, kernel, plain,
             library, nbytes, ops_, peak):
         b, by = bound_ms(nbytes, ops_, peak)
-        lib_ms = None
+        lib_ms = lib_dms = None
         if library is not None:
             try:  # a yardstick only: the port never calls it
                 lib_ms = cuda_ms(library)
+                lib_dms = device_ms(library)
             except RuntimeError as e:
                 log(f"[time] {name}: library call unavailable ({e})")
         out.append({
@@ -363,14 +368,14 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             "max_abs_err": errs[name], "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(plain, reps=3, warmup=1),
             "bound_ms": b, "bound_by": by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_dms,
             "unit": unit, "calls": calls, "device_ms": device_ms(kernel)})
         dms = out[-1]["device_ms"]
         share = f"{b / dms:.1%}" if dms else "not measured"
         log(f"[time] {name}: {out[-1]['ms']:.4f} ms per {unit} "
             f"(device {dms}, plain {out[-1]['plain_ms']:.4f}, bound "
             f"{b:.4f} by {by}, device time at {share} of the bound, "
-            f"library {out[-1]['library_ms']})")
+            f"library {lib_ms}, library device {lib_dms})")
 
     # skinny: one decode step of the arena (m = capacity)
     dec = [(acts[(cap, w.shape[0])], w) for w in weights + [head]]
@@ -464,8 +469,9 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     torch.cuda.empty_cache()
 
     # fused: the 13 conv GEMMs of one VGG16 forward (batch 8, 224x224)
-    # under the rank-5 Pareto multiplier; stacked: the same GEMMs through
-    # the stacked route, on stacks built beforehand
+    # under the rank-5 Pareto multiplier, as the CNN path calls them (the
+    # quantized weight transposed per call); stacked: the same GEMMs
+    # through the stacked route, on stacks built beforehand
     lspec = G.spec_from_name(CNN_MULT).to(dev)
     rank = lspec.rank
     planes = rank + 1
@@ -475,12 +481,15 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
               torch.randint(-128, 128, (k, n), generator=gen, device=dev,
                             dtype=torch.int8)) for m, k, n in vgg16_convs()]
     mkn = [(a.shape[0], a.shape[1], w.shape[1]) for a, w in convs]
-    # torch._int_mm takes K and N in multiples of 8: conv 1's K = 27 pads
+    # the yardstick: R + 1 exact products per GEMM, torch._int_mm on
+    # K-major weights (made once, untimed); it takes K and N in multiples
+    # of 8, so conv 1's K = 27 pads
     padded8 = [(ops._pad_to(a, 1, 8), ops._pad_to(w, 0, 8))
                for a, w in convs]
+    kmajor8 = [(a, w.t().contiguous().t()) for a, w in padded8]
 
     def int_mm_planes():
-        return [torch._int_mm(a, w) for a, w in padded8
+        return [torch._int_mm(a, w) for a, w in kmajor8
                 for _ in range(planes)]
 
     row("approx_qgemm_fused", "cuda", "src/repro_torch/csrc/qgemm.cu",
@@ -488,16 +497,52 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         "VGG16 forward, batch 8 (13 conv GEMMs)", len(convs),
         lambda: [ops.approx_qgemm(a, w, lspec) for a, w in convs],
         lambda: [qgemm.approx_qgemm_fused_plain(
-            a, w, lspec.fu_q, lspec.fv_q, scales, k_valid=a.shape[1])
+            a, w.T, lspec.fu_q, lspec.fv_q, scales, k_valid=a.shape[1])
             for a, w in convs],
         int_mm_planes,
         sum(m * k + k * n + 4 * m * n for m, k, n in mkn),
         sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
+    # the earlier yardstick, on row-major weights, read once beside it
+    row_major = cuda_ms(lambda: [torch._int_mm(a, w) for a, w in padded8
+                                 for _ in range(planes)])
+    log(f"[time] {planes} x torch._int_mm per VGG16 conv GEMM on row-major "
+        f"(K, N) weights: {row_major:.4f} ms (K-major: the library_ms of "
+        "rows approx_qgemm_fused and approx_qgemm_stacked)")
+    # where fused's time goes: device time per call at each VGG16 shape,
+    # beside its operation bound, and at the TinyLlama prefill shapes
+    # (M = 128) under the same multiplier
+    parts = []
+    for (m, k, n), (a, w) in zip(mkn, convs):
+        dms = device_ms(lambda: ops.approx_qgemm(a, w, lspec))
+        b, _ = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n * planes,
+                        PEAK_INT8)
+        us = f"{dms * 1e3:.1f} us" if dms else "not measured"
+        parts.append(f"({m},{k},{n}): {us} (bound {b * 1e3:.1f} us, "
+                     f"tile {qk.fused_tile(n)[2]})")
+    log("[time] approx_qgemm_fused device time per call: "
+        + "; ".join(parts))
+    parts = []
+    for m, k, n in [(128, 2048, 2048), (128, 2048, 256), (128, 2048, 5632),
+                    (128, 5632, 2048)]:
+        a = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wt = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        dms = device_ms(lambda: ops.approx_qgemm(a, wt.T, lspec, b_t=wt))
+        b, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n * planes,
+                         PEAK_INT8)
+        us = f"{dms * 1e3:.1f} us" if dms else "not measured"
+        parts.append(f"({m},{k},{n}): {us} (bound {b * 1e3:.1f} us by "
+                     f"{by})")
+    log(f"[time] approx_qgemm_fused at the TinyLlama prefill shapes under "
+        f"{CNN_MULT}, K-major weights, device time per call: "
+        + "; ".join(parts))
     stacks = []
     for a, w in convs:
         a_s, b_s, s_ = ops.build_stacks(a, w, lspec)
-        stacks.append((ops._pad_to(ops._pad_to(a_s, 1, 128), 2, 32),
-                       ops._pad_to(ops._pad_to(b_s, 1, 32), 2, 128), s_))
+        bm, bk, bn = qk.choose_blocks(*a.shape, w.shape[1], kernel="stacked")
+        stacks.append((ops._pad_to(ops._pad_to(a_s, 1, bm), 2, bk),
+                       ops._pad_to(ops._pad_to(b_s, 1, bk), 2, bn), s_))
     del convs
     row("approx_qgemm_stacked", "cuda", "src/repro_torch/csrc/qgemm.cu",
         "src/repro/kernels/approx_qgemm.py:157",
@@ -509,13 +554,6 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         int_mm_planes,
         sum(planes * (m * k + k * n) + 4 * m * n for m, k, n in mkn),
         sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
-    # the same yardstick on K-major weights (made once, untimed), logged
-    # beside the rows: rows 5 and 6 keep the row-major reading
-    kmajor8 = [(a, w.t().contiguous().t()) for a, w in padded8]
-    kmajor_ms = cuda_ms(lambda: [torch._int_mm(a, w) for a, w in kmajor8
-                                 for _ in range(planes)])
-    log(f"[time] {planes} x torch._int_mm per VGG16 conv GEMM on K-major "
-        f"weights: {kmajor_ms:.4f} ms")
     del stacks, padded8, kmajor8
     torch.cuda.empty_cache()
 

@@ -149,9 +149,9 @@ class PreparedWeight:
       wq      int8 (..., k, n)    per-output-channel quantized weight (the
                                   kernels consume it raw and map it in-kernel)
       wq_t    int8 (..., n, k)    wq K-major, made once for the plane-0
-                                  kernel (exact/trunc GEMMs at m > 32) where
-                                  the kernels run; None elsewhere.  One more
-                                  byte per weight parameter
+                                  and fused kernels (every GEMM at m > 32)
+                                  where the kernels run; None elsewhere.
+                                  One more byte per weight parameter
       sw      f32  (..., 1, n)    dequant scales
       planes  int8 (..., P', k, n) pre-mapped weight planes for the plain
                                   path: the R table-mapped corrections
@@ -186,8 +186,8 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
     spec.  Identity for exact/absent specs.  Accepts stacked (..., k, n)
     leaves; scales reduce over the contraction dim only.  The pre-mapped
     planes serve the plain path only, so a "pallas"-pinned policy skips
-    them; the K-major copy serves the plane-0 kernel only, so it is made
-    where the kernels run and the spec reaches that kernel."""
+    them; the K-major copy serves the plane-0 and fused kernels, so it
+    is made where the kernels run."""
     if spec is None or spec.is_exact or is_prepared(w):
         return w
     from repro_torch.kernels import dispatch
@@ -205,8 +205,7 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
     else:  # lowrank rank 0 degenerates to the raw plane
         planes = no_planes
     wq_t = None
-    if dispatch.use_kernels(spec.policy, w.device) and \
-            (spec.mode == "trunc" or not spec.rank):
+    if dispatch.use_kernels(spec.policy, w.device):
         wq_t = wq.transpose(-1, -2).contiguous()
     return PreparedWeight(w=w, wq=wq, sw=sw.to(torch.float32),
                           planes=planes, mode=spec.mode, mult=spec.name,

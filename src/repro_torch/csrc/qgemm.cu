@@ -1,6 +1,7 @@
 // Approximate int8 GEMMs: the tiled plane-0 kernel (exact / truncation
-// multipliers, prefill-shaped) and the skinny kernel (decode-shaped, any
-// rank of low-rank correction planes).
+// multipliers, prefill-shaped), the skinny kernel (decode-shaped, any rank
+// of low-rank correction planes), and the fused low-rank kernel with its
+// stacked twin (any M).
 //
 // ---------------------------------------------------------------------------
 // repro_qgemm_plane0
@@ -64,47 +65,63 @@
 //   acc_r = U_r(A) . V_r(B), r = 1..R   (U_r(a) = fu[r-1][a & 0xFF], zero
 //                                        at k >= k_valid; V_r likewise)
 //   C = ((0 + 1 acc_0) + s_1 acc_1) + ...   (s_r = -s_r of the spec)
-// with A (M, K) and B (K, N) raw int8, R <= 8.
+// with A (M, K) raw int8, the weight given K-major as Bt (N, K), R <= 8.
 //
 // Bound on the H100: operations, 2 M K N (R + 1) at the int8 tensor-core
 // rate, once M K N is large (every im2col GEMM of the CNNs); bytes (the raw
-// operands once, M K + K N + 4 M N) below that.  The TPU kernel keeps all
-// R + 1 int32 accumulators of a 128 x 128 tile live at once; at rank 8 that
-// is 576 KiB, more than an SM's register file.  Design: a 128 x 128 x 32
-// block tile (eight warps of 64 x 32, mma.sync m16n8k32) with
-// the planes as the OUTERMOST loop of each block: one int32 accumulator and
-// one f32 output accumulator live per thread.  The (R, 256) tables sit in
-// shared memory, loaded once per block; plane r >= 1 maps each staged A
-// and B word through them byte by byte before the shared-memory store, and
-// zeroes mapped A bytes at k >= k_valid (pad zeros map to tbl[0] != 0).
-// Pad rows of M and pad columns of N map to garbage that the wrapper crops.
-// After each plane's K loop the int32 sum is flushed into the output as
-// out = __fadd_rn(out, __fmul_rn(s_r, (float)acc)), in plane order, so no
-// FMA contraction can change a bit against the plain version.  The cost of
-// this design: the operands are re-read R + 1 times (from L2 where a tile
-// row fits), and the loads are not pipelined.  No split-K.  Operands are
-// padded by the wrapper: M, N multiples of 128, K a multiple of 32.
+// operands once, M K + K N + 4 M N) below that.  Besides the MMAs, every
+// block maps its A tile through the tables once per plane: M K R (N / BN)
+// byte lookups from shared memory, 5.3e9 in a VGG16 forward under a rank-5
+// multiplier, and they set the pace.  Design:
+//   - the weight's R + 1 planes are made once per call by a small kernel
+//     (lowrank_b_planes_kernel) into a K-major (R + 1, N, K) workspace, so
+//     the main kernel maps only A, and both MMA operands are K-major;
+//   - 128 x 128 block tiles (two warpgroups of 64 rows), or 128 x 64 (two
+//     blocks per SM) where that pads N less (the conv1 layers' N = 64);
+//   - tiles arrive by TMA tensor copies (128-byte swizzle, 128 K bytes a
+//     stage) into a ring of four stages, each completing on its mbarrier;
+//     thread 0 issues them two stages ahead.  16-byte cp.async copies
+//     could not feed the MMAs: the copy stream alone took longer than the
+//     whole kernel does now (PERF.md, section 6);
+//   - each warp loads its 16 rows of A with ldmatrix and maps them in
+//     registers (plane 0 ANDed with mask_a; plane r through fu[r - 1];
+//     bytes at k >= k_valid zeroed, since pad zeros map to tbl[0] != 0):
+//     every A byte is mapped once per block and plane, and the mapped
+//     fragment is the A operand of wgmma.mma_async m64n{128,64}k32 s8,
+//     whose B the tensor cores read from the swizzled tile by descriptor;
+//   - A registers are double-buffered, so one wgmma group stays in flight
+//     while the next stage is mapped; one __syncthreads per stage frees
+//     the buffer that TMA refills;
+//   - planes are the outermost loop of a block (one int32 and one f32
+//     accumulator per output); after plane p's last K tile its int32 sum
+//     is flushed as out = __fadd_rn(out, __fmul_rn(s_p, (float)acc)), in
+//     plane order, so no FMA contraction can change a bit against the
+//     plain version.  A partial K sum is never flushed.
+// The tables are one 256-byte copy per plane (2 KiB at rank 8).  Pad rows
+// of M and pad columns of N map to garbage that the wrapper crops.  No
+// split-K: at M = 128 the grid is N / 128 blocks.  Operands are padded by
+// the wrapper: M a multiple of 128, K of 32, N of the tile width.
 //
 // ---------------------------------------------------------------------------
 // repro_qgemm_stacked
 // Replaces: src/repro/kernels/approx_qgemm.py, approx_qgemm_stacked
 // (_stacked_kernel).  C = sum_p scales[p] * (A_p . B_p) over P <= 9 planes of
-// pre-mapped (P, M, K) / (P, K, N) int8 stacks (kernels/ops.py build_stacks
-// maps the operands in PyTorch and pads after mapping, so pads are zero in
-// every plane).  Bound on the H100: bytes of the P-fold stacks, or
-// operations 2 M K N P, whichever is larger.  Design: the same kernel as
-// fused, with the table map and the K mask compiled out and plane p read
-// from its own slice of the stacks; the same flush, in the same order, so
-// the two kernels agree bit for bit.
+// pre-mapped (P, M, K) operand stacks and (P, N, K) K-major weight stacks
+// (kernels/ops.py build_stacks maps the operands in PyTorch and pads after
+// mapping, so pads are zero in every plane; the wrapper transposes the
+// weight stack).  Bound on the H100: bytes of the P-fold stacks, or
+// operations 2 M K N P, whichever is larger.  Design: the fused kernel with
+// the map compiled out and plane p's A tile loaded from its own slice of
+// the stack; the same flush, in the same order, so the two agree bit for
+// bit.
 #include "common.cuh"
 
-namespace {
+#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
 
-// ------------- block tile of the low-rank kernels (fused, stacked) ---------
-// (named P0_ after the first plane-0 kernel, which used it too)
-constexpr int P0_BM = 128, P0_BN = 128, P0_BK = 32;
-constexpr int P0_LD = 48;  // shared row stride in bytes: conflict-free frags
-constexpr int P0_THREADS = 256;
+#include <algorithm>
+#include <type_traits>
+
+namespace {
 
 __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
                                        const uint32_t b[2]) {
@@ -113,32 +130,6 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One 32-deep K step of a block's 128 x 128 tile: the warp's 64 x 32 piece
-// of As [m][k] x Bs [n][k] into its int32 accumulators.
-__device__ __forceinline__ void tile_mma(const uint8_t* As, const uint8_t* Bs,
-                                         int acc[4][4][4], int wm, int wn,
-                                         int g, int t) {
-  uint32_t af[4][4], bf[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const uint8_t* p = As + (wm * 64 + mi * 16 + g) * P0_LD + t * 4;
-    af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-    af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * P0_LD);
-    af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-    af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * P0_LD + 16);
-  }
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const uint8_t* p = Bs + (wn * 32 + ni * 8 + g) * P0_LD + t * 4;
-    bf[ni][0] = *reinterpret_cast<const uint32_t*>(p);
-    bf[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-  }
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
 }
 
 // ------------------------- plane 0 (redesigned) ---------------------------
@@ -416,6 +407,27 @@ __global__ void skinny_flush_kernel(const int* __restrict__ acc,
 
 // ----------------------------- low rank: fused / stacked -------------------
 constexpr int LR_MAX_RANK = 8;
+constexpr int LR_BM = 128;            // block rows: two warpgroups of 64
+constexpr int LR_BK = 128;            // K bytes per stage: one swizzle row
+constexpr int LR_KT = 32;             // K multiple the kernels take
+constexpr int LR_STAGES = 4;
+constexpr int LR_THREADS = 256;
+constexpr int LR_TABLES = LR_MAX_RANK * 256;
+
+// A stage: the A tile [128][128] then the weight tile [BN][128], both as
+// TMA writes them with the 128-byte swizzle (16-byte chunk c of row r at
+// chunk c ^ (r & 7)), 1024-byte aligned; after the ring, the tables and
+// one mbarrier per stage.
+template <int BN>
+struct LrLayout {
+  static constexpr int A_BYTES = LR_BM * LR_BK;
+  static constexpr int STAGE = A_BYTES + BN * LR_BK;
+  static constexpr int SMEM = 1024 + LR_STAGES * STAGE + LR_TABLES +
+                              8 * LR_STAGES;
+  // the narrow tile's sums take half the registers: two blocks fit an SM
+  static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;
+  static_assert(STAGE % 1024 == 0, "1024-byte aligned tiles");
+};
 
 // w with the bytes at columns col + j >= k_valid set to zero (byte j of a
 // little-endian word is column col + j).
@@ -427,136 +439,372 @@ __device__ __forceinline__ uint32_t keep_below(uint32_t w, int col,
   return w & (0xFFFFFFFFu >> (8 * (4 - n)));
 }
 
-template <bool kStacked>
-__global__ void __launch_bounds__(P0_THREADS)
-lowrank_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-               const int8_t* __restrict__ fu, const int8_t* __restrict__ fv,
-               const float* __restrict__ scales, float* __restrict__ C,
-               int M, int K, int N, int planes, int k_valid, uint32_t mask_a,
-               uint32_t mask_b) {
-  __shared__ __align__(16) uint8_t As[P0_BM * P0_LD];  // [m][k]
-  __shared__ __align__(16) uint8_t Bs[P0_BN * P0_LD];  // [n][k]
-  __shared__ int8_t tu[kStacked ? 1 : LR_MAX_RANK * 256];
-  __shared__ int8_t tv[kStacked ? 1 : LR_MAX_RANK * 256];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps: 64 x 32 each
-  const int g = lane >> 2, t = lane & 3;
-  // N blocks fastest: the blocks that share an A tile run together.
-  const int n_blocks = N / P0_BN;
-  const int m0 = (int)(blockIdx.x / n_blocks) * P0_BM;
-  const int n0 = (int)(blockIdx.x % n_blocks) * P0_BN;
-
-  if (!kStacked) {
-    for (int i = tid; i < (planes - 1) * 256; i += P0_THREADS) {
-      tu[i] = fu[i];
-      tv[i] = fv[i];
-    }
-    __syncthreads();
+// The fused kernel's weight planes, once per call: Bt (N, K) K-major ->
+// Bp (planes, N, K), plane 0 = Bt & mask_b, plane r = fv[r - 1][Bt & 0xFF].
+// `chunks` counts 16-byte chunks of one plane.
+__global__ void lowrank_b_planes_kernel(const int8_t* __restrict__ Bt,
+                                        const int8_t* __restrict__ fv,
+                                        int8_t* __restrict__ Bp,
+                                        size_t chunks, int planes,
+                                        uint32_t mask_b) {
+  __shared__ int8_t tv[LR_TABLES];
+  for (int i = threadIdx.x; i < (planes - 1) * 256; i += blockDim.x) {
+    tv[i] = fv[i];
   }
-
-  const int a_row = tid >> 1, a_col = (tid & 1) * 16;
-  const int b_k = (tid >> 5) * 4, b_n = (tid & 31) * 4;
-
-  float out[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[i][j][e] = 0.f;
-
-  for (int p = 0; p < planes; ++p) {
-    const size_t a_off = kStacked ? (size_t)p * M * K : 0;
-    const size_t b_off = kStacked ? (size_t)p * K * N : 0;
-    const int8_t* a_ptr = A + a_off + (size_t)(m0 + a_row) * K + a_col;
-    const int8_t* b_ptr = B + b_off + (size_t)b_k * N + n0 + b_n;
-    const int8_t* ta = tu + (kStacked || p == 0 ? 0 : (p - 1) * 256);
-    const int8_t* tb = tv + (kStacked || p == 0 ? 0 : (p - 1) * 256);
-
-    int acc[4][4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-    for (int k0 = 0; k0 < K; k0 += P0_BK) {
-      uint4 av = *reinterpret_cast<const uint4*>(a_ptr + k0);
-      uint32_t r[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        r[i] = *reinterpret_cast<const uint32_t*>(b_ptr + (size_t)(k0 + i) * N);
-      }
-      if (!kStacked) {
-        if (p == 0) {
-          av.x &= mask_a;
-          av.y &= mask_a;
-          av.z &= mask_a;
-          av.w &= mask_a;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) r[i] &= mask_b;
-        } else {
-          av.x = map_bytes(av.x, ta);
-          av.y = map_bytes(av.y, ta);
-          av.z = map_bytes(av.z, ta);
-          av.w = map_bytes(av.w, ta);
-          const int kc = k0 + a_col;
-          if (kc + 16 > k_valid) {
-            av.x = keep_below(av.x, kc, k_valid);
-            av.y = keep_below(av.y, kc + 4, k_valid);
-            av.z = keep_below(av.z, kc + 8, k_valid);
-            av.w = keep_below(av.w, kc + 12, k_valid);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i) r[i] = map_bytes(r[i], tb);
-        }
-      }
-      *reinterpret_cast<uint4*>(As + a_row * P0_LD + a_col) = av;
-      repro_transpose4x4(r, c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        *reinterpret_cast<uint32_t*>(Bs + (b_n + j) * P0_LD + b_k) = c[j];
-      }
-      __syncthreads();
-      tile_mma(As, Bs, acc, wm, wn, g, t);
-      __syncthreads();
-    }
-
-    const float s = scales[p];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          out[i][j][e] = __fadd_rn(out[i][j][e],
-                                   __fmul_rn(s, (float)acc[i][j][e]));
-        }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int row = m0 + wm * 64 + mi * 16 + g;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + t * 2;
-      *reinterpret_cast<float2*>(C + (size_t)row * N + col) =
-          make_float2(out[mi][ni][0], out[mi][ni][1]);
-      *reinterpret_cast<float2*>(C + (size_t)(row + 8) * N + col) =
-          make_float2(out[mi][ni][2], out[mi][ni][3]);
+  __syncthreads();
+  const uint4* src = reinterpret_cast<const uint4*>(Bt);
+  uint4* dst = reinterpret_cast<uint4*>(Bp);
+  const size_t stride = (size_t)gridDim.x * blockDim.x;
+  for (size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x; c < chunks;
+       c += stride) {
+    const uint4 v = src[c];
+    dst[c] = make_uint4(v.x & mask_b, v.y & mask_b, v.z & mask_b,
+                        v.w & mask_b);
+    for (int p = 1; p < planes; ++p) {
+      const int8_t* t = tv + (p - 1) * 256;
+      dst[p * chunks + c] = make_uint4(map_bytes(v.x, t), map_bytes(v.y, t),
+                                       map_bytes(v.z, t), map_bytes(v.w, t));
     }
   }
 }
 
-// Blocks of the low-rank kernels' grid, or 0 when the shape is refused.
-long long lowrank_blocks(int m, int k, int n) {
-  if (m < P0_BM || n < P0_BN || k < P0_BK || m % P0_BM || n % P0_BN ||
-      k % P0_BK) {
-    return 0;
+// acc (a warpgroup's 64 x N int32) += A (64 x 32 int8, the mma.m16n8k32
+// fragment of each warp's 16 rows, in registers) x B (N x 32 int8, K-major
+// in shared memory, by descriptor); scale_d 0 overwrites acc.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64],
+                                            const uint32_t a[4],
+                                            uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8_n64(int (&d)[32],
+                                            const uint32_t a[4],
+                                            uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Order this thread's generic-proxy accesses to shared memory before the
+// async-proxy ones (TMA) that follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Wait for the barrier's phase `phase`; trap after about ten seconds, so a
+// fault in the pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(phase) : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
   }
-  const long long blocks = (long long)(m / P0_BM) * (n / P0_BN);
-  return blocks > 0x7FFFFFFFLL ? 0 : blocks;
+}
+// TMA: the box at (x = column, y = row) of tensor map `tm` into `dst`,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tm)), "r"(x),
+        "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+// wgmma descriptor of a 128-byte-swizzled K-major tile: 8-row groups 1024
+// bytes apart (SBO); a K step's 32 bytes are added to the start address.
+__device__ __forceinline__ uint64_t swizzle128_desc(const void* smem) {
+  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Block blockIdx.x computes the 128 x BN tile at (m0, n0) over every plane;
+// tm_b maps the planes' weights K-major, (planes N, K).  kMap (fused): tm_a
+// maps one (M, K) matrix, loaded again for every plane; each thread maps
+// its own A fragment in registers (plane 0 ANDed with mask_a, plane r >= 1
+// through fu[r - 1], zero at k >= k_valid).  !kMap (stacked): tm_a maps a
+// (planes M, K) stack of pre-mapped operands, used as it lands.
+template <int BN, bool kMap>
+__global__ void __launch_bounds__(LR_THREADS, LrLayout<BN>::MIN_BLOCKS)
+lowrank_kernel(const __grid_constant__ CUtensorMap tm_a,
+               const __grid_constant__ CUtensorMap tm_b,
+               const int8_t* __restrict__ fu, const float* __restrict__ scales,
+               float* __restrict__ C, int M, int K, int N, int planes,
+               int k_valid, uint32_t mask_a) {
+  using L = LrLayout<BN>;
+  constexpr int BM = LR_BM, BK = LR_BK, STAGES = LR_STAGES;
+  constexpr int STAGE = L::STAGE, STEPS = BK / 32, NACC = BN / 2;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* tbl = reinterpret_cast<int8_t*>(smem + STAGES * STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tbl + LR_TABLES);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // N blocks fastest: the blocks that share an A tile run together.
+  const int n_blocks = N / BN;
+  const int m0 = (int)(blockIdx.x / n_blocks) * BM;
+  const int n0 = (int)(blockIdx.x % n_blocks) * BN;
+  const int k_tiles = (K + BK - 1) / BK;
+  const int total = planes * k_tiles;  // stages over all planes
+
+  if (kMap) {
+    for (int i = tid; i < (planes - 1) * 256; i += LR_THREADS) tbl[i] = fu[i];
+  }
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(full + st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0's load stream: stage (lp, lkt) into buffer `buf`.
+  int lp = 0, lkt = 0;
+  auto load = [&](int buf) {
+    uint8_t* as = smem + buf * STAGE;
+    mbar_expect_tx(full + buf, STAGE);
+    tma_load_2d(as, &tm_a, lkt * BK, m0 + (kMap ? 0 : lp * M), full + buf);
+    tma_load_2d(as + L::A_BYTES, &tm_b, lkt * BK, lp * N + n0, full + buf);
+    if (++lkt == k_tiles) {
+      lkt = 0;
+      ++lp;
+    }
+  };
+
+  int acc[NACC];
+  float out[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    acc[i] = 0;
+    out[i] = 0.f;
+  }
+  uint32_t af[2][STEPS][4];  // A fragments, double-buffered by stage parity
+  const int a_row = warp * 16 + (lane & 15), a_half = lane >> 4;
+  const int row = m0 + warp * 16 + g;  // this thread's output rows (+ 8)
+  int cp = 0, ckt = 0;                 // the compute stream's (plane, tile)
+
+  // Stage it: A fragments into af[P] (mapped for plane cp), the
+  // warpgroup's wgmmas on them and the weight tile, one group left in
+  // flight; after a plane's last tile, its int32 sums are flushed.
+  auto stage = [&](auto pc, int it) {
+    constexpr int P = decltype(pc)::value;
+    const int p = cp, kt = ckt;
+    const uint8_t* as = smem + (it % STAGES) * STAGE;
+    const uint8_t* bs = as + L::A_BYTES;
+    const int8_t* tp = tbl + (p > 0 ? p - 1 : 0) * 256;
+#pragma unroll
+    for (int ks = 0; ks < STEPS; ++ks) {
+      uint32_t* f = af[P][ks];
+      const int ck = kt * BK + ks * 32;  // the K step's first column
+      if (kMap && p > 0 && ck >= k_valid) {  // all pad: maps to zero
+        f[0] = f[1] = f[2] = f[3] = 0u;
+        continue;
+      }
+      ldmatrix_x4(f, as + a_row * BK +
+                         (((ks * 2 + a_half) ^ (a_row & 7)) << 4));
+      if (kMap && p > 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = map_bytes(f[e], tp);
+        if (ck + 32 > k_valid) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            f[e] = keep_below(f[e], ck + (e >> 1) * 16 + t * 4, k_valid);
+          }
+        }
+      } else if (kMap) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] &= mask_a;
+      }
+    }
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < STEPS; ++ks) {
+      const uint64_t db = swizzle128_desc(bs + ks * 32);
+      const int scale_d = (kt == 0 && ks == 0) ? 0 : 1;
+      if constexpr (BN == 128) {
+        wgmma_s8_n128(acc, af[P][ks], db, scale_d);
+      } else {
+        wgmma_s8_n64(acc, af[P][ks], db, scale_d);
+      }
+    }
+    wg_commit();
+    if (++ckt < k_tiles) {
+      wg_wait<1>();
+      return;
+    }
+    ckt = 0;  // plane p's K sum is complete
+    ++cp;
+    wg_wait<0>();
+    const float s = scales[p];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      out[i] = __fadd_rn(out[i], __fmul_rn(s, (float)acc[i]));
+    }
+  };
+
+  auto step = [&](auto pc, int it) {
+    mbar_wait(full + it % STAGES, (it / STAGES) & 1);
+    // this thread's reads of stage it - 2's buffer are done (its wgmmas
+    // retired at the last wait): order them before the TMA that refills it
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0 && it + STAGES - 2 < total) load((it + STAGES - 2) % STAGES);
+    stage(pc, it);
+  };
+
+  if (tid == 0) {
+    for (int st = 0; st < STAGES - 2 && st < total; ++st) load(st);
+  }
+  for (int it = 0; it < total; it += 2) {
+    step(std::integral_constant<int, 0>{}, it);
+    if (it + 1 < total) step(std::integral_constant<int, 1>{}, it + 1);
+  }
+  wg_wait<0>();
+
+  // warp w holds rows 16 w + g (+ 8); column block j of 8 in
+  // acc[4 j .. 4 j + 3]
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + t * 2;
+    *reinterpret_cast<float2*>(C + (size_t)row * N + col) =
+        make_float2(out[4 * j], out[4 * j + 1]);
+    *reinterpret_cast<float2*>(C + (size_t)(row + 8) * N + col) =
+        make_float2(out[4 * j + 2], out[4 * j + 3]);
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime (no link
+// against libcuda).
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) == cudaSuccess) {
+      fn = (EncodeTiledFn)p;
+    }
+  }
+  return fn;
+}
+
+// A tensor map over a row-major int8 (rows, cols) matrix, boxes of
+// box_rows x 128 bytes, 128-byte swizzle, zeros past the edges.
+bool tensor_map_2d(CUtensorMap* tm, const void* base, int rows, int cols,
+                   int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {(cuuint32_t)LR_BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Whether the low-rank kernels take (m, k, n) at block width bn.
+bool lowrank_shape_ok(int m, int k, int n, int bn) {
+  if (bn != 64 && bn != 128) return false;
+  if (m < LR_BM || n < bn || k < LR_KT || m % LR_BM || n % bn || k % LR_KT) {
+    return false;
+  }
+  return (long long)(m / LR_BM) * (n / bn) <= 0x7FFFFFFFLL;
+}
+
+// a: A (kMap) or the A stack; bp: the weight planes (planes, n, k).
+template <int BN, bool kMap>
+cudaError_t lowrank_launch(const void* a, const void* bp, const void* fu,
+                           const void* scales, void* out, int m, int k, int n,
+                           int planes, int k_valid, uint32_t mask_a,
+                           cudaStream_t s) {
+  CUtensorMap tm_a, tm_b;
+  if (!tensor_map_2d(&tm_a, a, kMap ? m : planes * m, k, LR_BM) ||
+      !tensor_map_2d(&tm_b, bp, planes * n, k, BN)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err =
+      repro_smem_limit<lowrank_kernel<BN, kMap>>(LrLayout<BN>::SMEM);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((long long)(m / LR_BM) * (n / BN));
+  lowrank_kernel<BN, kMap><<<blocks, LR_THREADS, LrLayout<BN>::SMEM, s>>>(
+      tm_a, tm_b, (const int8_t*)fu, (const float*)scales, (float*)out, m, k,
+      n, planes, k_valid, mask_a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -615,33 +863,47 @@ REPRO_API int repro_qgemm_skinny(const void* a, const void* b, const void* fu,
   return (int)cudaGetLastError();
 }
 
-REPRO_API int repro_qgemm_fused(const void* a, const void* b, const void* fu,
-                                const void* fv, const void* scales, void* out,
-                                int m, int k, int n, int k_valid, int rank,
-                                int mask_a, int mask_b, void* stream) {
-  const long long blocks = lowrank_blocks(m, k, n);
-  if (!blocks || rank < 0 || rank > LR_MAX_RANK || k_valid < 1 ||
-      k_valid > k) {
+REPRO_API int repro_qgemm_fused(const void* a, const void* bt, const void* fu,
+                                const void* fv, const void* scales,
+                                void* bplanes, void* out, int m, int k, int n,
+                                int bn, int k_valid, int rank, int mask_a,
+                                int mask_b, void* stream) {
+  if (!lowrank_shape_ok(m, k, n, bn) || rank < 0 || rank > LR_MAX_RANK ||
+      k_valid < 1 || k_valid > k || !bplanes) {
     return (int)cudaErrorInvalidValue;
   }
-  lowrank_kernel<false><<<(unsigned)blocks, P0_THREADS, 0,
-                          (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)b, (const int8_t*)fu,
-      (const int8_t*)fv, (const float*)scales, (float*)out, m, k, n,
-      rank + 1, k_valid, repro_word_mask(mask_a), repro_word_mask(mask_b));
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int planes = rank + 1;
+  const size_t chunks = (size_t)n * k / 16;
+  const int threads = 256;
+  const size_t blocks = std::min((chunks + threads - 1) / threads,
+                                 (size_t)132 * 16);
+  lowrank_b_planes_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+      (const int8_t*)bt, (const int8_t*)fv, (int8_t*)bplanes, chunks, planes,
+      repro_word_mask(mask_b));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const uint32_t ma = repro_word_mask(mask_a);
+  return (int)(bn == 64 ? lowrank_launch<64, true>(a, bplanes, fu, scales, out,
+                                                   m, k, n, planes, k_valid,
+                                                   ma, s)
+                        : lowrank_launch<128, true>(a, bplanes, fu, scales,
+                                                    out, m, k, n, planes,
+                                                    k_valid, ma, s));
 }
 
-REPRO_API int repro_qgemm_stacked(const void* a, const void* b,
+REPRO_API int repro_qgemm_stacked(const void* a, const void* bt,
                                   const void* scales, void* out, int planes,
-                                  int m, int k, int n, void* stream) {
-  const long long blocks = lowrank_blocks(m, k, n);
-  if (!blocks || planes < 1 || planes > LR_MAX_RANK + 1) {
+                                  int m, int k, int n, int bn, void* stream) {
+  if (!lowrank_shape_ok(m, k, n, bn) || planes < 1 ||
+      planes > LR_MAX_RANK + 1) {
     return (int)cudaErrorInvalidValue;
   }
-  lowrank_kernel<true><<<(unsigned)blocks, P0_THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)b, nullptr, nullptr,
-      (const float*)scales, (float*)out, m, k, n, planes, k, ~0u, ~0u);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(bn == 64 ? lowrank_launch<64, false>(a, bt, nullptr, scales,
+                                                    out, m, k, n, planes, k,
+                                                    ~0u, s)
+                        : lowrank_launch<128, false>(a, bt, nullptr, scales,
+                                                     out, m, k, n, planes, k,
+                                                     ~0u, s));
 }

@@ -11,17 +11,17 @@ from __future__ import annotations
 #: (M, K, N) multiples of the plane-0 kernel: its 64 x 64 block tile and
 #: 64-byte K stage (csrc/qgemm.cu PL0_BM, PL0_BK, PL0_BN).
 PLANE0_TILE = (64, 64, 64)
-#: (M, K, N) multiples of the fused low-rank kernel: its block tile,
-#: walked once per plane (csrc/qgemm.cu P0_*, lowrank_kernel).
+#: (M, K, N) multiples of the fused low-rank kernel: its 128 x 128 block
+#: tile and 32-byte K multiple (csrc/qgemm.cu LR_*, lowrank_kernel) ...
 FUSED_TILE = (128, 32, 128)
-#: (M, K, N) multiples of the stacked kernel (the same block tile).
-STACKED_TILE = (128, 32, 128)
+#: ... and of its 128 x 64 variant, which takes an N that the wide tile
+#: would pad more (`fused_tile`).
+FUSED_TILE_NARROW = (128, 32, 64)
+#: (M, K, N) multiples of the stacked kernel (the fused kernel's tiles).
+STACKED_TILE = FUSED_TILE
 #: (K, N) multiples of the skinny kernel: 32-bit words of K, and 128
 #: columns per block (csrc/qgemm.cu SK_BN).
 SKINNY_TILE = (4, 128)
-#: The padding multiples of each tiled kernel.
-TILES = {"plane0": PLANE0_TILE, "fused": FUSED_TILE,
-         "stacked": STACKED_TILE}
 
 #: Largest M the decode-shaped skinny kernel accepts: one decode step of a
 #: continuous-batching arena (m = batch).  Above it the tiled kernels take
@@ -32,13 +32,25 @@ SKINNY_MAX_M = 32
 MAX_RANK = 8
 
 
+def fused_tile(n: int) -> tuple[int, int, int]:
+    """The low-rank kernels' tile for N columns: the 128 x 64 variant where
+    it pads N to fewer columns than the 128 x 128 one (N = 64, 192, ...),
+    else the 128 x 128 one.  An N padded to either tile's width maps back
+    to that tile."""
+    wide, narrow = FUSED_TILE[2], FUSED_TILE_NARROW[2]
+    if -(-n // narrow) * narrow < -(-n // wide) * wide:
+        return FUSED_TILE_NARROW
+    return FUSED_TILE
+
+
 def choose_blocks(m: int, k: int, n: int, bm: int | None = None,
                   bk: int | None = None, bn: int | None = None, *,
                   kernel: str = "plane0") -> tuple[int, int, int]:
     """Padding multiples for an (m, k, n) GEMM on one of the tiled kernels
-    ("plane0", "fused" or "stacked"): that kernel's own tile, so operands
+    ("plane0", "fused" or "stacked"): that kernel's own tile (for the
+    low-rank kernels, the variant `fused_tile` picks from n), so operands
     pad by no more than the kernel needs."""
-    tm, tk, tn = TILES[kernel]
+    tm, tk, tn = PLANE0_TILE if kernel == "plane0" else fused_tile(n)
     return bm or tm, bk or tk, bn or tn
 
 

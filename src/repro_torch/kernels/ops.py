@@ -88,11 +88,11 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
 
     `fused=True` (default) hands the raw operands to the kernels, which
     map and mask them themselves: the plane-0 kernel for exact/trunc
-    specs, the fused low-rank kernel for low-rank ones.  The plane-0
-    kernel takes the weight K-major: `b_t` (n, k), equal to `b_q.T`, when
-    the caller keeps one (a prepared weight), else `b_q` is transposed
-    here.  `fused=False` runs the stacked twin on `build_stacks`'
-    pre-mapped planes.  `skinny=True` routes a decode-shaped GEMM
+    specs, the fused low-rank kernel for low-rank ones.  Both take the
+    weight K-major: `b_t` (n, k), equal to `b_q.T`, when the caller keeps
+    one (a prepared weight), else `b_q` is transposed here.
+    `fused=False` runs the stacked twin on `build_stacks`' pre-mapped
+    planes.  `skinny=True` routes a decode-shaped GEMM
     (m <= SKINNY_MAX_M) to the skinny kernel, M unpadded, at any rank."""
     m, k = a_q.shape
     k2, n = b_q.shape
@@ -117,16 +117,15 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
     kernel = "fused" if rank else "plane0"
     bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel=kernel)
     ap = _aligned(_pad_to(_pad_to(a_q, 0, bm), 1, bk))
+    bt = b_q.T if b_t is None else b_t
+    assert bt.shape == (n, k), (bt.shape, n, k)
+    btp = _aligned(_pad_to(_pad_to(bt, 0, bn), 1, bk))
     if rank:
-        bp = _aligned(_pad_to(_pad_to(b_q, 0, bk), 1, bn))
         fu, fv = _tables(spec, rank, a_q.device)
         out = qgemm.approx_qgemm_fused(
-            ap, bp, fu, fv, plane_scales(spec, rank, a_q.device),
+            ap, btp, fu, fv, plane_scales(spec, rank, a_q.device),
             trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
     else:
-        bt = b_q.T if b_t is None else b_t
-        assert bt.shape == (n, k), (bt.shape, n, k)
-        btp = _aligned(_pad_to(_pad_to(bt, 0, bn), 1, bk))
         out = qgemm.approx_qgemm_plane0(ap, btp, trunc_a=trunc_a,
                                         trunc_b=trunc_b)
     return out[:m, :n]
@@ -146,7 +145,8 @@ def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
                          b_t: torch.Tensor | None = None) -> torch.Tensor:
     """Execute a GEMM per a `dispatch.choose_gemm_path` kernel plan (the
     plain path belongs to approx/gemm.py, which knows prepared weights).
-    `b_t` is the weight's K-major copy, for the plane-0 kernel."""
+    `b_t` is the weight's K-major copy, for the plane-0 and fused
+    kernels."""
     assert plan.path in ("fused", "stacked"), plan
     if plan.path == "stacked":
         return approx_qgemm(a_q, b_q, spec, fused=False)

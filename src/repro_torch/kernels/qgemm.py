@@ -9,7 +9,9 @@ memory without a transpose.  `plane0_splits` chooses its split of K.
 `approx_qgemm_fused` — low-rank multipliers, any M: plane 0 plus R
 table-mapped correction planes (tables (R, 256) int8 indexed by
 `q & 0xFF`, mapped A zeroed past `k_valid`), each plane an int32 sum,
-flushed in plane order as `acc = acc + s_r * acc_r` in f32.
+flushed in plane order as `acc = acc + s_r * acc_r` in f32.  It takes
+the weight K-major too, and picks its tile's width from N
+(`qk.fused_tile`).
 
 `approx_qgemm_skinny` — the same planes for decode-shaped GEMMs
 (m <= SKINNY_MAX_M).
@@ -39,28 +41,37 @@ _SM_COUNT = 132
 _TARGET_BLOCKS = 2 * _SM_COUNT
 
 
+def lowrank_b_planes_plain(b_t: torch.Tensor, fv_q: torch.Tensor, *,
+                           trunc_b: int = 0) -> torch.Tensor:
+    """The (R+1, N, K) weight planes that the fused kernel makes once per
+    call from the K-major weight b_t (N, K): plane 0 the (masked) weight,
+    plane r its map through fv_q[r-1]."""
+    return torch.stack([_trunc_mask(b_t, trunc_b)] +
+                       [_table_map(fv_q[r], b_t)
+                        for r in range(fv_q.shape[0])])
+
+
 def planes_plain(a_q: torch.Tensor, b_q: torch.Tensor, fu_q: torch.Tensor,
                  fv_q: torch.Tensor, scales: torch.Tensor, *,
                  trunc_a: int = 0, trunc_b: int = 0,
                  k_valid: int | None = None) -> torch.Tensor:
     """The plane semantic every approximate GEMM kernel computes:
     a_q (M, K) x b_q (K, N) int8, fu_q/fv_q (R, 256) int8 tables, scales
-    (R+1,) f32 with scales[0] = 1 and scales[r] = -s_r -> (M, N) f32."""
+    (R+1,) f32 with scales[0] = 1 and scales[r] = -s_r -> (M, N) f32.
+    A is masked (plane 0) or mapped and zeroed at k >= k_valid (plane r),
+    each plane an exact int32 product, flushed in plane order."""
     k = a_q.shape[1]
     k_valid = k if k_valid is None else k_valid
-    accs = [qgemm_int32(_trunc_mask(a_q, trunc_a),
-                        _trunc_mask(b_q, trunc_b))]
-    if fu_q.shape[0]:
-        in_k = (torch.arange(k, device=a_q.device) < k_valid)[None, :]
-        for r in range(fu_q.shape[0]):
-            ua = torch.where(in_k, _table_map(fu_q[r], a_q),
-                             torch.zeros((), dtype=torch.int8,
-                                         device=a_q.device))
-            accs.append(qgemm_int32(ua, _table_map(fv_q[r], b_q)))
-    out = torch.zeros(accs[0].shape, dtype=torch.float32,
+    b_planes = lowrank_b_planes_plain(b_q.T, fv_q, trunc_b=trunc_b)
+    in_k = (torch.arange(k, device=a_q.device) < k_valid)[None, :]
+    zero = torch.zeros((), dtype=torch.int8, device=a_q.device)
+    out = torch.zeros((a_q.shape[0], b_q.shape[1]), dtype=torch.float32,
                       device=a_q.device)
-    for r, acc in enumerate(accs):
-        out = out + scales[r] * acc.to(torch.float32)
+    for p in range(b_planes.shape[0]):
+        ua = _trunc_mask(a_q, trunc_a) if p == 0 else \
+            torch.where(in_k, _table_map(fu_q[p - 1], a_q), zero)
+        out = out + scales[p] * qgemm_int32(ua, b_planes[p].T).to(
+            torch.float32)
     return out
 
 
@@ -222,23 +233,41 @@ def _check_tiled(name: str, a_q, b_q, tile, ndim: int) -> tuple:
     return m, k, n
 
 
-#: The fused kernel computes the skinny kernel's planes at any M.
-approx_qgemm_fused_plain = approx_qgemm_skinny_plain
+def approx_qgemm_fused_plain(a_q: torch.Tensor, b_t: torch.Tensor,
+                             fu_q: torch.Tensor, fv_q: torch.Tensor,
+                             scales: torch.Tensor, *, trunc_a: int = 0,
+                             trunc_b: int = 0, k_valid: int
+                             ) -> torch.Tensor:
+    """The fused kernel's planes on the K-major weight b_t (N, K)."""
+    return planes_plain(a_q, b_t.T, fu_q, fv_q, scales.reshape(-1),
+                        trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k_valid)
 
 
-def approx_qgemm_fused(a_q: torch.Tensor, b_q: torch.Tensor,
+def approx_qgemm_fused(a_q: torch.Tensor, b_t: torch.Tensor,
                        fu_q: torch.Tensor, fv_q: torch.Tensor,
                        scales: torch.Tensor, *, trunc_a: int = 0,
                        trunc_b: int = 0, k_valid: int) -> torch.Tensor:
-    """a_q (M, K) x b_q (K, N) raw int8, fu_q/fv_q (R, 256) int8 tables
-    (R <= 8), scales (R+1,) f32 -> (M, N) f32.  `k_valid` is the true K
-    before padding.  On CUDA: (M, K, N) multiples of `qk.FUSED_TILE`."""
+    """a_q (M, K) x b_t (N, K) raw int8, the weight K-major, fu_q/fv_q
+    (R, 256) int8 tables (R <= 8), scales (R+1,) f32 -> (M, N) f32.
+    `k_valid` is the true K before padding.  On CUDA: M and K multiples
+    of `qk.FUSED_TILE`'s, N of the width of `qk.fused_tile(N)`, whose
+    variant the kernel runs."""
     if a_q.device.type == "cpu":
-        return approx_qgemm_fused_plain(a_q, b_q, fu_q, fv_q, scales,
+        return approx_qgemm_fused_plain(a_q, b_t, fu_q, fv_q, scales,
                                         trunc_a=trunc_a, trunc_b=trunc_b,
                                         k_valid=k_valid)
     name = "approx_qgemm_fused"
-    m, k, n = _check_tiled(name, a_q, b_q, qk.FUSED_TILE, 2)
+    if a_q.ndim != 2 or b_t.ndim != 2 or a_q.dtype != torch.int8 or \
+            b_t.dtype != torch.int8 or a_q.shape[1] != b_t.shape[1]:
+        raise ValueError(f"{name}: bad operands {a_q.dtype} "
+                         f"{tuple(a_q.shape)} x {b_t.dtype} "
+                         f"{tuple(b_t.shape)} (K-major)")
+    m, k = a_q.shape
+    n = b_t.shape[0]
+    tm, tk, bn = qk.fused_tile(n)
+    if m % tm or k % tk or n % bn or not (m and k and n):
+        raise ValueError(f"{name}: ({m}, {k}, {n}) is not padded to "
+                         f"{(tm, tk, bn)} multiples")
     rank = fu_q.shape[0]
     if not 0 < k_valid <= k:
         raise ValueError(f"{name}: k_valid {k_valid} vs {k}")
@@ -249,19 +278,21 @@ def approx_qgemm_fused(a_q: torch.Tensor, b_q: torch.Tensor,
                          f"{tuple(fv_q.shape)} and scales "
                          f"{tuple(scales.shape)} do not match a rank <= "
                          f"{qk.MAX_RANK}")
-    tensors = [a_q, b_q, scales]
+    tensors = [a_q, b_t, scales]
     if rank:
         fu_q, fv_q = fu_q.contiguous(), fv_q.contiguous()
         tensors += [fu_q, fv_q]
     _check_cuda(name, *tensors)
+    b_planes = torch.empty((rank + 1, n, k), dtype=torch.int8,
+                           device=a_q.device)
     out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
     lib = build.load()
     err = lib.repro_qgemm_fused(
-        a_q.data_ptr(), b_q.data_ptr(),
+        a_q.data_ptr(), b_t.data_ptr(),
         fu_q.data_ptr() if rank else None, fv_q.data_ptr() if rank else None,
-        scales.data_ptr(), out.data_ptr(), m, k, n, k_valid, rank,
-        qk.signed_trunc_mask(trunc_a), qk.signed_trunc_mask(trunc_b),
-        build.stream_ptr(a_q.device))
+        scales.data_ptr(), b_planes.data_ptr(), out.data_ptr(), m, k, n, bn,
+        k_valid, rank, qk.signed_trunc_mask(trunc_a),
+        qk.signed_trunc_mask(trunc_b), build.stream_ptr(a_q.device))
     build.check(err, name)
     approx_qgemm_fused.launches += 1
     return out
@@ -286,24 +317,28 @@ def approx_qgemm_stacked_plain(a_stack: torch.Tensor, b_stack: torch.Tensor,
 def approx_qgemm_stacked(a_stack: torch.Tensor, b_stack: torch.Tensor,
                          scales: torch.Tensor) -> torch.Tensor:
     """a_stack (P, M, K) x b_stack (P, K, N) int8 pre-mapped planes
-    (P <= MAX_RANK + 1), scales (P,) f32 -> (M, N) f32.  On CUDA: (M, K, N)
-    multiples of `qk.STACKED_TILE`."""
+    (P <= MAX_RANK + 1), scales (P,) f32 -> (M, N) f32.  On CUDA: padded
+    as the fused kernel's operands; the kernel takes the weight stack
+    K-major, so it is transposed here."""
     if a_stack.device.type == "cpu":
         return approx_qgemm_stacked_plain(a_stack, b_stack, scales)
     name = "approx_qgemm_stacked"
-    m, k, n = _check_tiled(name, a_stack, b_stack, qk.STACKED_TILE, 3)
+    m, k, n = _check_tiled(name, a_stack, b_stack, qk.FUSED_TILE_NARROW, 3)
+    bn = qk.fused_tile(n)[2]
     planes = a_stack.shape[0]
     scales = scales.reshape(-1).to(torch.float32).contiguous()
     if not 0 < planes <= qk.MAX_RANK + 1 or scales.shape[0] != planes:
         raise ValueError(f"{name}: {planes} planes with "
                          f"{scales.shape[0]} scales (at most "
                          f"{qk.MAX_RANK + 1} planes)")
-    _check_cuda(name, a_stack, b_stack, scales)
+    b_t = b_stack.transpose(1, 2).contiguous()
+    _check_cuda(name, a_stack, b_t, scales)
     out = torch.empty((m, n), dtype=torch.float32, device=a_stack.device)
     lib = build.load()
     err = lib.repro_qgemm_stacked(
-        a_stack.data_ptr(), b_stack.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), planes, m, k, n, build.stream_ptr(a_stack.device))
+        a_stack.data_ptr(), b_t.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), planes, m, k, n, bn,
+        build.stream_ptr(a_stack.device))
     build.check(err, name)
     approx_qgemm_stacked.launches += 1
     return out

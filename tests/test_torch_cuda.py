@@ -86,10 +86,12 @@ def test_cuda_flash_attention(cuda_dev, dtype, tol, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rank", [1, 2, 4, 8])
 @pytest.mark.parametrize("shape", [(128, 256, 128), (300, 257, 65),
-                                   (256, 576, 64), (33, 4608, 512)])
+                                   (256, 576, 64), (33, 4608, 512),
+                                   (8192, 576, 64)])
 def test_cuda_fused_lowrank_bitexact_with_plain(cuda_dev, shape, rank):
     """Fused kernel vs its plain version at a padded K tail (K = 257,
-    4608 is a tile multiple), and the stacked twin bit-identical to it."""
+    4608 is a tile multiple), on the narrow tile at N = 64, and the stacked
+    twin bit-identical to it."""
     m, k, n = shape
     spec = _lowrank_spec(rank, seed=rank).to(cuda_dev)
     a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_dev)
@@ -112,9 +114,35 @@ def test_cuda_fused_masks_fully_padded_k_tile(cuda_dev):
     ap[:, :128] = a
     bp = torch.zeros((256, 128), dtype=torch.int8, device=cuda_dev)
     bp[:128] = b
-    got = qgemm.approx_qgemm_fused(ap, bp, spec.fu_q, spec.fv_q,
+    got = qgemm.approx_qgemm_fused(ap, bp.T.contiguous(), spec.fu_q,
+                                   spec.fv_q,
                                    ops.plane_scales(spec, 2, cuda_dev),
                                    k_valid=128)
+    assert torch.equal(got, G.approx_qgemm(a, b, spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 1, 2, 4, 5, 8])
+@pytest.mark.parametrize("shape", [(8192, 576, 64), (256, 300, 192),
+                                   (128, 100, 256)])
+def test_cuda_fused_every_rank_and_k_tail(cuda_dev, shape, rank):
+    """The fused wrapper at every rank, rank 0 included (plane 0 alone), on
+    both tile widths (N = 64 and 192 narrow, 256 wide), with k_valid ending
+    inside a 64-byte K stage (300 of 320, 100 of 128) or at K (576),
+    against its plain version and the plain GEMM path."""
+    m, k, n = shape
+    spec = _lowrank_spec(rank, seed=20 + rank).to(cuda_dev)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_dev)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda_dev)
+    tm, tk, tn = qk.fused_tile(n)
+    assert n % tn == 0 and tn == (128 if n == 256 else 64)
+    ap = ops._pad_to(a, 1, tk).contiguous()
+    bt = ops._pad_to(b.T, 1, tk).contiguous()
+    fu, fv = ops._tables(spec, rank, cuda_dev)
+    scales = ops.plane_scales(spec, rank, cuda_dev)
+    got = qgemm.approx_qgemm_fused(ap, bt, fu, fv, scales, k_valid=k)
+    assert torch.equal(got, qgemm.approx_qgemm_fused_plain(
+        ap, bt, fu, fv, scales, k_valid=k))
     assert torch.equal(got, G.approx_qgemm(a, b, spec))
 
 

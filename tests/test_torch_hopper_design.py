@@ -6,6 +6,11 @@
 - the K-major weight that `prepare_weight` keeps for the plane-0 kernel,
   and the plane-0 route through it, bit for bit against the JAX package's
   `approx_qgemm` (an integer path: exact);
+- the fused low-rank kernel's host side: its tile's width from N, the
+  padding to that tile, the K-major weight it takes (prepared or
+  transposed per call), the (R+1, N, K) weight planes it makes once per
+  call, and the K-major route against the JAX fused kernel in interpret
+  mode;
 - the flash kernel's f32 arithmetic (in-order FMA chains) and the 3xTF32
   tensor-core alternative, emulated in plain PyTorch, against the JAX
   flash kernel in interpret mode within the f32 contract (rtol=2e-6,
@@ -18,10 +23,13 @@ import jax.numpy as jnp
 import torch
 
 from repro.approx import gemm as JG
+from repro.core import multipliers as jmm
+from repro.core import netlist as jnl
 from repro.kernels import ops as jops
 from repro_torch.approx import gemm as G
+from repro_torch.core import multipliers as mm
 from repro_torch.kernels import approx_qgemm as qk
-from repro_torch.kernels import ops, qgemm
+from repro_torch.kernels import dispatch, ops, qgemm
 
 RNG = np.random.default_rng(13)
 SM_COUNT = 132
@@ -126,6 +134,162 @@ def test_prepared_matmul_hands_the_k_major_weight_to_plane0(monkeypatch):
     assert torch.equal(seen[0][:72, :96], pw.wq_t)
     np.testing.assert_array_equal(got.numpy(),
                                   G.approx_matmul(x, w, spec).numpy())
+
+
+# --- the fused low-rank kernel -----------------------------------------------
+
+def _lowrank_pair(rank, seed):
+    """The same pruned multiplier compiled by both packages."""
+    mask = np.random.default_rng(seed).random(
+        len(jnl.bw8().prunable_gates())) < 0.03
+    return (JG.from_multiplier(jmm.pruned(mask, name=f"hd_{seed}"),
+                               rank=rank),
+            G.from_multiplier(mm.pruned(mask, name=f"hd_{seed}"), rank=rank))
+
+
+@pytest.mark.parametrize("n,width", [(64, 64), (1, 64), (192, 64),
+                                     (320, 64), (128, 128), (65, 128),
+                                     (256, 128), (512, 128), (4096, 128),
+                                     (129, 64), (384, 128)])
+def test_fused_tile_width_from_n(n, width):
+    """The narrow 128 x 64 tile where it pads N to fewer columns (VGG16's
+    conv1, N = 64), else the 128 x 128 one; N padded to the chosen width
+    maps back to the same tile."""
+    tile = qk.fused_tile(n)
+    assert tile[2] == width and tile[:2] == qk.FUSED_TILE[:2]
+    assert tile in (qk.FUSED_TILE, qk.FUSED_TILE_NARROW)
+    padded = -(-n // width) * width
+    assert padded <= -(-n // 128) * 128
+    assert qk.fused_tile(padded) == tile
+    for kernel in ("fused", "stacked"):
+        assert qk.choose_blocks(300, 27, n, kernel=kernel) == tile
+    plan = dispatch.choose_gemm_path("pallas", m=300, k=27, n=n, rank=5)
+    assert (plan.bm, plan.bk, plan.bn) == tile
+
+
+@pytest.mark.parametrize("prepared", [False, True])
+@pytest.mark.parametrize("shape", [(300, 27, 64), (129, 100, 130),
+                                   (200, 64, 192)])
+def test_fused_route_pads_to_its_tile_and_takes_the_weight_k_major(
+        monkeypatch, shape, prepared):
+    """ops.approx_qgemm hands the fused wrapper A padded to (128, 32)
+    multiples and the weight K-major, (N, K) contiguous and padded to the
+    tile width and to 32, whether the caller keeps a K-major copy or the
+    weight is transposed per call; the true K rides as k_valid."""
+    m, k, n = shape
+    _, spec = _lowrank_pair(2, seed=5)
+    a = _t(RNG.integers(-128, 128, (m, k)).astype(np.int8))
+    b = _t(RNG.integers(-128, 128, (k, n)).astype(np.int8))
+    seen = []
+    real = qgemm.approx_qgemm_fused
+
+    def spy(a_q, b_t, fu_q, fv_q, scales, **kw):
+        seen.append((a_q, b_t, kw))
+        return real(a_q, b_t, fu_q, fv_q, scales, **kw)
+
+    monkeypatch.setattr(qgemm, "approx_qgemm_fused", spy)
+    got = ops.approx_qgemm(a, b, spec,
+                           b_t=b.T.contiguous() if prepared else None)
+    (ap, bt, kw), = seen
+    tm, tk, tn = qk.fused_tile(n)
+    mp, kp, np_ = -(-m // tm) * tm, -(-k // tk) * tk, -(-n // tn) * tn
+    assert ap.shape == (mp, kp) and bt.shape == (np_, kp)
+    assert bt.is_contiguous() and ap.is_contiguous()
+    assert torch.equal(bt[:n, :k], b.T) and not bt[n:].any() and \
+        not bt[:, k:].any()
+    assert torch.equal(ap[:m, :k], a) and kw["k_valid"] == k
+    assert torch.equal(got, G.approx_qgemm(a, b, spec))
+
+
+@pytest.mark.parametrize("trunc_b", [0, 2])
+@pytest.mark.parametrize("rank", [0, 1, 5])
+def test_fused_weight_planes_are_table_maps_of_the_transposed_weight(
+        rank, trunc_b):
+    """The (R+1, N, K) planes the fused kernel makes once per call: plane 0
+    the (masked) weight, plane r fv[r-1] mapped over the K-major weight,
+    the transpose of build_stacks' (K, N) weight planes."""
+    _, spec = _lowrank_pair(rank, seed=7)
+    b = _t(RNG.integers(-128, 128, (96, 40)).astype(np.int8))
+    planes = qgemm.lowrank_b_planes_plain(b.T.contiguous(), spec.fv_q,
+                                          trunc_b=trunc_b)
+    assert planes.shape == (rank + 1, 40, 96) and planes.dtype == torch.int8
+    assert torch.equal(planes[0], G._trunc_mask(b.T, trunc_b))
+    for r in range(rank):
+        assert torch.equal(planes[r + 1], G._table_map(spec.fv_q[r], b.T))
+    _, b_stack, _ = ops.build_stacks(b[:1], b, spec)
+    if not trunc_b:
+        assert torch.equal(planes, b_stack.transpose(1, 2))
+
+
+@pytest.mark.parametrize("mult", ["pareto:0.01", "lowrank"])
+def test_prepare_weight_keeps_k_major_copy_for_lowrank(monkeypatch, mult):
+    """Low-rank specs keep the K-major weight for the fused kernel where
+    the kernels run: under policy pallas, and under auto on a CUDA device
+    (the device check monkeypatched); not on the plain path."""
+    if mult == "lowrank":
+        _, spec = _lowrank_pair(4, seed=8)
+    else:
+        spec = G.spec_from_name(mult)
+    assert spec.mode == "lowrank" and spec.rank
+    w = _t(RNG.standard_normal((3, 96, 40)).astype(np.float32))
+    pw = G.prepare_weight(w, spec.with_policy("pallas"))
+    assert pw.wq_t.shape == (3, 40, 96) and pw.wq_t.is_contiguous()
+    assert torch.equal(pw.wq_t, pw.wq.transpose(-1, -2))
+    assert torch.equal(pw.layer(2).wq_t, pw.layer(2).wq.T)
+    assert G.prepare_weight(w, spec.with_policy("xla")).wq_t is None
+    assert G.prepare_weight(w, spec.with_policy("auto")).wq_t is None
+    real = dispatch.use_kernels
+    monkeypatch.setattr(dispatch, "use_kernels",
+                        lambda policy, device: real(policy, "cuda"))
+    pw = G.prepare_weight(w, spec.with_policy("auto"))
+    assert torch.equal(pw.wq_t, pw.wq.transpose(-1, -2))
+
+
+def test_prepared_lowrank_matmul_hands_the_k_major_weight_to_fused(
+        monkeypatch):
+    """approx_matmul_prepared under a low-rank spec at m > 32 reaches the
+    fused wrapper with the prepared K-major copy, and equals
+    approx_matmul."""
+    _, spec = _lowrank_pair(3, seed=6)
+    spec = spec.with_policy("pallas")
+    x = _t(RNG.standard_normal((40, 96)).astype(np.float32))
+    w = _t(RNG.standard_normal((96, 72)).astype(np.float32))
+    pw = G.prepare_weight(w, spec)
+    seen = []
+    real = qgemm.approx_qgemm_fused
+
+    def spy(a_q, b_t, *args, **kw):
+        seen.append(b_t)
+        return real(a_q, b_t, *args, **kw)
+
+    monkeypatch.setattr(qgemm, "approx_qgemm_fused", spy)
+    with torch.no_grad():
+        got = G.approx_matmul_prepared(x, pw, spec)
+    assert len(seen) == 1
+    assert torch.equal(seen[0][:72, :96], pw.wq_t)
+    np.testing.assert_array_equal(got.numpy(),
+                                  G.approx_matmul(x, w, spec).numpy())
+
+
+@pytest.mark.parametrize("rank", [1, 2, 5])
+@pytest.mark.parametrize("shape", [(129, 100, 64), (40, 64, 130)])
+def test_fused_k_major_route_against_jax_fused_kernel(shape, rank):
+    """The fused route on a K-major weight against the JAX fused kernel in
+    interpret mode: bit-exact at rank 1; from rank 2 within the contract
+    (rtol=1e-6, atol=1), where XLA contracts the JAX flush into FMAs
+    (ROADMAP Queue 3); and bit-exact with the port's plain GEMM path."""
+    m, k, n = shape
+    a = RNG.integers(-128, 128, (m, k)).astype(np.int8)
+    b = RNG.integers(-128, 128, (k, n)).astype(np.int8)
+    jspec, tspec = _lowrank_pair(rank, seed=30 + rank)
+    want = np.asarray(jops.approx_qgemm(jnp.asarray(a), jnp.asarray(b),
+                                        jspec))
+    got = ops.approx_qgemm(_t(a), _t(b), tspec, b_t=_t(b.T)).numpy()
+    if rank == 1:
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1.0)
+    np.testing.assert_array_equal(
+        got, G.approx_qgemm(_t(a), _t(b), tspec).numpy())
 
 
 # --- the flash kernel's f32 arithmetic ---------------------------------------

@@ -145,7 +145,7 @@ def test_fused_plain_masks_fully_padded_k_tile():
     bp = np.zeros((256, 128), np.int8)
     bp[:128] = b
     got = qgemm.approx_qgemm_fused(
-        _t(ap), _t(bp), tspec.fu_q, tspec.fv_q,
+        _t(ap), _t(bp.T), tspec.fu_q, tspec.fv_q,
         ops.plane_scales(tspec, 2, "cpu"), k_valid=128).numpy()
     scales = jnp.concatenate([jnp.ones((1,), jnp.float32),
                               -jspec.s_r])[:, None]
@@ -161,12 +161,14 @@ def test_fused_plain_masks_fully_padded_k_tile():
 # --- routing and checks ------------------------------------------------------
 
 def test_tiled_kernels_pad_to_their_own_tiles():
-    assert qk.choose_blocks(300, 27, 64, kernel="fused") == qk.FUSED_TILE
-    assert qk.choose_blocks(300, 27, 64, kernel="stacked") == \
+    # N = 64 (VGG16's conv1) takes the low-rank kernels' narrow tile
+    assert qk.choose_blocks(300, 27, 64, kernel="fused") == \
+        qk.FUSED_TILE_NARROW
+    assert qk.choose_blocks(300, 27, 256, kernel="stacked") == \
         qk.STACKED_TILE
     plan = dispatch.choose_gemm_path("pallas", m=300, k=27, n=64, rank=5)
     assert plan.path == "fused" and (plan.bm, plan.bk, plan.bn) == \
-        qk.FUSED_TILE
+        qk.FUSED_TILE_NARROW
     assert (plan.bm, plan.bk, plan.bn) == qk.choose_blocks(
         300, 27, 64, kernel="fused")
     plan = dispatch.choose_gemm_path("pallas", m=300, k=27, n=64)
@@ -198,12 +200,15 @@ def test_wrappers_check_what_the_kernels_take():
     s = ops.plane_scales(spec, 2, "meta")
     a = torch.empty((128, 64), dtype=torch.int8, device="meta")
     b = torch.empty((64, 128), dtype=torch.int8, device="meta")
+    b_t = b.T                               # the fused kernel's K-major weight
     with pytest.raises(ValueError, match="not padded"):
-        qgemm.approx_qgemm_fused(a[:100], b, fu, fv, s, k_valid=64)
+        qgemm.approx_qgemm_fused(a[:100], b_t, fu, fv, s, k_valid=64)
     with pytest.raises(ValueError, match="k_valid"):
-        qgemm.approx_qgemm_fused(a, b, fu, fv, s, k_valid=65)
+        qgemm.approx_qgemm_fused(a, b_t, fu, fv, s, k_valid=65)
     with pytest.raises(ValueError, match="tables"):
-        qgemm.approx_qgemm_fused(a, b, fu, fv, s[:2], k_valid=64)
+        qgemm.approx_qgemm_fused(a, b_t, fu, fv, s[:2], k_valid=64)
+    with pytest.raises(ValueError, match="bad operands"):
+        qgemm.approx_qgemm_fused(a, b, fu, fv, s, k_valid=64)
     with pytest.raises(ValueError, match="bad operands"):
         qgemm.approx_qgemm_stacked(a, b, s)
     with pytest.raises(ValueError, match="planes"):
@@ -211,7 +216,7 @@ def test_wrappers_check_what_the_kernels_take():
                                    b[None].expand(10, -1, -1),
                                    torch.ones(10, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        qgemm.approx_qgemm_fused(a, b, fu, fv, s, k_valid=64)
+        qgemm.approx_qgemm_fused(a, b_t, fu, fv, s, k_valid=64)
 
 
 # --- the Pareto front ----------------------------------------------------------
