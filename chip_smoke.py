@@ -12,7 +12,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  quantize_rows, the plane-0 GEMM (also on K-major weights
                  as prepared weights hand it, at the prefill shapes and a
                  large-M VGG16 im2col shape, its K split logged), the
-                 skinny GEMM (every rank), the fused and the stacked
+                 skinny GEMM on K-major weights (every rank, the decode
+                 and VGG16 FC shapes, every m class with a K tail, its K
+                 split logged), the fused and the stacked
                  low-rank GEMMs (ranks 1, 2, 4, 8, every VGG16 conv shape;
                  stacked bit-identical to fused, its launches counted over
                  these parity calls) bit-exact, flash attention within
@@ -20,8 +22,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  of its main path (CUDA events) beside its plain version, a
                  PyTorch library yardstick (`torch._int_mm` on K-major
                  weights, SDPA pinned to its memory-efficient backend; wall
-                 and device time) and the card's bound; the fused kernel's
-                 device time per VGG16 conv shape and at the TinyLlama
+                 and device time) and the card's bound; the skinny
+                 kernel's device time per call of each decode shape inside
+                 the step, the fused kernel's per VGG16 conv shape and at
+                 the TinyLlama
                  prefill shapes under pareto:0.01, and plane 0's time over
                  VGG16's 13 conv GEMMs under trunc2x2;
   4. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
@@ -41,7 +45,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
                  one forward, the smallest row absmax each GEMM quantizes,
-                 forward time, device busy share;
+                 forward time, device busy share, and each FC GEMM's
+                 device time (the kernel, and the per-call transpose of
+                 its weight);
   7. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
@@ -114,6 +120,24 @@ def device_events(events) -> list:
     return [e for e in events
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_times(fn, name: str = "") -> list[float] | None:
+    """Device microseconds of each kernel whose name holds `name` that one
+    call of `fn` runs, in launch order (torch.profiler); None when the
+    trace holds no device time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    us = [e.device_time_total for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return us if sum(us) > 0 else None
 
 
 def device_ms(fn) -> float | None:
@@ -243,28 +267,43 @@ def check_kernels(dev) -> tuple[dict, int]:
             f"{k_chunk}, {(m // tm) * (n // tn) * splits} blocks")
         del a, b, bt
 
+    # skinny, on the K-major weight that prepared weights hand it: the
+    # decode step's shapes (m = 4; the head also at m = 1), VGG16's FC
+    # shapes (m = 8), odd shapes, every m class and rank with a K tail
     lowrank = _lowrank_specs(dev)
+    lowrank[5] = G.spec_from_name("pareto:0.01").to(dev)
+    assert lowrank[5].rank == 5
     for m, k, n in [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 5632),
                     (4, 5632, 2048), (4, 2048, 32000), (1, 2048, 32000),
-                    (3, 257, 65), (32, 512, 256), (9, 200, 130)]:
+                    (8, 25088, 4096), (8, 4096, 4096), (8, 4096, 1000),
+                    (3, 257, 65), (32, 512, 256), (9, 200, 130)] + [
+                        (m, 300, 200) for m in (1, 3, 4, 8, 17, 32)]:
         a, b = rand_q(m, k), rand_q(k, n)
+        bt = b.T.contiguous()
         for name, spec in specs.items():
-            got = ops.approx_qgemm(a, b, spec, skinny=True)
+            got = ops.approx_qgemm(a, b, spec, skinny=True, b_t=bt)
             exact("approx_qgemm_skinny", got, G.approx_qgemm(a, b, spec),
-                  f"({m},{k},{n}) {name}")
+                  f"({m},{k},{n}) {name}, K-major weight")
         for rank, spec in lowrank.items():
-            bk, bn = qk.choose_skinny_blocks(k, n)
+            bk, _ = qk.choose_skinny_blocks(k, n)
             ap = ops._pad_to(a, 1, bk)
-            bp = ops._pad_to(ops._pad_to(b, 0, bk), 1, bn)
+            btp = ops._pad_to(bt, 1, bk)
             scales = ops.plane_scales(spec, rank, dev)
-            got = qgemm.approx_qgemm_skinny(ap, bp, spec.fu_q, spec.fv_q,
+            got = qgemm.approx_qgemm_skinny(ap, btp, spec.fu_q, spec.fv_q,
                                             scales, k_valid=k)
             want = qgemm.approx_qgemm_skinny_plain(
-                ap, bp, spec.fu_q, spec.fv_q, scales, k_valid=k)
+                ap, btp, spec.fu_q, spec.fv_q, scales, k_valid=k)
             exact("approx_qgemm_skinny", got, want,
                   f"({m},{k},{n}) rank {rank}")
+            exact("approx_qgemm_skinny",
+                  ops.approx_qgemm(a, b, spec, skinny=True, b_t=bt), got,
+                  f"({m},{k},{n}) rank {rank}, route vs wrapper")
             ref = G.approx_qgemm(a, b, spec)
-            torch.testing.assert_close(got[:, :n], ref, rtol=1e-6, atol=1.0)
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1.0)
+        splits, gran = qgemm.skinny_splits(k, n)
+        log(f"[kernels] skinny ({m},{k},{n}): {splits} K split(s) of "
+            f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
+        del a, b, bt
 
     # fused / stacked: every distinct VGG16 im2col shape, the TinyLlama
     # prefill shapes, odd shapes, every rank; then a K tail that is a whole
@@ -377,21 +416,44 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             f"{b:.4f} by {by}, device time at {share} of the bound, "
             f"library {lib_ms}, library device {lib_dms})")
 
-    # skinny: one decode step of the arena (m = capacity)
-    dec = [(acts[(cap, w.shape[0])], w) for w in weights + [head]]
-    row("approx_qgemm_skinny", "cuda", "src/repro_torch/csrc/qgemm.cu",
+    # skinny: one decode step of the arena (m = capacity), on the K-major
+    # weights that prepared weights keep: (N, K) contiguous, the storage of
+    # the yardstick's K-major views
+    dec = [(acts[(cap, w.shape[0])], w, kmajor[id(w)].t())
+           for w in weights + [head]]
+
+    def decode_step():
+        return [ops.approx_qgemm(a, w, spec, skinny=True, b_t=wt)
+                for a, w, wt in dec]
+
+    row("approx_qgemm_skinny", "cuda", "src/repro_torch/csrc/skinny.cu",
         "src/repro/kernels/approx_qgemm.py:418", "decode step (m=4)",
-        len(dec),
-        lambda: [ops.approx_qgemm(a, w, spec, skinny=True) for a, w in dec],
+        len(dec), decode_step,
         lambda: [qgemm.approx_qgemm_skinny_plain(
-            a, w, spec.fu_q, spec.fv_q, ops.plane_scales(spec, 0, dev),
-            trunc_a=2, trunc_b=2, k_valid=a.shape[1]) for a, w in dec],
+            a, wt, spec.fu_q, spec.fv_q, trunc_a=2, trunc_b=2,
+            k_valid=a.shape[1]) for a, _, wt in dec],
         lambda: [torch._int_mm(acts[(32, w.shape[0])], kmajor[id(w)])
-                 for _, w in dec],
+                 for _, w, _ in dec],
         sum(a.numel() + w.numel() + a.shape[0] * w.shape[1] * 4
-            for a, w in dec),
-        sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w in dec),
+            for a, w, _ in dec),
+        sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w, _ in dec),
         PEAK_INT8)
+    # where skinny's time goes: device time per call of each decode shape,
+    # inside the step (the weights stream from HBM, as in serving)
+    per_call = kernel_times(decode_step, "skinny_kernel")
+    if per_call is None:
+        log("[time] approx_qgemm_skinny device time per call: not measured")
+    else:
+        shapes = {}
+        for (_, w, _), us in zip(dec, per_call):
+            shapes.setdefault((cap, w.shape[0], w.shape[1]), []).append(us)
+        log(f"[time] approx_qgemm_skinny device time per call in the decode "
+            f"step ({sum(per_call) / 1e3:.4f} ms over its {len(per_call)} "
+            f"calls): " + "; ".join(
+                f"({m},{k},{n}) x{len(t)}: {sum(t) / len(t):.2f} us (bound "
+                f"{(m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e6:.2f} us, "
+                f"{qgemm.skinny_splits(k, n)[0]} split(s))"
+                for (m, k, n), t in shapes.items()))
 
     # plane0: the GEMMs of one admitted request's prefill (m = bucket), on
     # the K-major weights that prepared weights keep: (N, K) contiguous,
@@ -427,7 +489,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     row_major = {
         "prefill": cuda_ms(lambda: [torch._int_mm(a, w) for a, w, _ in pre]),
         "decode step": cuda_ms(lambda: [torch._int_mm(acts[(32, w.shape[0])],
-                                                      w) for _, w in dec])}
+                                                      w) for _, w, _ in dec])}
     log(f"[time] torch._int_mm on row-major (K, N) weights: "
         + ", ".join(f"{u} {t:.4f} ms" for u, t in row_major.items())
         + " (K-major: the library_ms of rows approx_qgemm_plane0 and "
@@ -641,7 +703,8 @@ def serve_phase(dev, cfg) -> dict:
         return tree.wq_t.numel() if G.is_prepared(tree) and \
             tree.wq_t is not None else 0
 
-    log(f"[serve] K-major int8 weight copies kept for the plane-0 kernel: "
+    log(f"[serve] K-major int8 weight copies kept for the plane-0 and "
+        f"skinny kernels: "
         f"{kmajor_bytes(eng._tier_exec[eng.tiers[0]]) / 1e9:.4f} GB")
     rng = np.random.default_rng(0)
     lens = [40, 128, 77, 100, 64, 115]
@@ -707,10 +770,11 @@ def profile_decode(eng, rng, cfg, steps: int = 4) -> None:
     if dev_us <= 0:
         log("[profile] no device time in the trace: busy share not measured")
         return
+    ops_ = sum(e.count for e in kernels)
     log(f"[profile] {steps} decode steps: wall {wall * 1e3:.2f} ms, device "
         f"busy {dev_us / 1e3:.2f} ms ({dev_us / 1e6 / wall:.1%}); idle "
-        f"{1 - dev_us / 1e6 / wall:.1%}; {sum(e.count for e in kernels)} "
-        f"device ops")
+        f"{1 - dev_us / 1e6 / wall:.1%}; {ops_} device ops, "
+        f"{ops_ / steps:.1f} launches per decode step")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} "
@@ -982,9 +1046,49 @@ def cnn_phase(dev) -> dict:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"[cnn]   {e.self_device_time_total / 1e3:8.3f} ms  "
                 f"{e.count:4d} calls  {e.key[:70]}")
+    fc_skinny(params, spec, dev)
     del params, x, logits
     torch.cuda.empty_cache()
     return launches
+
+
+def fc_skinny(params, spec, dev) -> None:
+    """VGG16's three FC GEMMs (m = 8) as the CNN path runs them: the
+    quantized weight, which no prepared copy keeps, transposed per call to
+    the K-major layout the skinny kernel takes, then the kernel.  Logs each
+    call's device time: the kernel's, and the rest (the transpose and the
+    flush scales)."""
+    import torch
+    from repro_torch.approx import quant
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    parts, total = [], [0.0, 0.0]
+    for p in params["fcs"]:
+        wq, _ = quant.quantize(p["w"], axis=1)
+        k, n = wq.shape
+        xq = torch.randint(-128, 128, (8, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        with torch.no_grad():
+            every = kernel_times(
+                lambda: ops.approx_qgemm(xq, wq, spec, skinny=True))
+            kern = kernel_times(
+                lambda: ops.approx_qgemm(xq, wq, spec, skinny=True),
+                "skinny_kernel")
+            copy = device_ms(lambda: wq.T.contiguous())
+        if not every or not kern:
+            parts.append(f"(8,{k},{n}): not measured")
+            continue
+        total[0] += sum(kern)
+        total[1] += sum(every) - sum(kern)
+        parts.append(f"(8,{k},{n}): kernel {sum(kern):.1f} us, other "
+                     f"{sum(every) - sum(kern):.1f} us (the transpose alone "
+                     f"{copy * 1e3 if copy else float('nan'):.1f} us; bound "
+                     f"{(8 * k + k * n + 32 * n) / PEAK_BYTES * 1e6:.1f} us)")
+    log(f"[cnn] FC GEMMs on the skinny kernel under {CNN_MULT}, device time "
+        f"per call: " + "; ".join(parts) + f"; all three: kernel "
+        f"{total[0] / 1e3:.4f} ms, transposes and scales {total[1] / 1e3:.4f} "
+        f"ms")
 
 
 def cnn_check_phase(dev) -> None:

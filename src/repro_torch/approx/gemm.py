@@ -148,8 +148,8 @@ class PreparedWeight:
 
       wq      int8 (..., k, n)    per-output-channel quantized weight (the
                                   kernels consume it raw and map it in-kernel)
-      wq_t    int8 (..., n, k)    wq K-major, made once for the plane-0
-                                  and fused kernels (every GEMM at m > 32)
+      wq_t    int8 (..., n, k)    wq K-major, made once for the plane-0,
+                                  fused and skinny kernels (every GEMM)
                                   where the kernels run; None elsewhere.
                                   One more byte per weight parameter
       sw      f32  (..., 1, n)    dequant scales
@@ -186,8 +186,8 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
     spec.  Identity for exact/absent specs.  Accepts stacked (..., k, n)
     leaves; scales reduce over the contraction dim only.  The pre-mapped
     planes serve the plain path only, so a "pallas"-pinned policy skips
-    them; the K-major copy serves the plane-0 and fused kernels, so it
-    is made where the kernels run."""
+    them; the K-major copy serves the plane-0, fused and skinny kernels,
+    so it is made where the kernels run."""
     if spec is None or spec.is_exact or is_prepared(w):
         return w
     from repro_torch.kernels import dispatch

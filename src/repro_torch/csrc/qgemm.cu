@@ -1,7 +1,6 @@
 // Approximate int8 GEMMs: the tiled plane-0 kernel (exact / truncation
-// multipliers, prefill-shaped), the skinny kernel (decode-shaped, any rank
-// of low-rank correction planes), and the fused low-rank kernel with its
-// stacked twin (any M).
+// multipliers, prefill-shaped) and the fused low-rank kernel with its
+// stacked twin (any M).  The decode-shaped skinny kernel is in skinny.cu.
 //
 // ---------------------------------------------------------------------------
 // repro_qgemm_plane0
@@ -37,25 +36,7 @@
 // between runs), so the smallest tile that fills the card was kept.
 //
 // ---------------------------------------------------------------------------
-// repro_qgemm_skinny
-// Replaces: src/repro/kernels/approx_qgemm.py, approx_qgemm_skinny
-// (_skinny_kernel + _correction_dots).  For m <= 32 rows:
-//   acc_0 = (A & mask_a) . (B & mask_b)
-//   acc_r = U_r(A) . V_r(B), r = 1..R   (U_r(a) = fu[r-1][a & 0xFF], zero
-//                                        past k_valid; V_r likewise with fv)
-//   C = ((0 + s_0 acc_0) + s_1 acc_1) + ...    (s_0 = 1, s_r = -s_r)
-//
-// Bound on the H100: bytes.  The weight B (K x N int8) is read once per call
-// and dominates every other term at m <= 32.  Design: a GEMV-style kernel,
-// one block per 128 columns, per plane and per K split; each thread owns four
-// columns and reads B four rows at a time as 32-bit words, transposes them in
-// registers and runs __dp4a against the A words that the block stages in
-// shared memory (all m rows at once, eight at a time in registers).  Split-K
-// fills the 132 SMs when N / 128 is small; the partial sums meet through
-// int32 atomics, which are exact in any order.  A second small kernel flushes
-// the planes in order with __fmul_rn / __fadd_rn, so no FMA contraction can
-// change a bit against the plain version.  Rank 0 passes no tables at all.
-// Operands are padded by the wrapper: K a multiple of 4, N of 128.
+// repro_qgemm_skinny: see skinny.cu.
 //
 // ---------------------------------------------------------------------------
 // repro_qgemm_fused
@@ -115,8 +96,7 @@
 // the stack; the same flush, in the same order, so the two agree bit for
 // bit.
 #include "common.cuh"
-
-#include <cuda.h>  // CUtensorMap (the encoder is reached through the runtime)
+#include "hopper.cuh"
 
 #include <algorithm>
 #include <type_traits>
@@ -142,14 +122,6 @@ constexpr int PL0_LD = PL0_BK + 16;      // 16 bytes of pad: ldmatrix
                                          // conflict-free
 constexpr int PL0_STAGE = (PL0_BM + PL0_BN) * PL0_LD;
 constexpr int PL0_SMEM = PL0_STAGES * PL0_STAGE;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const uint8_t* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
 
 // Block (blockIdx.x, blockIdx.y) computes the 64 x 64 tile at (m0, n0) over
 // K chunk blockIdx.z, one warp per 32 x 32 piece: f32 into C with one split,
@@ -288,127 +260,10 @@ __global__ void plane0_reduce_kernel(const int* __restrict__ W,
       make_float4((float)s.x, (float)s.y, (float)s.z, (float)s.w);
 }
 
-// ----------------------------- skinny --------------------------------------
-constexpr int SK_THREADS = 256;
-constexpr int SK_WARPS = SK_THREADS / 32;
-constexpr int SK_BN = 128;  // 32 lanes x 4 columns
-constexpr int SK_KT = 256;  // K rows staged in shared memory per pass
-constexpr int SK_MT = 8;    // A rows held in registers per pass
-
-__device__ __forceinline__ uint32_t map_bytes(uint32_t w, const int8_t* tbl) {
-  return (uint32_t)(uint8_t)tbl[w & 0xFF] |
-         ((uint32_t)(uint8_t)tbl[(w >> 8) & 0xFF] << 8) |
-         ((uint32_t)(uint8_t)tbl[(w >> 16) & 0xFF] << 16) |
-         ((uint32_t)(uint8_t)tbl[w >> 24] << 24);
-}
-
-__global__ void __launch_bounds__(SK_THREADS)
-skinny_partial_kernel(const int8_t* __restrict__ A,
-                      const int8_t* __restrict__ B,
-                      const int8_t* __restrict__ fu,
-                      const int8_t* __restrict__ fv, int* __restrict__ acc,
-                      int M, int K, int N, int k_valid, uint32_t mask_a,
-                      uint32_t mask_b, int k_chunk) {
-  const int plane = blockIdx.z;
-  const int n0 = blockIdx.x * SK_BN;
-  const int kb = blockIdx.y * k_chunk;
-  const int ke = min(K, kb + k_chunk);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  __shared__ uint32_t As[SK_MT][SK_KT / 4];
-  __shared__ int red[SK_WARPS][SK_MT][SK_BN];
-  __shared__ int8_t tu[256], tv[256];
-  if (plane > 0) {
-    tu[tid] = fu[(plane - 1) * 256 + tid];
-    tv[tid] = fv[(plane - 1) * 256 + tid];
-  }
-  const int8_t* b_col = B + n0 + lane * 4;
-
-  for (int m0 = 0; m0 < M; m0 += SK_MT) {
-    int accr[SK_MT][4];
-#pragma unroll
-    for (int i = 0; i < SK_MT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) accr[i][j] = 0;
-
-    for (int kt = kb; kt < ke; kt += SK_KT) {
-      const int kw = min(SK_KT, ke - kt) / 4;  // 32-bit words of K
-      __syncthreads();
-      for (int i = tid; i < SK_MT * (SK_KT / 4); i += SK_THREADS) {
-        const int r = i / (SK_KT / 4), w = i % (SK_KT / 4);
-        uint32_t word = 0;
-        if (m0 + r < M && w < kw) {
-          const int kk = kt + w * 4;
-          word = *reinterpret_cast<const uint32_t*>(A + (size_t)(m0 + r) * K
-                                                    + kk);
-          if (plane == 0) {
-            word &= mask_a;
-          } else {
-            word = map_bytes(word, tu);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (kk + j >= k_valid) word &= ~(0xFFu << (8 * j));
-            }
-          }
-        }
-        As[r][w] = word;
-      }
-      __syncthreads();
-      for (int w = warp; w < kw; w += SK_WARPS) {
-        const int8_t* p = b_col + (size_t)(kt + w * 4) * N;
-        uint32_t r[4], c[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t v = *reinterpret_cast<const uint32_t*>(
-              p + (size_t)i * N);
-          r[i] = plane == 0 ? (v & mask_b) : map_bytes(v, tv);
-        }
-        repro_transpose4x4(r, c);
-#pragma unroll
-        for (int mi = 0; mi < SK_MT; ++mi) {
-          const int aw = (int)As[mi][w];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            accr[mi][j] = __dp4a(aw, (int)c[j], accr[mi][j]);
-          }
-        }
-      }
-    }
-
-#pragma unroll
-    for (int mi = 0; mi < SK_MT; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[warp][mi][lane * 4 + j] = accr[mi][j];
-    __syncthreads();
-    for (int i = tid; i < SK_MT * SK_BN; i += SK_THREADS) {
-      const int mi = i / SK_BN, col = i % SK_BN;
-      if (m0 + mi < M) {
-        int s = 0;
-#pragma unroll
-        for (int w = 0; w < SK_WARPS; ++w) s += red[w][mi][col];
-        atomicAdd(acc + ((size_t)plane * M + m0 + mi) * N + n0 + col, s);
-      }
-    }
-  }
-}
-
-__global__ void skinny_flush_kernel(const int* __restrict__ acc,
-                                    const float* __restrict__ scales,
-                                    float* __restrict__ out, int mn,
-                                    int planes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float o = 0.f;
-  for (int r = 0; r < planes; ++r) {
-    o = __fadd_rn(o, __fmul_rn(scales[r], (float)acc[(size_t)r * mn + i]));
-  }
-  out[i] = o;
-}
-
 // ----------------------------- low rank: fused / stacked -------------------
 constexpr int LR_MAX_RANK = 8;
 constexpr int LR_BM = 128;            // block rows: two warpgroups of 64
-constexpr int LR_BK = 128;            // K bytes per stage: one swizzle row
+constexpr int LR_BK = kTmaBoxK;       // K bytes per stage: one swizzle row
 constexpr int LR_KT = 32;             // K multiple the kernels take
 constexpr int LR_STAGES = 4;
 constexpr int LR_THREADS = 256;
@@ -524,66 +379,6 @@ __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32],
         "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Order this thread's generic-proxy accesses to shared memory before the
-// async-proxy ones (TMA) that follow.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// Wait for the barrier's phase `phase`; trap after about ten seconds, so a
-// fault in the pipeline fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(phase) : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-// TMA: the box at (x = column, y = row) of tensor map `tm` into `dst`,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm,
-                                            int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(tm)), "r"(x),
-        "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-// wgmma descriptor of a 128-byte-swizzled K-major tile: 8-row groups 1024
-// bytes apart (SBO); a K step's 32 bytes are added to the start address.
-__device__ __forceinline__ uint64_t swizzle128_desc(const void* smem) {
-  return (uint64_t)((smem_u32(smem) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
 // Block blockIdx.x computes the 128 x BN tile at (m0, n0) over every plane;
@@ -739,44 +534,6 @@ lowrank_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime (no link
-// against libcuda).
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess) {
-      fn = (EncodeTiledFn)p;
-    }
-  }
-  return fn;
-}
-
-// A tensor map over a row-major int8 (rows, cols) matrix, boxes of
-// box_rows x 128 bytes, 128-byte swizzle, zeros past the edges.
-bool tensor_map_2d(CUtensorMap* tm, const void* base, int rows, int cols,
-                   int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols};
-  const cuuint32_t box[2] = {(cuuint32_t)LR_BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Whether the low-rank kernels take (m, k, n) at block width bn.
 bool lowrank_shape_ok(int m, int k, int n, int bn) {
   if (bn != 64 && bn != 128) return false;
@@ -834,32 +591,6 @@ REPRO_API int repro_qgemm_plane0(const void* a, const void* bt, void* out,
     plane0_reduce_kernel<<<(unsigned)blocks, threads, 0, s>>>(
         (const int*)ws, (float*)out, mn, splits);
   }
-  return (int)cudaGetLastError();
-}
-
-REPRO_API int repro_qgemm_skinny(const void* a, const void* b, const void* fu,
-                                 const void* fv, const void* scales, void* acc,
-                                 void* out, int m, int k, int n, int k_valid,
-                                 int rank, int mask_a, int mask_b, int splits,
-                                 void* stream) {
-  if (m < 1 || m > 32 || n % SK_BN || k % 4 || splits < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  const int planes = rank + 1;
-  const size_t mn = (size_t)m * n;
-  cudaMemsetAsync(acc, 0, planes * mn * sizeof(int), s);
-  int k_chunk = (k + splits - 1) / splits;
-  k_chunk = (k_chunk + 31) / 32 * 32;
-  dim3 grid(n / SK_BN, (k + k_chunk - 1) / k_chunk, planes);
-  skinny_partial_kernel<<<grid, SK_THREADS, 0, s>>>(
-      (const int8_t*)a, (const int8_t*)b, (const int8_t*)fu,
-      (const int8_t*)fv, (int*)acc, m, k, n, k_valid,
-      repro_word_mask(mask_a), repro_word_mask(mask_b), k_chunk);
-  const int threads = 256;
-  skinny_flush_kernel<<<(unsigned)((mn + threads - 1) / threads), threads, 0,
-                        s>>>((const int*)acc, (const float*)scales,
-                             (float*)out, (int)mn, planes);
   return (int)cudaGetLastError();
 }
 

@@ -19,9 +19,16 @@ FUSED_TILE = (128, 32, 128)
 FUSED_TILE_NARROW = (128, 32, 64)
 #: (M, K, N) multiples of the stacked kernel (the fused kernel's tiles).
 STACKED_TILE = FUSED_TILE
-#: (K, N) multiples of the skinny kernel: 32-bit words of K, and 128
-#: columns per block (csrc/qgemm.cu SK_BN).
-SKINNY_TILE = (4, 128)
+#: (K, N) multiples of the skinny kernel: K in 16 bytes (TMA's row stride);
+#: N unpadded (TMA fills zeros past the weight's last row).
+SKINNY_TILE = (16, 1)
+#: The skinny kernel's block: 64 weight rows (output columns), one wgmma M,
+#: streamed in 128-byte K boxes (csrc/skinny.cu SK_BM, SK_BK) ...
+SKINNY_BM = 64
+SKINNY_BOX = 128
+#: ... and at most this many boxes (2 KiB of K) a split: a large weight
+#: splits into many blocks, so its last wave leaves few SMs idle.
+SKINNY_MAX_BOXES = 16
 
 #: Largest M the decode-shaped skinny kernel accepts: one decode step of a
 #: continuous-batching arena (m = batch).  Above it the tiled kernels take

@@ -39,10 +39,10 @@ SIGNATURES = {
     # a, b_t (K-major), out, workspace, m, k, n, mask_a, mask_b, k_chunk,
     # stream
     "repro_qgemm_plane0": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # a, b, fu, fv, scales, acc, out, m, k, n, k_valid, rank, mask_a,
-    # mask_b, splits, stream
-    "repro_qgemm_skinny": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _P),
+    # a, b_t (K-major), fu, fv, scales, workspace, counters, out, m, k, n,
+    # k_valid, rank, mask_a, mask_b, splits, gran, stream
+    "repro_qgemm_skinny": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P),
     # a, b_t (K-major), fu, fv, scales, weight-plane workspace, out, m, k,
     # n, bn, k_valid, rank, mask_a, mask_b, stream
     "repro_qgemm_fused": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -72,7 +72,9 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def plane_scales(spec: gemm_mod.MultSpec, rank: int,
                  device: torch.device) -> torch.Tensor:
-    """(R+1,) f32 flush scales: 1 for plane 0, -s_r for the corrections."""
+    """(R+1,) f32 flush scales: 1 for plane 0, -s_r for the corrections.
+    The kernel routes call it at rank > 0 only: at rank 0 the one plane's
+    scale is 1 and the kernels take none."""
     one = torch.ones((1,), dtype=torch.float32, device=device)
     if not rank:
         return one
@@ -88,24 +90,28 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
 
     `fused=True` (default) hands the raw operands to the kernels, which
     map and mask them themselves: the plane-0 kernel for exact/trunc
-    specs, the fused low-rank kernel for low-rank ones.  Both take the
+    specs, the fused low-rank kernel for low-rank ones, and with
+    `skinny=True` the skinny kernel for a decode-shaped GEMM
+    (m <= SKINNY_MAX_M, M unpadded) at any rank.  All three take the
     weight K-major: `b_t` (n, k), equal to `b_q.T`, when the caller keeps
     one (a prepared weight), else `b_q` is transposed here.
     `fused=False` runs the stacked twin on `build_stacks`' pre-mapped
-    planes.  `skinny=True` routes a decode-shaped GEMM
-    (m <= SKINNY_MAX_M) to the skinny kernel, M unpadded, at any rank."""
+    planes."""
     m, k = a_q.shape
     k2, n = b_q.shape
     assert k == k2, (a_q.shape, b_q.shape)
     trunc_a, trunc_b, rank = _spec_kernel_args(spec)
+    bt = b_q.T if b_t is None else b_t
+    assert bt.shape == (n, k), (bt.shape, n, k)
     if fused and skinny:
         assert m <= qk.SKINNY_MAX_M, (m, qk.SKINNY_MAX_M)
         bk, bn = qk.choose_skinny_blocks(k, n, bk, bn)
         ap = _aligned(_pad_to(a_q, 1, bk))
-        bp = _aligned(_pad_to(_pad_to(b_q, 0, bk), 1, bn))
+        btp = _aligned(_pad_to(_pad_to(bt, 0, bn), 1, bk))
         fu, fv = _tables(spec, rank, a_q.device)
         out = qgemm.approx_qgemm_skinny(
-            ap, bp, fu, fv, plane_scales(spec, rank, a_q.device),
+            ap, btp, fu, fv,
+            plane_scales(spec, rank, a_q.device) if rank else None,
             trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
         return out[:, :n]
     if not fused:
@@ -117,8 +123,6 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
     kernel = "fused" if rank else "plane0"
     bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel=kernel)
     ap = _aligned(_pad_to(_pad_to(a_q, 0, bm), 1, bk))
-    bt = b_q.T if b_t is None else b_t
-    assert bt.shape == (n, k), (bt.shape, n, k)
     btp = _aligned(_pad_to(_pad_to(bt, 0, bn), 1, bk))
     if rank:
         fu, fv = _tables(spec, rank, a_q.device)
@@ -145,14 +149,14 @@ def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
                          b_t: torch.Tensor | None = None) -> torch.Tensor:
     """Execute a GEMM per a `dispatch.choose_gemm_path` kernel plan (the
     plain path belongs to approx/gemm.py, which knows prepared weights).
-    `b_t` is the weight's K-major copy, for the plane-0 and fused
+    `b_t` is the weight's K-major copy, for the plane-0, fused and skinny
     kernels."""
     assert plan.path in ("fused", "stacked"), plan
     if plan.path == "stacked":
         return approx_qgemm(a_q, b_q, spec, fused=False)
     if plan.skinny:
         return approx_qgemm(a_q, b_q, spec, bk=plan.bk, bn=plan.bn,
-                            skinny=True)
+                            skinny=True, b_t=b_t)
     return approx_qgemm(a_q, b_q, spec, bm=plan.bm, bk=plan.bk, bn=plan.bn,
                         b_t=b_t)
 

@@ -14,7 +14,9 @@ the weight K-major too, and picks its tile's width from N
 (`qk.fused_tile`).
 
 `approx_qgemm_skinny` — the same planes for decode-shaped GEMMs
-(m <= SKINNY_MAX_M).
+(m <= SKINNY_MAX_M), on the weight K-major too.  `skinny_splits` is its
+split of K; its int32 workspace and per-tile counters belong to the
+device (`_skinny_scratch`), so a call allocates only its output.
 
 `approx_qgemm_stacked` — the fused kernel's parity twin: a plain int8
 GEMM per plane over operand stacks that `ops.build_stacks` pre-maps, with
@@ -35,10 +37,9 @@ from repro_torch.approx.gemm import _table_map, _trunc_mask, qgemm_int32
 from repro_torch.kernels import approx_qgemm as qk
 from repro_torch.kernels import build
 
-#: The card's SM count.  The skinny kernel splits K until the grid covers
-#: about two blocks per SM, the plane-0 kernel until it covers every SM.
+#: The card's SM count: the skinny and plane-0 kernels split K until their
+#: grids cover every SM.
 _SM_COUNT = 132
-_TARGET_BLOCKS = 2 * _SM_COUNT
 
 
 def lowrank_b_planes_plain(b_t: torch.Tensor, fv_q: torch.Tensor, *,
@@ -52,14 +53,15 @@ def lowrank_b_planes_plain(b_t: torch.Tensor, fv_q: torch.Tensor, *,
 
 
 def planes_plain(a_q: torch.Tensor, b_q: torch.Tensor, fu_q: torch.Tensor,
-                 fv_q: torch.Tensor, scales: torch.Tensor, *,
+                 fv_q: torch.Tensor, scales: torch.Tensor | None, *,
                  trunc_a: int = 0, trunc_b: int = 0,
                  k_valid: int | None = None) -> torch.Tensor:
     """The plane semantic every approximate GEMM kernel computes:
     a_q (M, K) x b_q (K, N) int8, fu_q/fv_q (R, 256) int8 tables, scales
-    (R+1,) f32 with scales[0] = 1 and scales[r] = -s_r -> (M, N) f32.
-    A is masked (plane 0) or mapped and zeroed at k >= k_valid (plane r),
-    each plane an exact int32 product, flushed in plane order."""
+    (R+1,) f32 with scales[0] = 1 and scales[r] = -s_r (None at rank 0:
+    the one plane's scale is 1) -> (M, N) f32.  A is masked (plane 0) or
+    mapped and zeroed at k >= k_valid (plane r), each plane an exact int32
+    product, flushed in plane order."""
     k = a_q.shape[1]
     k_valid = k if k_valid is None else k_valid
     b_planes = lowrank_b_planes_plain(b_q.T, fv_q, trunc_b=trunc_b)
@@ -70,8 +72,8 @@ def planes_plain(a_q: torch.Tensor, b_q: torch.Tensor, fu_q: torch.Tensor,
     for p in range(b_planes.shape[0]):
         ua = _trunc_mask(a_q, trunc_a) if p == 0 else \
             torch.where(in_k, _table_map(fu_q[p - 1], a_q), zero)
-        out = out + scales[p] * qgemm_int32(ua, b_planes[p].T).to(
-            torch.float32)
+        scale = 1.0 if scales is None else scales[p]
+        out = out + scale * qgemm_int32(ua, b_planes[p].T).to(torch.float32)
     return out
 
 
@@ -150,63 +152,110 @@ def approx_qgemm_plane0(a_q: torch.Tensor, b_t: torch.Tensor, *,
 approx_qgemm_plane0.launches = 0
 
 
-def skinny_splits(k: int, n: int, planes: int) -> int:
-    """K splits that bring the skinny grid to about two blocks per SM."""
-    blocks = max(n // 128, 1) * planes
-    return max(1, min(-(-_TARGET_BLOCKS // blocks), k // 128))
+def skinny_splits(k: int, n: int) -> tuple[int, int]:
+    """(splits, gran) of the skinny kernel's K for a (K, N) weight: split z
+    sums the K units [z U / S, (z + 1) U / S) of `gran` bytes (U the units
+    of K), so none is empty while S <= U.  S is the least that brings the
+    grid of ceil(N / 64) tiles to every SM and keeps each split within
+    SKINNY_MAX_BOXES 128-byte boxes of K; units are whole boxes where K
+    has enough of them, else 32 bytes (one MMA step)."""
+    tiles = -(-n // qk.SKINNY_BM)
+    boxes = -(-k // qk.SKINNY_BOX)
+    want = max(-(-_SM_COUNT // tiles), -(-boxes // qk.SKINNY_MAX_BOXES))
+    if want <= boxes:
+        return want, qk.SKINNY_BOX
+    return min(want, -(-k // 32)), 32
 
 
-def approx_qgemm_skinny_plain(a_q, b_q, fu_q, fv_q, scales, *,
+#: Per device: the skinny kernel's int32 split workspace and its per-tile
+#: arrival counters, both of which every call leaves at 0.  Grown, never
+#: shrunk; calls on one stream run in order, so they share them.
+_skinny_state: dict = {}
+
+
+def _skinny_scratch(device: torch.device, tiles: int, ws_elems: int
+                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    counters, ws = _skinny_state.get(device.index, (None, None))
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
+                               device=device)
+    if ws_elems and (ws is None or ws.numel() < ws_elems):
+        ws = torch.zeros(ws_elems, dtype=torch.int32, device=device)
+    _skinny_state[device.index] = (counters, ws)
+    return counters, ws if ws_elems else None
+
+
+def approx_qgemm_skinny_plain(a_q, b_t, fu_q, fv_q, scales=None, *,
                               trunc_a: int = 0, trunc_b: int = 0,
                               k_valid: int) -> torch.Tensor:
-    return planes_plain(a_q, b_q, fu_q, fv_q, scales.reshape(-1),
+    """The skinny kernel's planes on the K-major weight b_t (N, K)."""
+    return planes_plain(a_q, b_t.T, fu_q, fv_q,
+                        None if scales is None else scales.reshape(-1),
                         trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k_valid)
 
 
-def approx_qgemm_skinny(a_q: torch.Tensor, b_q: torch.Tensor,
+def approx_qgemm_skinny(a_q: torch.Tensor, b_t: torch.Tensor,
                         fu_q: torch.Tensor, fv_q: torch.Tensor,
-                        scales: torch.Tensor, *, trunc_a: int = 0,
-                        trunc_b: int = 0, k_valid: int) -> torch.Tensor:
-    """a_q (m <= 32, K) x b_q (K, N) int8, fu_q/fv_q (R, 256) int8 tables
-    (R may be 0), scales (R+1,) f32 -> (m, N) f32.  On CUDA: (K, N)
-    multiples of `qk.SKINNY_TILE`; m is consumed unpadded."""
+                        scales: torch.Tensor | None = None, *,
+                        trunc_a: int = 0, trunc_b: int = 0,
+                        k_valid: int) -> torch.Tensor:
+    """a_q (m <= 32, K) x b_t (N, K) int8, the weight K-major, fu_q/fv_q
+    (R, 256) int8 tables (R may be 0), scales (R+1,) f32 (None at rank 0)
+    -> (m, N) f32.  On CUDA: K a multiple of `qk.SKINNY_TILE`'s; m and N
+    are consumed unpadded."""
     if a_q.device.type == "cpu":
-        return approx_qgemm_skinny_plain(a_q, b_q, fu_q, fv_q, scales,
+        return approx_qgemm_skinny_plain(a_q, b_t, fu_q, fv_q, scales,
                                          trunc_a=trunc_a, trunc_b=trunc_b,
                                          k_valid=k_valid)
+    name = "approx_qgemm_skinny"
+    if a_q.ndim != 2 or b_t.ndim != 2 or a_q.dtype != torch.int8 or \
+            b_t.dtype != torch.int8 or a_q.shape[1] != b_t.shape[1]:
+        raise ValueError(f"{name}: bad operands {a_q.dtype} "
+                         f"{tuple(a_q.shape)} x {b_t.dtype} "
+                         f"{tuple(b_t.shape)} (K-major)")
     m, k = a_q.shape
-    k2, n = b_q.shape
-    rank = fu_q.shape[0]
-    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8 or k != k2:
-        raise ValueError(f"approx_qgemm_skinny: bad operands {a_q.dtype} "
-                         f"{tuple(a_q.shape)} x {b_q.dtype} "
-                         f"{tuple(b_q.shape)}")
+    n = b_t.shape[0]
     tk, tn = qk.SKINNY_TILE
-    if not 0 < m <= qk.SKINNY_MAX_M or k % tk or n % tn:
-        raise ValueError(f"approx_qgemm_skinny: ({m}, {k}, {n}) needs "
-                         f"m <= 32 and (K, N) padded to {qk.SKINNY_TILE} "
-                         "multiples")
+    if not 0 < m <= qk.SKINNY_MAX_M or not (k and n) or k % tk or n % tn:
+        raise ValueError(f"{name}: ({m}, {k}, {n}) needs m <= "
+                         f"{qk.SKINNY_MAX_M} and (K, N) padded to "
+                         f"{qk.SKINNY_TILE} multiples")
     if not 0 < k_valid <= k:
-        raise ValueError(f"approx_qgemm_skinny: k_valid {k_valid} vs {k}")
-    scales = scales.reshape(-1).to(torch.float32).contiguous()
-    if scales.shape[0] != rank + 1 or fv_q.shape != fu_q.shape:
-        raise ValueError("approx_qgemm_skinny: tables/scales mismatch")
-    tensors = [a_q, b_q, scales]
+        raise ValueError(f"{name}: k_valid {k_valid} vs {k}")
+    rank = fu_q.shape[0]
+    if scales is not None:
+        scales = scales.reshape(-1).to(torch.float32).contiguous()
+    if rank > qk.MAX_RANK or fu_q.shape != (rank, 256) or \
+            fv_q.shape != fu_q.shape or (rank and scales is None) or \
+            (scales is not None and scales.shape[0] != rank + 1):
+        raise ValueError(f"{name}: tables {tuple(fu_q.shape)} / "
+                         f"{tuple(fv_q.shape)} and scales "
+                         f"{None if scales is None else tuple(scales.shape)}"
+                         f" do not match a rank <= {qk.MAX_RANK}")
+    tensors = [a_q, b_t]
+    if scales is not None:
+        tensors.append(scales)
     if rank:
         fu_q, fv_q = fu_q.contiguous(), fv_q.contiguous()
         tensors += [fu_q, fv_q]
-    _check_cuda("approx_qgemm_skinny", *tensors)
-    acc = torch.empty((rank + 1, m, n), dtype=torch.int32,
-                      device=a_q.device)
+    _check_cuda(name, *tensors)
+    splits, gran = skinny_splits(k, n)
+    tiles = -(-n // qk.SKINNY_BM)
+    rows = 8 if m <= 8 else qk.SKINNY_MAX_M     # activation rows in the MMA
+    counters, ws = _skinny_scratch(
+        a_q.device, tiles,
+        (rank + 1) * tiles * qk.SKINNY_BM * rows if splits > 1 else 0)
     out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
     lib = build.load()
     err = lib.repro_qgemm_skinny(
-        a_q.data_ptr(), b_q.data_ptr(),
+        a_q.data_ptr(), b_t.data_ptr(),
         fu_q.data_ptr() if rank else None, fv_q.data_ptr() if rank else None,
-        scales.data_ptr(), acc.data_ptr(), out.data_ptr(), m, k, n, k_valid,
-        rank, qk.signed_trunc_mask(trunc_a), qk.signed_trunc_mask(trunc_b),
-        skinny_splits(k, n, rank + 1), build.stream_ptr(a_q.device))
-    build.check(err, "approx_qgemm_skinny")
+        scales.data_ptr() if scales is not None else None,
+        ws.data_ptr() if ws is not None else None, counters.data_ptr(),
+        out.data_ptr(), m, k, n, k_valid, rank,
+        qk.signed_trunc_mask(trunc_a), qk.signed_trunc_mask(trunc_b),
+        splits, gran, build.stream_ptr(a_q.device))
+    build.check(err, name)
     approx_qgemm_skinny.launches += 1
     return out
 

@@ -169,7 +169,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, d = q.shape
     smax = k_cache.shape[1]
     qg, _ = _gqa_shape(q, k_cache.shape[2])                 # (b,1,kv,g,d)
-    scale = d ** -0.5
+    # a 0-dim CPU tensor of q's dtype: in bf16 the scale rounds before the
+    # multiply, as JAX rounds its weakly typed Python scalar
+    scale = torch.tensor(d ** -0.5, dtype=q.dtype)
     sc = torch.einsum("bqkgd,bmkd->bkgqm", (qg * scale).float(),
                       k_cache.float())                      # (b,kv,g,1,smax)
     pos = torch.arange(smax, device=q.device)
@@ -221,8 +223,18 @@ def prefill_length(true_len: torch.Tensor | None, s: int,
 
 # --- MLP ----------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as the reference rounds it.  In bf16 XLA expands it
+    to x * (1 / (1 + exp(-x))) with a bf16 rounding after every op, which
+    F.silu (one rounding) misses on about a third of the outputs; in f32
+    F.silu is kept."""
+    if x.dtype == torch.bfloat16:
+        return x * (1 / (1 + torch.exp(-x)))
+    return F.silu(x)
+
+
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down,
            spec: MultSpec | None) -> torch.Tensor:
     gate = AL.gemm(x, w_gate, spec)
     up = AL.gemm(x, w_up, spec)
-    return AL.gemm(F.silu(gate) * up, w_down, spec)
+    return AL.gemm(silu(gate) * up, w_down, spec)

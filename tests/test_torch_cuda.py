@@ -200,3 +200,97 @@ def test_cuda_flash_attention_tensor_core_widths(cuda_dev, bh, s, d, dtype,
                                         bkv=64)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=3 * tol)
+
+
+# --- the redesigned skinny kernel ----------------------------------------------
+
+#: TinyLlama-1.1B's five distinct decode GEMMs (K, N) and VGG16's three FC
+#: GEMMs.
+DECODE_KN = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+             (2048, 32000)]
+VGG_FC_KN = [(25088, 4096), (4096, 4096), (4096, 1000)]
+
+
+def _skinny_pair(a, b_t, spec, rank, k_valid, dev):
+    """The skinny kernel and its plain version on the same operands."""
+    fu, fv = ops._tables(spec, rank, dev)
+    scales = ops.plane_scales(spec, rank, dev) if rank else None
+    ta, tb, _ = ops._spec_kernel_args(spec)
+    kw = dict(trunc_a=ta, trunc_b=tb, k_valid=k_valid)
+    return (qgemm.approx_qgemm_skinny(a, b_t, fu, fv, scales, **kw),
+            qgemm.approx_qgemm_skinny_plain(a, b_t, fu, fv, scales, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 1, 2, 5, 8])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 17, 32])
+def test_cuda_skinny_every_m_and_rank_with_k_tail(cuda_dev, m, rank):
+    """k_valid = 300 of K = 304 (the wrapper's 16-byte pad), N = 200 (no
+    pad, a ragged last tile): kernel and plain version bit for bit, and
+    the ops route equal to the plain GEMM path."""
+    spec = (_lowrank_spec(rank, seed=40 + rank) if rank
+            else G.spec_from_name("trunc2x2")).to(cuda_dev)
+    a = torch.randint(-128, 128, (m, 300), dtype=torch.int8, device=cuda_dev)
+    b = torch.randint(-128, 128, (300, 200), dtype=torch.int8,
+                      device=cuda_dev)
+    ap = ops._pad_to(a, 1, 16).contiguous()
+    bt = ops._pad_to(b.T, 1, 16).contiguous()
+    got, want = _skinny_pair(ap, bt, spec, rank, 300, cuda_dev)
+    assert torch.equal(got, want)
+    assert torch.equal(ops.approx_qgemm(a, b, spec, skinny=True),
+                       G.approx_qgemm(a, b, spec))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kn", DECODE_KN + VGG_FC_KN)
+def test_cuda_skinny_main_path_shapes(cuda_dev, kn):
+    """The decode step's GEMMs (m = 4, trunc2x2, and pareto:0.01 as the
+    check phase serves it) and VGG16's FC GEMMs (m = 8, pareto:0.01), on
+    the K-major weight, one launch per call."""
+    k, n = kn
+    m = 8 if kn in VGG_FC_KN else 4
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_dev)
+    bt = torch.randint(-128, 128, (n, k), dtype=torch.int8, device=cuda_dev)
+    mults = ["pareto:0.01"] if kn in VGG_FC_KN else ["trunc2x2",
+                                                      "pareto:0.01"]
+    for mult in mults:
+        spec = G.spec_from_name(mult).to(cuda_dev)
+        rank = ops._spec_kernel_args(spec)[2]
+        n0 = qgemm.approx_qgemm_skinny.launches
+        got, want = _skinny_pair(a, bt, spec, rank, k, cuda_dev)
+        assert qgemm.approx_qgemm_skinny.launches == n0 + 1
+        assert torch.equal(got, want), mult
+
+
+@pytest.mark.cuda
+def test_cuda_skinny_back_to_back_calls_leave_nothing_behind(cuda_dev):
+    """Calls of different shapes, splits and ranks back to back on one
+    stream, three rounds: the self-resetting counters and the shared
+    workspace carry nothing from one call to the next."""
+    cases = []
+    for i, (m, k, n, rank) in enumerate([(4, 2048, 256, 0), (4, 2048, 2048, 5),
+                                         (8, 4096, 1000, 5), (1, 304, 200, 2),
+                                         (32, 2048, 256, 8),
+                                         (4, 2048, 32000, 0)]):
+        spec = (_lowrank_spec(rank, seed=60 + i) if rank
+                else G.spec_from_name("trunc2x2")).to(cuda_dev)
+        a = torch.randint(-128, 128, (m, k), dtype=torch.int8,
+                          device=cuda_dev)
+        bt = torch.randint(-128, 128, (n, k), dtype=torch.int8,
+                           device=cuda_dev)
+        want = _skinny_pair(a, bt, spec, rank, k, cuda_dev)[1]
+        cases.append((a, bt, spec, rank, k, want))
+    for _ in range(3):
+        outs = [_skinny_pair(a, bt, spec, rank, k, cuda_dev)[0]
+                for a, bt, spec, rank, k, _ in cases]
+        for got, case in zip(outs, cases):
+            assert torch.equal(got, case[-1])
+
+
+@pytest.mark.cuda
+def test_cuda_skinny_refuses_a_row_major_weight(cuda_dev):
+    a = torch.zeros((4, 256), dtype=torch.int8, device=cuda_dev)
+    b = torch.zeros((256, 128), dtype=torch.int8, device=cuda_dev)
+    empty = torch.zeros((0, 256), dtype=torch.int8, device=cuda_dev)
+    with pytest.raises(ValueError, match="K-major"):
+        qgemm.approx_qgemm_skinny(a, b, empty, empty, k_valid=256)

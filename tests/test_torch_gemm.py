@@ -249,7 +249,7 @@ def test_gemm_plan_by_policy_and_device(monkeypatch):
     # padding multiples are the CUDA kernels' own tiles, no more
     assert (plan.bm, plan.bk, plan.bn) == qk.PLANE0_TILE == (64, 64, 64)
     plan = dispatch.choose_gemm_path("pallas", m=4, k=2049, n=300)
-    assert (plan.bk, plan.bn) == qk.SKINNY_TILE == (4, 128)
+    assert (plan.bk, plan.bn) == qk.SKINNY_TILE == (16, 1)
     assert dispatch.choose_gemm_path("pallas", m=33, k=8, n=8).bm == 64
     assert not dispatch.choose_gemm_path("xla", m=4, k=8, n=8,
                                          device="cuda").use_pallas

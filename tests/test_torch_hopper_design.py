@@ -11,6 +11,11 @@
   transposed per call), the (R+1, N, K) weight planes it makes once per
   call, and the K-major route against the JAX fused kernel in interpret
   mode;
+- the skinny kernel's host side: its split of K (a grid that covers the
+  card at every TinyLlama decode shape, no empty split), the K-major
+  weight it takes through both routes, no flush scales at rank 0, and its
+  plain version on the K-major weight against the JAX skinny kernel in
+  interpret mode;
 - the flash kernel's f32 arithmetic (in-order FMA chains) and the 3xTF32
   tensor-core alternative, emulated in plain PyTorch, against the JAX
   flash kernel in interpret mode within the f32 contract (rtol=2e-6,
@@ -25,6 +30,7 @@ import torch
 from repro.approx import gemm as JG
 from repro.core import multipliers as jmm
 from repro.core import netlist as jnl
+from repro.kernels import approx_qgemm as jqk
 from repro.kernels import ops as jops
 from repro_torch.approx import gemm as G
 from repro_torch.core import multipliers as mm
@@ -290,6 +296,164 @@ def test_fused_k_major_route_against_jax_fused_kernel(shape, rank):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1.0)
     np.testing.assert_array_equal(
         got, G.approx_qgemm(_t(a), _t(b), tspec).numpy())
+
+
+# --- the skinny kernel -------------------------------------------------------
+
+#: The five distinct GEMMs (K, N) of a TinyLlama-1.1B decode step.
+DECODE = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+          (2048, 32000)]
+
+
+@pytest.mark.parametrize("kn", DECODE + [(25088, 4096), (4096, 4096),
+                                         (4096, 1000), (304, 200), (16, 1),
+                                         (272, 65), (128, 256)])
+def test_skinny_splits_cover_k_without_an_empty_split(kn):
+    """Split z sums the K units [z U / S, (z + 1) U / S): every unit once,
+    none empty, none longer than SKINNY_MAX_BOXES boxes."""
+    k, n = kn
+    splits, gran = qgemm.skinny_splits(k, n)
+    assert gran in (32, qk.SKINNY_BOX) and 1 <= splits
+    units = -(-k // gran)
+    bounds = [z * units // splits * gran for z in range(splits + 1)]
+    chunks = [min(k, hi) - lo for lo, hi in zip(bounds, bounds[1:])]
+    assert min(chunks) > 0 and sum(chunks) == k
+    assert max(chunks) <= qk.SKINNY_MAX_BOXES * qk.SKINNY_BOX
+
+
+@pytest.mark.parametrize("kn", DECODE)
+def test_skinny_splits_fill_the_card_at_decode(kn):
+    k, n = kn
+    splits, _ = qgemm.skinny_splits(k, n)
+    assert -(-n // qk.SKINNY_BM) * splits >= SM_COUNT
+
+
+def _spy(monkeypatch, name):
+    seen = []
+    real = getattr(qgemm, name)
+
+    def spy(a_q, b_t, *args, **kw):
+        seen.append((a_q, b_t, args, kw))
+        return real(a_q, b_t, *args, **kw)
+
+    monkeypatch.setattr(qgemm, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("mult", ["trunc2x2", "lowrank"])
+def test_prepared_matmul_hands_the_k_major_weight_to_skinny(monkeypatch,
+                                                           mult):
+    """approx_matmul_prepared at m <= 32 reaches the skinny wrapper with
+    the prepared K-major copy (K padded to 16, N unpadded), and equals
+    approx_matmul."""
+    spec = (_lowrank_pair(3, seed=16)[1] if mult == "lowrank"
+            else G.spec_from_name(mult)).with_policy("pallas")
+    x = _t(RNG.standard_normal((4, 100)).astype(np.float32))
+    w = _t(RNG.standard_normal((100, 72)).astype(np.float32))
+    pw = G.prepare_weight(w, spec)
+    seen = _spy(monkeypatch, "approx_qgemm_skinny")
+    with torch.no_grad():
+        got = G.approx_matmul_prepared(x, pw, spec)
+    (a_q, b_t, _, kw), = seen
+    assert a_q.shape == (4, 112) and b_t.shape == (72, 112)
+    assert torch.equal(b_t[:, :100], pw.wq_t) and not b_t[:, 100:].any()
+    assert kw["k_valid"] == 100
+    np.testing.assert_array_equal(got.numpy(),
+                                  G.approx_matmul(x, w, spec).numpy())
+
+
+@pytest.mark.parametrize("rank", [0, 2])
+def test_planned_skinny_route_takes_the_k_major_weight(monkeypatch, rank):
+    """ops.approx_qgemm_planned on a skinny plan hands the caller's K-major
+    weight to the wrapper as it is (no copy where K is a multiple of 16);
+    without one, the weight is transposed per call.  Both equal the plain
+    GEMM path."""
+    spec = _lowrank_pair(rank, seed=17)[1] if rank else \
+        G.spec_from_name("trunc3x1")
+    a = _t(RNG.integers(-128, 128, (5, 96)).astype(np.int8))
+    b = _t(RNG.integers(-128, 128, (96, 40)).astype(np.int8))
+    b_t = b.T.contiguous()
+    plan = dispatch.choose_gemm_path("pallas", m=5, k=96, n=40,
+                                     rank=rank)
+    assert plan.skinny and (plan.bk, plan.bn) == qk.SKINNY_TILE
+    seen = _spy(monkeypatch, "approx_qgemm_skinny")
+    with_bt = ops.approx_qgemm_planned(a, b, spec, plan, b_t)
+    without = ops.approx_qgemm_planned(a, b, spec, plan)
+    assert seen[0][1] is b_t
+    assert torch.equal(seen[1][1], b_t) and seen[1][1].is_contiguous()
+    want = G.approx_qgemm(a, b, spec)
+    assert torch.equal(with_bt, want) and torch.equal(without, want)
+
+
+def test_skinny_route_passes_no_scales_at_rank_0(monkeypatch):
+    """At rank 0 the one plane's scale is 1: the skinny route neither
+    calls plane_scales nor hands the wrapper a scale tensor; at rank > 0
+    it does both."""
+    calls = []
+    real = ops.plane_scales
+    monkeypatch.setattr(ops, "plane_scales",
+                        lambda *a, **k: calls.append(a) or real(*a, **k))
+    seen = _spy(monkeypatch, "approx_qgemm_skinny")
+    a = _t(RNG.integers(-128, 128, (4, 64)).astype(np.int8))
+    b = _t(RNG.integers(-128, 128, (64, 32)).astype(np.int8))
+    for spec in (G.spec_from_name("exact"), G.spec_from_name("trunc2x2")):
+        assert torch.equal(ops.approx_qgemm(a, b, spec, skinny=True),
+                           G.approx_qgemm(a, b, spec))
+    assert calls == [] and all(args[2] is None for _, _, args, _ in seen)
+    spec = _lowrank_pair(2, seed=18)[1]
+    ops.approx_qgemm(a, b, spec, skinny=True)
+    assert len(calls) == 1 and seen[-1][2][2].shape == (3,)
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 5])
+@pytest.mark.parametrize("shape", [(4, 300, 200), (1, 128, 65),
+                                   (17, 100, 130)])
+def test_skinny_plain_on_k_major_weight_against_jax_skinny(shape, rank):
+    """The skinny wrapper's plain version on the K-major weight (K padded
+    to 16, N unpadded) against the JAX skinny kernel in interpret mode:
+    bit-exact at trunc and exact (rank 0) and at rank 1; from rank 2
+    within the contract (rtol=1e-6, atol=1), where XLA contracts the JAX
+    flush into FMAs (ROADMAP Queue 3)."""
+    m, k, n = shape
+    a = RNG.integers(-128, 128, (m, k)).astype(np.int8)
+    b = RNG.integers(-128, 128, (k, n)).astype(np.int8)
+    if rank:
+        jspec, tspec = _lowrank_pair(rank, seed=50 + rank)
+        mults = [(jspec, tspec, 0, 0)]
+    else:
+        mults = [(None, G.spec_from_name(name), ta, tb)
+                 for name, ta, tb in (("exact", 0, 0), ("trunc2x2", 2, 2))]
+    kp, npad = -(-k // 128) * 128, -(-n // 128) * 128
+    ajp = np.zeros((m, kp), np.int8)
+    ajp[:, :k] = a
+    bjp = np.zeros((kp, npad), np.int8)
+    bjp[:k, :n] = b
+    k16 = -(-k // 16) * 16
+    ap = np.zeros((m, k16), np.int8)
+    ap[:, :k] = a
+    btp = np.zeros((n, k16), np.int8)
+    btp[:, :k] = b.T
+    for jspec, tspec, ta, tb in mults:
+        if rank:
+            fu, fv = jspec.fu_q[:rank], jspec.fv_q[:rank]
+            scales = jnp.concatenate([jnp.ones((1,), jnp.float32),
+                                      -jspec.s_r])[:, None]
+            tscales = ops.plane_scales(tspec, rank, "cpu")
+        else:
+            fu = fv = jnp.zeros((0, 256), jnp.int8)
+            scales, tscales = jnp.ones((1, 1), jnp.float32), None
+        want = np.asarray(jqk.approx_qgemm_skinny(
+            jnp.asarray(ajp), jnp.asarray(bjp), fu, fv, scales, trunc_a=ta,
+            trunc_b=tb, k_valid=k, bk=128, bn=128, interpret=True))[:, :n]
+        got = qgemm.approx_qgemm_skinny(
+            _t(ap), _t(btp), tspec.fu_q[:rank], tspec.fv_q[:rank], tscales,
+            trunc_a=ta, trunc_b=tb, k_valid=k).numpy()
+        assert got.shape == (m, n)
+        if rank <= 1:
+            np.testing.assert_array_equal(got, want)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1.0)
+        np.testing.assert_array_equal(
+            got, G.approx_qgemm(_t(a), _t(b), tspec).numpy())
 
 
 # --- the flash kernel's f32 arithmetic ---------------------------------------

@@ -138,8 +138,8 @@ def test_skinny_masks_padded_k_tail_in_mapped_planes():
     bp = np.zeros((256, 128), np.int8)
     bp[:128] = b
     got = qgemm.approx_qgemm_skinny(
-        _t(ap), _t(bp), spec.fu_q, spec.fv_q, ops.plane_scales(spec, 2, "cpu"),
-        k_valid=128)
+        _t(ap), _t(bp.T), spec.fu_q, spec.fv_q,
+        ops.plane_scales(spec, 2, "cpu"), k_valid=128)
     np.testing.assert_array_equal(
         got.numpy(), G.approx_qgemm(_t(a), _t(b), spec).numpy())
 
