@@ -9,7 +9,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   2. build     — nvcc builds the kernel library from csrc/ (timed);
   3. kernels   — every kernel against its plain PyTorch version on the
                  card, at the main paths' shapes and at odd ones:
-                 quantize_rows, the plane-0 GEMM (also on K-major weights
+                 quantize_rows (every launch-plan class at the VGG16,
+                 decode and prefill sizes, odd and two-pass rows, row
+                 slices, rows holding NaN, +-inf and zeros; plans
+                 logged), the plane-0 GEMM (also on K-major weights
                  as prepared weights hand it, at the prefill shapes and a
                  large-M VGG16 im2col shape, its K split logged), the
                  skinny GEMM on K-major weights (every rank, the decode
@@ -19,7 +22,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  stacked bit-identical to fused, its launches counted over
                  these parity calls) bit-exact, flash attention within
                  2e-6 (f32) / 2e-2 (bf16); then each kernel's time per unit
-                 of its main path (CUDA events) beside its plain version, a
+                 of its main path (CUDA events) beside its plain version
+                 (quantize_rows per decode step and per VGG16 forward, with
+                 x.to(torch.int8) on the same inputs as a same-bytes
+                 yardstick), a
                  PyTorch library yardstick (`torch._int_mm` on K-major
                  weights, SDPA pinned to its memory-efficient backend; wall
                  and device time) and the card's bound; the skinny
@@ -45,9 +51,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
                  one forward, the smallest row absmax each GEMM quantizes,
-                 forward time, device busy share, and each FC GEMM's
-                 device time (the kernel, and the per-call transpose of
-                 its weight);
+                 forward time, device busy share, each quantize_rows
+                 call's device time with its bound and launch plan, and
+                 each FC GEMM's device time (the kernel, and the per-call
+                 transpose of its weight);
   7. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
@@ -56,7 +63,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal).
 
-The line before the card line is a JSON object with one entry per kernel;
+The line before the card line is a JSON object with one entry per kernel
+and main-path unit (quantize_rows has two: the decode step and the VGG16
+forward; `path` names the run its launches come from);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -200,6 +209,79 @@ def _lowrank_specs(dev):
     return {r: G.from_multiplier(m, rank=r).to(dev) for r in (1, 2, 4, 8)}
 
 
+def same(got, want) -> bool:
+    """Bit-exact, a NaN equal to a NaN (the card's NaN payloads are its
+    own, in the kernel and in PyTorch's ops alike)."""
+    import torch
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(
+        torch.where(nan, 0, got), torch.where(nan, 0, want))
+
+
+def check_quantize(dev, gen) -> None:
+    """quantize_rows against its plain version: every launch-plan class at
+    the main paths' sizes (VGG16's im2col and FC inputs, ResNet50's stem,
+    the decode and prefill rows), odd shapes, rows past the register plan (two-pass),
+    row slices off and on the 16-byte grid, and rows holding NaN, +-inf,
+    zeros and absmaxes below the 1e-8 floor."""
+    import torch
+    from repro_torch.kernels import quantize as qz
+
+    def held(x, what):
+        m, k = x.shape
+        plan = qz.launch_plan(m, k, x.stride(0), x.data_ptr())
+        for trunc in (0, 2):
+            q1, s1 = qz.quantize_rows(x, trunc=trunc)
+            q0, s0 = qz.quantize_rows_plain(x, trunc)
+            if not (same(q1, q0) and same(s1, s0)):
+                raise AssertionError(
+                    f"quantize_rows {what} ({m},{k}) trunc {trunc}: kernel "
+                    f"!= plain (codes differ at {(q1 != q0).sum().item()}, "
+                    f"scales at {(~(s1 == s0) & ~s0.isnan()).sum().item()})")
+        return plan
+
+    plans = []
+    for m, k in [(401408, 27), (401408, 576), (100352, 1152), (25088, 2304),
+                 (6272, 4608), (1568, 4608), (8, 25088), (100352, 147),
+                 (128, 2048),
+                 (128, 5632), (4, 2048), (4, 5632), (1, 2048), (33, 257),
+                 (3, 7), (3, 40000), (3, 40001)]:
+        x = torch.randn((m, k), generator=gen, device=dev) * 3
+        p = held(x, "random")
+        plans.append(f"({m},{k}) {'16-byte' if p.vec else 'scalar'} "
+                     f"lanes {p.lanes} x {p.vecs or 'loop'}")
+        del x
+    torch.cuda.empty_cache()
+    big = torch.randn((9, 2056), generator=gen, device=dev)
+    off = held(big[1:, 1:2049], "row slice off the 16-byte grid")
+    on = held(big[1:, 8:2056], "row slice on the 16-byte grid")
+    assert not off.vec and on.vec, (off, on)
+    bits = []
+    for k in (37, 2048, 25088, 40000):
+        x = torch.randn((8, k), generator=gen, device=dev) * 3
+        x[0, 3] = float("nan")
+        x[1, 5] = float("inf")
+        x[2, 7] = -float("inf")
+        x[3] = 0
+        x[4] *= 1e-10
+        x[5, 2], x[5, k - 1] = float("inf"), float("nan")
+        held(x, "non-finite rows")
+        q, s = qz.quantize_rows(x)
+        s0 = qz.quantize_rows_plain(x)[1]
+        assert s[[0, 5]].isnan().all() and (s[1:3] == float("inf")).all()
+        assert not q[:4].any() and not q[5].any()
+        bits.append(torch.equal(s.view(torch.int32), s0.view(torch.int32)))
+    nan_cast = torch.tensor([float("nan")], device=dev).to(torch.int8).item()
+    log("[kernels] quantize_rows plans: " + "; ".join(plans))
+    log(f"[kernels] quantize_rows: non-finite rows equal to the plain "
+        f"version (NaN scales, codes 0; scale bits identical, NaN payloads "
+        f"included: {all(bits)}); PyTorch's CUDA cast of NaN to int8 gives "
+        f"{nan_cast}; row slices take the scalar variant off the 16-byte "
+        f"grid and 16-byte loads on it")
+
+
 def check_kernels(dev) -> tuple[dict, int]:
     """Kernel vs plain version on the card; returns max |err| per kernel
     and the stacked kernel's launches over its parity calls."""
@@ -208,7 +290,6 @@ def check_kernels(dev) -> tuple[dict, int]:
     from repro_torch.kernels import approx_qgemm as qk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ops, qgemm
-    from repro_torch.kernels import quantize as qz
 
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"quantize_rows": 0.0, "approx_qgemm_plane0": 0.0,
@@ -225,14 +306,7 @@ def check_kernels(dev) -> tuple[dict, int]:
             raise AssertionError(f"{name} {what}: kernel != plain "
                                  f"(max |diff| {diff})")
 
-    for m, k in [(128, 2048), (128, 5632), (4, 2048), (4, 5632), (1, 2048),
-                 (33, 257), (3, 7)]:
-        x = torch.randn((m, k), generator=gen, device=dev) * 3
-        for trunc in (0, 2):
-            q1, s1 = qz.quantize_rows(x, trunc=trunc)
-            q0, s0 = qz.quantize_rows_plain(x, trunc)
-            exact("quantize_rows", q1, q0, f"q ({m},{k}) trunc {trunc}")
-            exact("quantize_rows", s1, s0, f"scale ({m},{k}) trunc {trunc}")
+    check_quantize(dev, gen)
 
     specs = {name: G.spec_from_name(name).to(dev)
              for name in ("exact", "trunc2x2", "trunc3x1")}
@@ -392,7 +466,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     out = []
 
     def row(name, route, source, replaces, unit, calls, kernel, plain,
-            library, nbytes, ops_, peak):
+            library, nbytes, ops_, peak, path="serve"):
         b, by = bound_ms(nbytes, ops_, peak)
         lib_ms = lib_dms = None
         if library is not None:
@@ -408,7 +482,8 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             "plain_ms": cuda_ms(plain, reps=3, warmup=1),
             "bound_ms": b, "bound_by": by,
             "library_ms": lib_ms, "library_device_ms": lib_dms,
-            "unit": unit, "calls": calls, "device_ms": device_ms(kernel)})
+            "unit": unit, "calls": calls, "device_ms": device_ms(kernel),
+            "path": path})
         dms = out[-1]["device_ms"]
         share = f"{b / dms:.1%}" if dms else "not measured"
         log(f"[time] {name}: {out[-1]['ms']:.4f} ms per {unit} "
@@ -504,6 +579,25 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         lambda: [qz.quantize_rows_plain(x, 2) for x in xs],
         None, sum(x.numel() * 5 + x.shape[0] * 4 for x in xs),
         sum(x.numel() * 4 for x in xs), PEAK_F32)
+    # quantize_rows: the 16 GEMM inputs of one VGG16 forward (batch 8), as
+    # pareto:0.01 quantizes them (no mask); beside it a same-bytes
+    # yardstick, x.to(torch.int8) (reads 4 bytes and writes 1 per element,
+    # but not the same function: timed only)
+    xs = [torch.randn(mk, generator=gen, device=dev) for mk in vgg16_rows()]
+    row("quantize_rows", "cuda", "src/repro_torch/csrc/quantize.cu",
+        "src/repro/kernels/quantize.py:44",
+        "VGG16 forward, batch 8 (16 GEMM inputs)", len(xs),
+        lambda: [qz.quantize_rows(x) for x in xs],
+        lambda: [qz.quantize_rows_plain(x) for x in xs],
+        None, sum(x.numel() * 5 + x.shape[0] * 4 for x in xs),
+        sum(x.numel() * 4 for x in xs), PEAK_F32, path="cnn")
+
+    def to_int8():
+        return [x.to(torch.int8) for x in xs]
+
+    log(f"[time] same-bytes yardstick on the VGG16 quantize inputs, "
+        f"x.to(torch.int8): {cuda_ms(to_int8):.4f} ms (device "
+        f"{device_ms(to_int8)}; bound {out[-1]['bound_ms']:.4f})")
 
     # flash: the attention calls of one admitted request's prefill
     bh, hd = cfg.n_heads, cfg.hd
@@ -563,7 +657,8 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             for a, w in convs],
         int_mm_planes,
         sum(m * k + k * n + 4 * m * n for m, k, n in mkn),
-        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
+        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8,
+        path="cnn")
     # the earlier yardstick, on row-major weights, read once beside it
     row_major = cuda_ms(lambda: [torch._int_mm(a, w) for a, w in padded8
                                  for _ in range(planes)])
@@ -615,7 +710,8 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
                  for a_s, b_s, s_ in stacks],
         int_mm_planes,
         sum(planes * (m * k + k * n) + 4 * m * n for m, k, n in mkn),
-        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8)
+        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8,
+        path="parity")
     del stacks, padded8, kmajor8
     torch.cuda.empty_cache()
 
@@ -638,6 +734,13 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     del convs
     torch.cuda.empty_cache()
     return out
+
+
+def vgg16_rows(batch: int = 8) -> list[tuple]:
+    """(M, K) of the 16 matrices one VGG16 forward quantizes: the 13 conv
+    GEMMs' im2col rows, then the 3 FC inputs."""
+    return [(m, k) for m, k, _ in vgg16_convs(batch)] + [
+        (batch, 25088), (batch, 4096), (batch, 4096)]
 
 
 def vgg16_convs(batch: int = 8, image: int = 224) -> list[tuple]:
@@ -1046,10 +1149,34 @@ def cnn_phase(dev) -> dict:
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"[cnn]   {e.self_device_time_total / 1e3:8.3f} ms  "
                 f"{e.count:4d} calls  {e.key[:70]}")
+    quantize_per_shape(fwd)
     fc_skinny(params, spec, dev)
     del params, x, logits
     torch.cuda.empty_cache()
     return launches
+
+
+def quantize_per_shape(fwd) -> None:
+    """Device time of each quantize_rows call inside one VGG16 forward
+    (batch 8), beside its byte bound and the launch plan it ran."""
+    import torch
+    from repro_torch.kernels import quantize as qz
+    with torch.no_grad():
+        us = kernel_times(fwd, "quantize_")
+    rows = vgg16_rows()
+    if us is None or len(us) != len(rows):
+        log(f"[cnn] quantize_rows device time per call: not measured "
+            f"({None if us is None else len(us)} kernels in the trace)")
+        return
+    parts = []
+    for (m, k), t in zip(rows, us):
+        p = qz.launch_plan(m, k)
+        parts.append(f"({m},{k}) {t:.1f} us (bound "
+                     f"{(5 * m * k + 4 * m) / PEAK_BYTES * 1e6:.1f}; "
+                     f"{'16-byte' if p.vec else 'scalar'}, lanes {p.lanes} "
+                     f"x {p.vecs})")
+    log(f"[cnn] quantize_rows device time per call in the forward "
+        f"({sum(us) / 1e3:.4f} ms over {len(us)} calls): " + "; ".join(parts))
 
 
 def fc_skinny(params, spec, dev) -> None:
@@ -1176,12 +1303,12 @@ def main() -> int:
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
     cnn_launches = cnn_phase(dev)
     cnn_check_phase(dev)
-    launches["approx_qgemm_fused"] = cnn_launches["approx_qgemm_fused"]
-    launches["approx_qgemm_stacked"] = stacked_launches
     log(f"[cnn] {time.perf_counter() - t_start:.1f}s")
     accuracy_phase(dev)
+    counts = {"serve": launches, "cnn": cnn_launches,
+              "parity": {"approx_qgemm_stacked": stacked_launches}}
     for row in table:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = counts[row["path"]][row["name"]]
         assert row["launches"] > 0, row["name"]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))

@@ -34,8 +34,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signature of every entry point: argument types (all return int).
 SIGNATURES = {
-    # x, q, scale, m, k, mask, stream
-    "repro_quantize_rows": (_P, _P, _P, _I, _I, _I, _P),
+    # x, q, scale, m, k, ld, vec, lanes, vecs, threads, blocks, mask,
+    # stream (the plan's fields: quantize.launch_plan)
+    "repro_quantize_rows": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P),
     # a, b_t (K-major), out, workspace, m, k, n, mask_a, mask_b, k_chunk,
     # stream
     "repro_qgemm_plane0": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

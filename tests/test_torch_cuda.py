@@ -42,6 +42,64 @@ def test_cuda_quantize_rows_bitexact(cuda_dev, trunc):
     assert torch.equal(q1, q0) and torch.equal(s1, s0)
 
 
+def _same(got, want):
+    """Bit-exact, a NaN equal to a NaN."""
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, want)
+    nan = got.isnan()
+    return torch.equal(nan, want.isnan()) and torch.equal(
+        torch.where(nan, 0, got), torch.where(nan, 0, want))
+
+
+def _quantize_held(x, trunc):
+    q1, s1 = qz.quantize_rows(x, trunc=trunc)
+    q0, s0 = qz.quantize_rows_plain(x, trunc)
+    assert _same(q1, q0) and _same(s1, s0)
+    return q1, s1
+
+
+# every launch-plan class at the main paths' sizes (VGG16's im2col and FC
+# inputs and ResNet50's stem at batch 8, the decode rows), odd shapes, and
+# two-pass rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunc", [0, 2])
+@pytest.mark.parametrize("m,k", [
+    (401408, 27), (401408, 576), (100352, 1152), (25088, 2304),
+    (6272, 4608), (1568, 4608), (8, 25088), (4, 2048), (4, 5632), (1, 2048),
+    (100352, 147), (33, 257), (3, 7), (3, 40000), (3, 40001)])
+def test_cuda_quantize_rows_every_plan_class(cuda_dev, m, k, trunc):
+    gen = torch.Generator(device=cuda_dev).manual_seed(m + k)
+    _quantize_held(torch.randn((m, k), generator=gen, device=cuda_dev) * 3,
+                   trunc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunc", [0, 2])
+def test_cuda_quantize_rows_reads_row_slices_in_place(cuda_dev, trunc):
+    big = torch.randn((9, 2056), device=cuda_dev)
+    off, on = big[1:, 1:2049], big[1:, 8:2056]
+    assert not qz.launch_plan(8, 2048, off.stride(0), off.data_ptr()).vec
+    assert qz.launch_plan(8, 2048, on.stride(0), on.data_ptr()).vec
+    for x in (off, on):
+        _quantize_held(x, trunc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trunc", [0, 2])
+@pytest.mark.parametrize("k", [37, 2048, 25088, 40000])
+def test_cuda_quantize_rows_non_finite_rows(cuda_dev, k, trunc):
+    x = torch.randn((8, k), device=cuda_dev) * 3
+    x[0, 3] = float("nan")
+    x[1, 5] = float("inf")
+    x[2, 7] = -float("inf")
+    x[3] = 0
+    x[4] *= 1e-10
+    x[5, 2], x[5, k - 1] = float("inf"), float("nan")
+    q, s = _quantize_held(x, trunc)
+    assert s[[0, 5]].isnan().all() and (s[1:3] == float("inf")).all()
+    assert not q[:4].any() and not q[5].any() and q[4].any()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mult", ["exact", "trunc2x2", "trunc3x1"])
 @pytest.mark.parametrize("shape", [(128, 2048, 256), (33, 257, 65),
