@@ -61,7 +61,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   8. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
-                 versions (top-1 equal).
+                 versions (top-1 equal);
+  9. codesign  — the co-design core on the card: the VGG16 7 nm space's
+                 FPS lattice and every genome's metrics held to the CPU's
+                 (rtol 1e-6, same inf places and feasible mask); the
+                 paper's reproduction (`repro_torch.launch.codesign`:
+                 VGG16 at 7/14/28 nm under drops measured through the
+                 kernels on phase 8's vgg_mini), each GA design within
+                 1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
+                 fused) and `calibrate_serving` (quantize, plane 0,
+                 skinny) with their launches counted; the multi-die
+                 scenarios under the GEMM calibration; the GA's times.
 
 The line before the card line is a JSON object with one entry per kernel
 and main-path unit (quantize_rows has two: the decode step and the VGG16
@@ -1255,9 +1265,10 @@ def cnn_check_phase(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def accuracy_phase(dev) -> None:
+def accuracy_phase(dev) -> dict:
     """repro_torch.launch.accuracy on the card: vgg_mini trained 260 steps,
-    every multiplier's top-1 through the kernels and the plain versions."""
+    every multiplier's top-1 through the kernels and the plain versions.
+    Returns the trained vgg_mini for the codesign phase."""
     from repro_torch.launch import accuracy as acc
 
     t0 = time.perf_counter()
@@ -1271,6 +1282,210 @@ def accuracy_phase(dev) -> None:
         f"{r['name']}={r['mode']}/{r['rank']}" for r in rows[1:])
         + f"; kernels and plain versions give the same top-1 for all "
         f"{len(rows)}; {time.perf_counter() - t0:.1f}s")
+    return params
+
+
+# ---------------------------------------------------------------------------
+# codesign: the co-design core on the card
+# ---------------------------------------------------------------------------
+
+#: The codesign phase holds the card's population metrics and FPS lattice
+#: to the CPU's, and each GA design to the exhaustive optimum, this close.
+CODESIGN_RTOL = 1e-6
+GA_SLACK = 1e-4
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds of `fn` on the host clock, each call between two
+    synchronizations (for work that reads results back to the host)."""
+    import torch
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[reps // 2]
+
+
+def _held_to(got: dict, want: dict) -> float:
+    """Hold population metrics on the card to the CPU's: the same
+    `feasible` mask, `inf` at the same places, no NaN, the rest within
+    CODESIGN_RTOL.  Returns the largest relative difference."""
+    import numpy as np
+    worst = 0.0
+    assert set(got) == set(want)
+    for k in got:
+        g, w = got[k].cpu().numpy(), want[k].numpy()
+        if k == "feasible":
+            assert np.array_equal(g, w), k
+            continue
+        assert not np.isnan(g).any() and not np.isnan(w).any(), k
+        assert np.array_equal(np.isinf(g), np.isinf(w)), k
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=CODESIGN_RTOL,
+                                   err_msg=k)
+        worst = max(worst, float(np.max(np.abs(g[fin] - w[fin])
+                                        / np.abs(w[fin]))))
+    return worst
+
+
+def codesign_phase(dev, params: dict, card: str) -> None:
+    """The co-design core on the card: (1) the FPS lattice and every
+    genome's metrics of the VGG16 7 nm space held to the CPU's; (2) the
+    paper's reproduction, `repro_torch.launch.codesign` at 7, 14 and 28 nm
+    under drops measured through the kernels on the accuracy phase's
+    vgg_mini, each GA design held to `exhaustive_best`; (3) the delay
+    calibrations on the port's kernels; (4) the multi-die scenarios under
+    the GEMM calibration; (5) the GA's times.  (2) and (3) are the phase's
+    main path: their kernel launches are counted, logged, and must include
+    every kernel that path runs."""
+    import math
+
+    import numpy as np
+    from repro_torch.core import calibrate as cal
+    from repro_torch.core import codesign as cd
+    from repro_torch.core import dataflow as df
+    from repro_torch.core import ga_batched as gb
+    from repro_torch.launch import codesign as launch
+
+    t_start = time.perf_counter()
+    mults = launch.default_mults()
+
+    # 1. the card against the CPU on one space
+    space = gb.build_space("vgg16", 7, 30.0, 2.0, mults=mults, device=dev)
+    cpu_space = gb.build_space("vgg16", 7, 30.0, 2.0, mults=mults,
+                               device="cpu")
+    np.testing.assert_allclose(space.fps_table, cpu_space.fps_table,
+                               rtol=CODESIGN_RTOL)
+    lat_err = float(np.max(np.abs(space.fps_table - cpu_space.fps_table)
+                           / cpu_space.fps_table))
+    pop = gb.exhaustive_population(space)
+    got = gb.evaluate_population(pop, space.tables(dev), 7)
+    want = gb.evaluate_population(pop, space.tables("cpu"), 7)
+    met_err = _held_to(got, want)
+    log(f"[codesign] vgg16 7nm space, {len(space.mults)} multipliers: FPS "
+        f"lattice ({space.fps_table.size} configs) card vs CPU max rel "
+        f"{lat_err:.3e}; {len(pop)} genomes' metrics max rel {met_err:.3e} "
+        f"(limit {CODESIGN_RTOL:g}); same feasible mask "
+        f"({int(want['feasible'].sum())} feasible) and inf pattern")
+
+    # 2. the paper's reproduction under measured drops
+    res, launches = counted(lambda: launch.run(params, policy="pallas",
+                                                device=dev))
+    for line in launch.format_lines(res):
+        log(f"[codesign] {line}")
+    for entry in res["nodes"]:
+        rep, node = entry["report"], entry["node_nm"]
+        node_space = gb.build_space("vgg16", node, launch.FPS_MIN,
+                                    launch.MAX_DROP, mults=res["mults"],
+                                    accuracy_fn=res["accuracy_fn"],
+                                    device=dev)
+        _, ex = gb.exhaustive_best(node_space, device=dev)
+        log(f"[codesign] {node}nm: GA fitness {rep.ga_cdp.fitness:.6g}, "
+            f"exhaustive {float(ex['fitness']):.6g}; carbon -"
+            f"{100 * rep.ga_reduction:.2f}% (GA), -"
+            f"{100 * rep.approx_only_reduction:.2f}% (approx only); chosen "
+            f"{rep.ga_cdp.config.multiplier} drop "
+            f"{entry['chosen_drop_pct']:.2f}%")
+        assert rep.ga_cdp.fitness <= float(ex["fitness"]) * (1 + GA_SLACK)
+        assert rep.ga_reduction > 0 and rep.approx_only_reduction > 0
+        assert entry["chosen_drop_pct"] <= launch.MAX_DROP
+    admitted = sum(d <= launch.MAX_DROP for d in res["drops"].values())
+    log(f"[codesign] reproduction launches {launches}; "
+        f"{len(res['drops'])} multipliers measured, {admitted} within the "
+        f"{launch.MAX_DROP:g}% drop ceiling")
+
+    # 3. the delay calibrations on the port's kernels
+    cals = []
+    for kw in ({}, dict(m=128, k=2048, n=5632),
+               dict(m=128, k=2048, n=5632, mult_name="pareto:0.01")):
+        c, n = counted(lambda: cal.calibrate_gemm(device=dev, **kw))
+        cals.append(c)
+        launches = {k: launches[k] + n[k] for k in launches}
+        log(f"[codesign] calibrate_gemm {c.meta['shape']} {c.meta['mult']}: "
+            f"scale {c.scale:.6g} ({c.measured:.4g} MAC/s measured, "
+            f"{c.meta['us_per_call']:.1f} us/call); plan "
+            f"{c.meta['dispatch']}; launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+        assert c.meta["dispatch"]["path"] == "fused" and c.scale > 0
+    c, n = counted(lambda: cal.calibrate_serving(
+        mult="trunc2x2", kernel_policy="pallas", device=dev))
+    launches = {k: launches[k] + n[k] for k in launches}
+    log(f"[codesign] calibrate_serving {c.meta['arch']} {c.meta['mult']}: "
+        f"scale {c.scale:.6g} ({c.measured:.4g} steps/s over "
+        f"{c.meta['decode_steps']} decode steps, analytical "
+        f"{c.analytical:.4g}); launches { {k: v for k, v in n.items() if v} }")
+    assert c.scale > 0 and c.meta["decode_steps"] > 0
+    for k in ("quantize_rows", "approx_qgemm_plane0", "approx_qgemm_skinny",
+              "approx_qgemm_fused"):
+        assert launches[k] > 0, (k, launches)
+
+    # 4. the multi-die scenarios under the GEMM delay calibration: the
+    # full-width TinyLlama FFN up-projection under trunc2x2, whose time is
+    # the kernel's; the reference shape (128, 160, 128) is launch-bound
+    gemm_cal = cals[1]
+    t0 = time.perf_counter()
+    scen = cd.run_scenarios(cd.multi_die_scenarios(), mults=mults,
+                            calibration=gemm_cal, device=dev)
+    for r in scen:
+        b = r.best
+        log(f"[codesign] {r.scenario.name}: {b.n_dies} dies x "
+            f"{b.config.num_pes // b.n_dies} PEs, {b.config.multiplier}, "
+            f"{b.fps:.1f} fps, {b.carbon_g:.2f} g ("
+            f"{-100 * r.ga_reduction:+.2f}% vs the exact baseline); best "
+            f"monolithic fitness "
+            f"{r.mono.fitness:.4g} vs {b.fitness:.4g}; calibrated CDP "
+            f"{r.cdp_calibrated:.4g}; {r.wall_s:.2f}s")
+        assert math.isclose(r.cdp_calibrated, b.cdp / gemm_cal.scale,
+                            rel_tol=1e-6)
+    assert any(r.best.n_dies > 1 for r in scen)
+    log(f"[codesign] multi-die scenarios {time.perf_counter() - t0:.1f}s")
+
+    # 5. the GA's times
+    cfg = gb.BatchedGAConfig()
+
+    def ga():
+        gb.run_ga_batched("vgg16", 7, 30.0, 2.0, cfg=cfg, space=space,
+                          device=dev)
+
+    ri, rj, rk, rd = np.meshgrid(*(np.arange(n) for n in
+                                   space.fps_table.shape), indexing="ij")
+    rows, cols = space.rows[ri, rj].ravel(), space.cols[ri, rj].ravel()
+    glbs, dies = space.glb_kib[rk].ravel(), space.dies[rd].ravel()
+
+    def exhaustive():
+        gb.exhaustive_best(space, device=dev)
+
+    def lattice(workload):
+        return lambda: df.batched_fps(workload, rows, cols, glbs, 7,
+                                      dies=dies, device=dev)
+
+    def busy(fn) -> str:
+        ms = device_ms(fn)
+        return "not measured" if ms is None else f"{ms:.4f} ms"
+
+    ga_ms = wall_ms(ga, reps=3)
+    ga_dev = device_ms(ga)
+    ex_ms = wall_ms(exhaustive)
+    lat_ms = {w: wall_ms(lattice(w)) for w in ("vgg16", "resnet152")}
+    log(f"[codesign] run_ga_batched at pop {cfg.pop_size} x "
+        f"{cfg.generations} generations: {ga_ms / cfg.generations:.4f} ms "
+        f"per generation (host clock, median of 3 runs), device busy "
+        + ("not measured" if ga_dev is None else
+           f"{ga_dev / cfg.generations:.4f} ms")
+        + f" per generation on {card}")
+    log(f"[codesign] exhaustive_best over {space.size} genomes: "
+        f"{ex_ms:.3f} ms (host clock, median of 5), device busy "
+        f"{busy(exhaustive)} on {card}")
+    log(f"[codesign] build_space lattice ({len(rows)} configs): " + ", ".join(
+        f"{w} {ms:.3f} ms (device busy {busy(lattice(w))})"
+        for w, ms in lat_ms.items())
+        + f" (host clock, median of 5) on {card}")
+    log(f"[codesign] main-path launches {launches}; "
+        f"{time.perf_counter() - t_start:.1f}s")
 
 
 def main() -> int:
@@ -1304,7 +1519,9 @@ def main() -> int:
     cnn_launches = cnn_phase(dev)
     cnn_check_phase(dev)
     log(f"[cnn] {time.perf_counter() - t_start:.1f}s")
-    accuracy_phase(dev)
+    vgg_mini = accuracy_phase(dev)
+    log(f"[accuracy] {time.perf_counter() - t_start:.1f}s")
+    codesign_phase(dev, vgg_mini, card)
     counts = {"serve": launches, "cnn": cnn_launches,
               "parity": {"approx_qgemm_stacked": stacked_launches}}
     for row in table:

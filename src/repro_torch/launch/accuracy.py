@@ -25,6 +25,10 @@ import torch.nn.functional as F
 
 from repro_torch.approx import gemm as G
 from repro_torch.core import multipliers as mm
+# the GA's NMED->drop proxy, reported beside each measured drop
+from repro_torch.core.ga import (  # noqa: F401
+    ACC_DROP_MRED_COEF, ACC_DROP_NMED_COEF, proxy_accuracy_drop,
+)
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn
@@ -33,16 +37,6 @@ N_CLASSES = 8
 TASK = dict(image=32, n_classes=N_CLASSES, amplitude=0.9, noise=0.55)
 MULTIPLIERS = ("trunc1x1", "trunc2x2", "trunc3x3", "trunc4x4",
                "pareto:0.005", "pareto:0.01", "pareto:0.02")
-
-# The GA's proxy mapping multiplier error statistics -> top-1 accuracy
-# drop (percent), copied from the JAX package's core/ga.py.
-ACC_DROP_NMED_COEF = 55.0   # %drop per unit NMED
-ACC_DROP_MRED_COEF = 4.0    # %drop per unit MRED
-
-
-def proxy_accuracy_drop(mult: mm.ApproxMultiplier) -> float:
-    return (ACC_DROP_NMED_COEF * mult.stats.nmed
-            + ACC_DROP_MRED_COEF * mult.stats.mred) * 1.0
 
 
 def _reference_numerics() -> None:

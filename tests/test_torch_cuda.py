@@ -352,3 +352,88 @@ def test_cuda_skinny_refuses_a_row_major_weight(cuda_dev):
     empty = torch.zeros((0, 256), dtype=torch.int8, device=cuda_dev)
     with pytest.raises(ValueError, match="K-major"):
         qgemm.approx_qgemm_skinny(a, b, empty, empty, k_valid=256)
+
+
+# --- the co-design core on the card -----------------------------------------
+
+def _ga_mults():
+    from repro_torch.core import ga
+    mults = [mm.exact_multiplier(), mm.truncated(1, 1), mm.truncated(2, 2),
+             mm.truncated(3, 3), _pruned_mult(3)]
+    ga._register(mults)
+    return mults
+
+
+def _pruned_mult(seed):
+    mask = np.random.default_rng(seed).random(
+        len(nl.bw8().prunable_gates())) < 0.03
+    return mm.pruned(mask, name=f"tc_ga_{seed}")
+
+
+@pytest.mark.cuda
+def test_cuda_evaluate_population_matches_the_cpu(cuda_dev):
+    """The FPS lattice and every genome's metrics on the card equal the
+    CPU's to rtol 1e-6 (float32 on both; the card's division by a scalar
+    and its sums may round differently), the same `inf` places and the same
+    feasible mask."""
+    from repro_torch.core import ga_batched as gb
+    for workload, fps_min in (("vgg16", 30.0), ("resnet50", 400.0)):
+        space = gb.build_space(workload, 7, fps_min, 2.0, mults=_ga_mults(),
+                               device=cuda_dev)
+        cpu = gb.build_space(workload, 7, fps_min, 2.0, mults=_ga_mults(),
+                             device="cpu")
+        np.testing.assert_allclose(space.fps_table, cpu.fps_table,
+                                   rtol=1e-6)
+        pop = gb.exhaustive_population(space)
+        got = gb.evaluate_population(pop, space.tables(cuda_dev), 7)
+        want = gb.evaluate_population(pop, space.tables("cpu"), 7)
+        assert got["fitness"].device.type == "cuda"
+        assert torch.equal(got["feasible"].cpu(), want["feasible"])
+        for k in got:
+            if k == "feasible":
+                continue
+            g, w = got[k].cpu(), want[k]
+            assert not torch.isnan(g).any()
+            assert torch.equal(torch.isinf(g), torch.isinf(w)), k
+            fin = torch.isfinite(w)
+            torch.testing.assert_close(g[fin], w[fin], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["vgg16", "resnet50"])
+def test_cuda_ga_finds_the_exhaustive_optimum(cuda_dev, workload):
+    from repro_torch.core import ga
+    from repro_torch.core import ga_batched as gb
+    cfg = gb.BatchedGAConfig(pop_size=2048, generations=8, seed=0)
+    rb = gb.run_ga_batched(workload, 7, 30.0, 2.0, mults=_ga_mults(),
+                           cfg=cfg, device=cuda_dev)
+    _, met = gb.exhaustive_best(rb.space, device=cuda_dev)
+    assert rb.best.fitness <= float(met["fitness"]) * (1 + 1e-4)
+    rn = ga.run_ga(workload, 7, 30.0, 2.0, mults=_ga_mults(),
+                   cfg=ga.GAConfig(pop_size=32, generations=16, seed=0))
+    assert rb.best.fitness == pytest.approx(rn.best.fitness, rel=1e-6)
+    # the same seed repeats on the card
+    again = gb.run_ga_batched(workload, 7, 30.0, 2.0, mults=_ga_mults(),
+                              cfg=cfg, device=cuda_dev)
+    assert again.history == rb.history
+    np.testing.assert_array_equal(again.population, rb.population)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,mult,skinny,kernel", [
+    (16, "trunc2x2", True, "approx_qgemm_skinny"),
+    (128, "trunc2x2", False, "approx_qgemm_plane0"),
+    (128, "tc_ga_3", False, "approx_qgemm_fused")])
+def test_cuda_calibrate_gemm_records_a_kernel_plan(cuda_dev, m, mult, skinny,
+                                                  kernel):
+    from repro_torch.core import calibrate as cal
+    _ga_mults()
+    fn = getattr(qgemm, kernel)
+    fn.launches = 0
+    c = cal.calibrate_gemm(m=m, k=2048, n=512, mult_name=mult, reps=3,
+                           device=cuda_dev)
+    assert c.meta["dispatch"]["path"] == "fused"
+    assert c.meta["dispatch"]["skinny"] is skinny
+    assert c.meta["backend"] == torch.cuda.get_device_name(cuda_dev)
+    assert fn.launches == 4           # the warm-up and three timed calls
+    assert c.measured > 0 and c.scale > 0

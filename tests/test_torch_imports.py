@@ -34,6 +34,10 @@ def test_no_module_imports_jax_or_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serving.engine" in res["modules"]
     assert "repro_torch.kernels.qgemm" in res["modules"]
+    for name in ("workloads", "accelerator", "carbon", "dataflow", "target",
+                 "ga", "ga_batched", "calibrate", "codesign"):
+        assert f"repro_torch.core.{name}" in res["modules"]
+    assert "repro_torch.launch.codesign" in res["modules"]
     assert res["bad"] == []
 
 
@@ -55,3 +59,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_codesign_entry_points_raise_without_cuda(monkeypatch):
+    """The co-design core's device entry points default to the card too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.core import calibrate, codesign, dataflow
+    from repro_torch.core import ga_batched as gb
+    from repro_torch.core import multipliers as mm
+    from repro_torch.launch import codesign as launch
+    mults = [mm.exact_multiplier(), mm.truncated(2, 2)]
+    space = gb.build_space("vgg16", 7, 30.0, 2.0, mults=mults, device="cpu")
+    for call in (lambda: dataflow.batched_fps("vgg16", [8], [8], [64], 7),
+                 lambda: gb.build_space("vgg16", 7, 30.0, 2.0, mults=mults),
+                 lambda: space.tables(),
+                 lambda: gb.exhaustive_best(space),
+                 lambda: gb.run_ga_batched("vgg16", 7, 30.0, 2.0,
+                                           space=space),
+                 lambda: codesign.run_scenarios(
+                     [codesign.Scenario("vgg16", 7)], mults=mults),
+                 lambda: calibrate.calibrate_gemm(m=8, k=8, n=8),
+                 lambda: calibrate.calibrate_serving(),
+                 lambda: launch.run(steps=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
