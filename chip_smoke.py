@@ -15,10 +15,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  logged), the plane-0 GEMM (also on K-major weights
                  as prepared weights hand it, at the prefill shapes and a
                  large-M VGG16 im2col shape, its K split logged), the
-                 skinny GEMM on K-major weights (every rank, the decode
-                 and VGG16 FC shapes, every m class with a K tail, its K
-                 split logged), the fused and the stacked
-                 low-rank GEMMs (ranks 1, 2, 4, 8, every VGG16 conv shape;
+                 skinny GEMM on K-major weights (every rank, the decode,
+                 first-chunk prefill (m = 32) and VGG16 FC shapes, every
+                 m class with a K tail, its K split logged), the fused
+                 and the stacked low-rank GEMMs (ranks 1, 2, 4, 8, every VGG16 conv shape;
                  stacked bit-identical to fused, its launches counted over
                  these parity calls) bit-exact, flash attention within
                  2e-6 (f32) / 2e-2 (bf16); then each kernel's time per unit
@@ -38,7 +38,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
                  tokens, every kernel's launch counter read around the run;
-  5. check     — a 2-layer full-width model served once through the kernels
+  5. paged     — the same model through the paged engine on a ten-request
+                 trace (the six prompts above, two seeded sampled requests,
+                 two sharing a 64-token prefix), each run token-identical
+                 to a slot engine of its capacity: P (paged, capacity 4,
+                 pages of 16, prefix cache), PC (+ chunked prefill, 32),
+                 PS (+ speculation drafted by trunc2x2 itself, k 4,
+                 acceptance exactly 1), PD (the reference bench's equal-KV
+                 layout: capacity 8, 65 pages, chunks of 32, budget 8,
+                 trunc4x4 drafts) against S8; after each: the allocator's
+                 audit, no live page, launches equal to `paged_want`'s
+                 formula; then ms per decode step, chunk step and spec
+                 step, tick-space TTFT of PD against S4, and the view's
+                 gather and scatter on the profiler.  A run that leaves its
+                 slot engine fails the phase;
+  6. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -46,7 +60,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
-  6. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+  7. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -55,19 +69,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
-  7. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+  8. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
-  8. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+  9. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
-  9. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 10. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 8's vgg_mini), each GA design within
+                 kernels on phase 9's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -75,7 +89,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 The line before the card line is a JSON object with one entry per kernel
 and main-path unit (quantize_rows has two: the decode step and the VGG16
-forward; `path` names the run its launches come from);
+forward; `path` names the run its launches come from, and
+`paged_launches` holds each kernel's launches in run PD);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -352,15 +367,17 @@ def check_kernels(dev) -> tuple[dict, int]:
         del a, b, bt
 
     # skinny, on the K-major weight that prepared weights hand it: the
-    # decode step's shapes (m = 4; the head also at m = 1), VGG16's FC
-    # shapes (m = 8), odd shapes, every m class and rank with a K tail
+    # decode step's shapes (m = 4; the head also at m = 1), the paged
+    # engine's first-chunk prefill (m = 32), VGG16's FC shapes (m = 8), odd
+    # shapes, every m class and rank with a K tail
     lowrank = _lowrank_specs(dev)
     lowrank[5] = G.spec_from_name("pareto:0.01").to(dev)
     assert lowrank[5].rank == 5
     for m, k, n in [(4, 2048, 2048), (4, 2048, 256), (4, 2048, 5632),
                     (4, 5632, 2048), (4, 2048, 32000), (1, 2048, 32000),
-                    (8, 25088, 4096), (8, 4096, 4096), (8, 4096, 1000),
-                    (3, 257, 65), (32, 512, 256), (9, 200, 130)] + [
+                    (32, 2048, 2048), (32, 2048, 256), (32, 2048, 5632),
+                    (32, 5632, 2048), (8, 25088, 4096), (8, 4096, 4096),
+                    (8, 4096, 1000), (3, 257, 65), (32, 512, 256), (9, 200, 130)] + [
                         (m, 300, 200) for m in (1, 3, 4, 8, 17, 32)]:
         a, b = rand_q(m, k), rand_q(k, n)
         bt = b.T.contiguous()
@@ -425,8 +442,10 @@ def check_kernels(dev) -> tuple[dict, int]:
         G.approx_qgemm(a, b, spec), "fully padded K tile")
     torch.cuda.empty_cache()
 
-    for bh, s, d in [(32, 128, 64), (2, 256, 128), (1, 64, 256), (3, 77, 64),
-                     (4, 100, 32)]:
+    # flash: the whole-prompt prefill (s = 128), the paged engine's first
+    # chunk (s = 32, one partial tile), other widths and odd lengths
+    for bh, s, d in [(32, 128, 64), (32, 32, 64), (2, 256, 128),
+                     (1, 64, 256), (3, 77, 64), (4, 100, 32)]:
         for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
             q, k_, v = (torch.randn((bh, s, d), generator=gen, device=dev)
                         .to(dtype) for _ in range(3))
@@ -858,9 +877,248 @@ def serve_phase(dev, cfg) -> dict:
     return launches
 
 
-def profile_decode(eng, rng, cfg, steps: int = 4) -> None:
+#: The paged phase's trace: the serve phase's six greedy prompts, two
+#: seeded sampled requests and two greedy requests sharing a 64-token
+#: prefix (lengths and arrival ticks).
+PAGED_GREEDY = [(40, 0), (128, 0), (77, 0), (100, 0), (64, 3), (115, 5)]
+PAGED_SAMPLED = [(48, 1, 1001), (96, 4, 1002)]
+PAGED_SHARED = [(16, 2), (16, 6)]
+PAGED_NEW = 16
+
+
+def paged_trace(cfg) -> list:
+    import numpy as np
+    from repro_torch.serving import Request, SamplingParams
+    rng = np.random.default_rng(0)      # the serve phase's six prompts
+    greedy = SamplingParams(max_new_tokens=PAGED_NEW)
+    out = [Request(f"g{i}", rng.integers(0, cfg.vocab, n).tolist(), greedy,
+                   arrival=t) for i, (n, t) in enumerate(PAGED_GREEDY)]
+    for i, (n, t, seed) in enumerate(PAGED_SAMPLED):
+        out.append(Request(f"s{i}", rng.integers(0, cfg.vocab, n).tolist(),
+                           SamplingParams(temperature=0.8, top_k=16,
+                                          max_new_tokens=PAGED_NEW,
+                                          seed=seed), arrival=t))
+    prefix = rng.integers(0, cfg.vocab, 64).tolist()
+    for i, (n, t) in enumerate(PAGED_SHARED):
+        out.append(Request(f"h{i}", prefix + rng.integers(
+            0, cfg.vocab, n).tolist(), greedy, arrival=t))
+    return sorted(out, key=lambda r: r.arrival)
+
+
+def paged_want(cfg, st: dict, trace, prefill_chunk, spec_k) -> dict:
+    """Kernel launches of one paged run, from the engine's own counts.
+
+    Every decode-shaped step (a decode step, a draft or verify step, a
+    chunk step's token) runs 7 x layers GEMMs and the LM head at m <= 32:
+    7L + 1 quantize_rows and skinny launches.  A whole-prompt admission
+    prefills at bucket 128: 7L + 1 quantize_rows, 7L plane 0 (M = 128),
+    one skinny (the head at m = 1) and L flash.  A chunked admission's
+    first chunk prefills `prefill_chunk` = 32 tokens: 7L + 1 quantize_rows
+    and skinny (M = 32 takes skinny) and L flash; every later chunk runs
+    one decode step per prompt token it takes (the last chunk unpadded), so
+    a chunked prompt of n tokens runs n - `prefill_chunk` of them.  A spec
+    step runs spec_k draft and spec_k verify steps.  Every request of the
+    trace finishes its prefill (the phase asserts they all finish by
+    length)."""
+    n_layers, per_step = cfg.n_layers, 7 * cfg.n_layers + 1
+    long = [] if prefill_chunk is None else [
+        len(r.tokens) for r in trace if len(r.tokens) > prefill_chunk]
+    chunked = len(long)
+    whole = st["admitted"] - chunked
+    spec_steps = st.get("spec", {}).get("steps", 0)
+    chunk_tokens = sum(n - prefill_chunk for n in long)
+    assert st["paged"]["chunked"]["chunks"] == sum(
+        -(-n // prefill_chunk) for n in long), st["paged"]["chunked"]
+    steps = (st["decode_steps"] - spec_steps + 2 * spec_k * spec_steps
+             + chunk_tokens)
+    return {"quantize_rows": per_step * (steps + whole + chunked),
+            "approx_qgemm_skinny": per_step * (steps + chunked) + whole,
+            "approx_qgemm_plane0": (per_step - 1) * whole,
+            "flash_attention": n_layers * (whole + chunked),
+            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+
+
+def paged_phase(dev, cfg, card: str) -> dict:
+    """The paged engine at full width, each run held to a slot engine of
+    the same capacity on the same params and trace.  Returns the kernel
+    launches of run PD (the reference bench's equal-KV-memory layout)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving import Engine, PagedEngine
+
+    t_phase = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    trace = paged_trace(cfg)
+    common = dict(max_len=256, prefill_buckets=(128,), device=dev)
+    paged_kw = dict(page_size=16)
+    runs = {
+        "S4": (Engine, dict(capacity=4)),
+        "P": (PagedEngine, dict(capacity=4, **paged_kw)),
+        "PC": (PagedEngine, dict(capacity=4, prefill_chunk=32,
+                                 chunk_budget=1, **paged_kw)),
+        "PS": (PagedEngine, dict(capacity=4, draft_tier=MULT, spec_k=4,
+                                 **paged_kw)),
+        "S8": (Engine, dict(capacity=8)),
+        # bench_serving.py:134-147: the slot arena's 4 x 256 positions
+        # as 64 pages of 16 plus the trash page, served 8 wide
+        "PD": (PagedEngine, dict(capacity=8, n_pages=65, prefill_chunk=32,
+                                 chunk_budget=8, draft_tier="trunc4x4",
+                                 spec_k=4, **paged_kw)),
+    }
+    res, engines = {}, {}
+    for name, (cls, kw) in runs.items():
+        eng = cls(cfg, params, **common, **kw)
+        for req in trace:
+            eng.submit(req)
+        t0 = time.perf_counter()
+        done, launches = counted(eng.run_until_complete)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        toks = {c.request_id: (c.tokens, c.finish_reason) for c in done}
+        assert len(toks) == len(trace), sorted(toks)
+        for c in done:
+            assert c.finish_reason == "length" and \
+                len(c.tokens) == PAGED_NEW, c
+        res[name] = dict(toks=toks, st=st, wall=wall, launches=launches,
+                         done=done)
+        ms = st["decode_s"] / max(st["decode_steps"], 1) * 1e3
+        line = (f"[paged] {name}: {wall:.2f}s, {st['decode_steps']} decode "
+                f"steps, {ms:.2f} ms/step, prefill {st['prefill_s']:.3f}s")
+        if cls is PagedEngine:
+            pg = st["paged"]
+            eng._alloc.audit()
+            assert pg["pages_live"] == 0, pg
+            assert pg["alloc_failures"] == 0, pg
+            want = paged_want(cfg, st, trace, kw.get("prefill_chunk"),
+                              kw.get("spec_k", 0) if "draft_tier" in kw
+                              else 0)
+            assert launches == want, (name, launches, want)
+            line += (f"; prefix hits {pg['prefix_hits']} "
+                     f"({pg['prefix_hit_tokens']} tokens), stalls "
+                     f"{pg['admission_stalls']}, chunks "
+                     f"{pg['chunked']['chunks']}")
+        log(line + f"; launches {launches}")
+        if name in ("S4", "P"):
+            engines[name] = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+
+    s4, s8 = res["S4"]["toks"], res["S8"]["toks"]
+    diverged = []
+    for name, base in (("P", "S4"), ("PC", "S4"), ("PS", "S4"),
+                       ("PD", "S8")):
+        for rid, (toks, _) in res[name]["toks"].items():
+            want = res[base]["toks"][rid][0]
+            if toks != want:
+                at = next(i for i, (a, b) in enumerate(zip(toks, want))
+                          if a != b)
+                diverged.append((name, rid, at))
+                log(f"[paged] {name} {rid} diverges from {base} at token "
+                    f"{at}: {toks} vs {want}")
+    log(f"[paged] S8 equal to S4: {s8 == s4}; distinct tokens per request "
+        f"in S4: { {r: len(set(t)) for r, (t, _) in sorted(s4.items())} }")
+    # a divergence fails the phase; tests/test_torch_paged.py's
+    # test_chunked_prefill_tie_moves_one_int8_code is the procedure that
+    # finds the first moved int8 code of a chunked prompt
+    assert not diverged, diverged
+    log(f"[paged] P, PC, PS token-identical to S4 and PD to S8 on all "
+        f"{len(trace)} requests")
+    assert res["P"]["st"]["paged"]["prefix_hits"] >= 1
+    assert res["PC"]["st"]["paged"]["chunked"]["chunks"] > 0
+    ps = res["PS"]["st"]["spec"]
+    assert ps["acceptance_rate"] == 1.0, ps
+    for name in ("PS", "PD"):
+        for c in res[name]["done"]:
+            assert c.spec.accepted + c.spec.corrections == len(c.tokens), c
+
+    def per(total, count):
+        return f"{total / count * 1e3:.2f} ms" if count else "none"
+
+    p_st, s4_st = res["P"]["st"], res["S4"]["st"]
+    log(f"[paged] ms per decode step: P "
+        f"{per(p_st['decode_s'], p_st['decode_steps'])}, S4 "
+        f"{per(s4_st['decode_s'], s4_st['decode_steps'])} ({card})")
+    pc = res["PC"]["st"]["paged"]["chunked"]
+    long = [len(r.tokens) for r in trace if len(r.tokens) > 32]
+    log(f"[paged] PC: {pc['chunks']} chunks ({len(long)} first-chunk "
+        f"prefills), ms per chunk step (up to 32 decode steps at m = 1) "
+        f"{per(pc['chunk_step_s'], pc['chunks'] - len(long))}, per chunk-"
+        f"step token {per(pc['chunk_step_s'], sum(n - 32 for n in long))} "
+        f"({card})")
+    for name in ("PS", "PD"):
+        st = res[name]["st"]
+        sp = st["spec"]
+        emitted = sum(len(c.tokens) for c in res[name]["done"]) \
+            - st["admitted"]
+        log(f"[paged] {name}: draft {sp['draft_tier']} k {sp['k']}: "
+            f"{sp['steps']} spec steps, "
+            f"{per(st['decode_s'], sp['steps'])} per spec step, "
+            f"{emitted / sp['steps']:.2f} tokens emitted per spec step, "
+            f"acceptance {sp['acceptance_rate']:.4f} ({sp['accepted']} of "
+            f"{sp['proposed']}) ({card})")
+
+    def ttft(name):
+        t = np.array([c.ttft_ticks for c in res[name]["done"]])
+        return np.percentile(t, 50), np.percentile(t, 95)
+
+    (a50, a95), (b50, b95) = ttft("S4"), ttft("PD")
+    log(f"[paged] TTFT ticks p50/p95 at equal KV memory (1,024 positions): "
+        f"S4 {a50:.1f}/{a95:.1f}, PD {b50:.1f}/{b95:.1f}")
+
+    # the gather and scatter around each paged decode step, on the profiler
+    rng = np.random.default_rng(7)
+    prof = {}
+    for name in ("S4", "P"):
+        prof[name] = profile_decode(engines[name], rng, cfg,
+                                    tag=f"paged-profile {name}")
+    if prof["P"] is not None and prof["S4"] is not None:
+        steps = 4                                # profile_decode's default
+
+        def by_name(kernels):
+            out = {}
+            for e in kernels:
+                us, n = out.get(e.key, (0.0, 0))
+                out[e.key] = (us + e.self_device_time_total, n + e.count)
+            return out
+
+        # what the paged step launches beyond the slot step: the view's
+        # gather, the row scatter and their index arithmetic
+        kp, ks = by_name(prof["P"][0]), by_name(prof["S4"][0])
+        extra = [(us - ks.get(k, (0.0, 0))[0], n - ks.get(k, (0.0, 0))[1], k)
+                 for k, (us, n) in kp.items() if n > ks.get(k, (0.0, 0))[1]]
+        for us, n, k in sorted(extra, reverse=True):
+            log(f"[paged]   +{us / 1e3 / steps:8.4f} ms/step "
+                f"+{n / steps:5.1f}/step {k[:90]}")
+        busy = {n: sum(e.self_device_time_total for e in prof[n][0])
+                / 1e3 / steps for n in prof}
+        # the view: K and V of every lane's max_len positions, read once
+        # from the pools and written once
+        view_bytes = 2 * 2 * 4 * cfg.n_layers * 4 * 256 * cfg.n_kv_heads \
+            * cfg.hd
+        log(f"[paged] P's gather, scatter and index arithmetic: "
+            f"{sum(e[0] for e in extra) / 1e3 / steps:.4f} ms device time "
+            f"in {sum(e[1] for e in extra) / steps:.1f} extra launches per "
+            f"decode step (the view's byte bound "
+            f"{view_bytes / PEAK_BYTES * 1e3:.4f} ms for "
+            f"{view_bytes / 1e6:.1f} MB); device busy per step P "
+            f"{busy['P']:.3f} ms, S4 "
+            f"{busy['S4']:.3f} ms; wall per step P "
+            f"{prof['P'][1] * 1e3:.2f} ms, S4 {prof['S4'][1] * 1e3:.2f} ms "
+            f"({card})")
+    del engines, params
+    torch.cuda.empty_cache()
+    log(f"[paged] phase {time.perf_counter() - t_phase:.1f}s")
+    return res["PD"]["launches"]
+
+
+def profile_decode(eng, rng, cfg, steps: int = 4,
+                   tag: str = "profile") -> tuple[list, float] | None:
     """Device-busy share and the heaviest kernels over a few steady decode
-    steps of a full arena (after the main path's counters were read)."""
+    steps of a full arena (after the main path's counters were read).
+    Returns (the profiler's device rows, wall seconds per step), or None
+    when the trace holds no device time."""
     import torch
     from repro_torch.serving import Request, SamplingParams
     for i in range(eng.capacity):
@@ -881,22 +1139,24 @@ def profile_decode(eng, rng, cfg, steps: int = 4) -> None:
     kernels = device_events(events)
     dev_us = sum(e.self_device_time_total for e in kernels)
     if dev_us <= 0:
-        log("[profile] no device time in the trace: busy share not measured")
-        return
+        log(f"[{tag}] no device time in the trace: busy share not measured")
+        eng.run_until_complete()
+        return None
     ops_ = sum(e.count for e in kernels)
-    log(f"[profile] {steps} decode steps: wall {wall * 1e3:.2f} ms, device "
+    log(f"[{tag}] {steps} decode steps: wall {wall * 1e3:.2f} ms, device "
         f"busy {dev_us / 1e3:.2f} ms ({dev_us / 1e6 / wall:.1%}); idle "
         f"{1 - dev_us / 1e6 / wall:.1%}; {ops_} device ops, "
         f"{ops_ / steps:.1f} launches per decode step")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     for e in top:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / steps:8.3f} "
+        log(f"[{tag}]   {e.self_device_time_total / 1e3 / steps:8.3f} "
             f"ms/step  {e.count // steps:5d}/step  {e.key[:70]}")
     host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
     for e in host:
-        log(f"[profile]   host {e.self_cpu_time_total / 1e3 / steps:8.3f} "
+        log(f"[{tag}]   host {e.self_cpu_time_total / 1e3 / steps:8.3f} "
             f"ms/step  {e.count // steps:5d}/step  {e.key[:60]}")
     eng.run_until_complete()
+    return kernels, wall / steps
 
 
 def check_phase(dev, cfg_full, mult: str, attn_impl: str) -> None:
@@ -1513,6 +1773,7 @@ def main() -> int:
     log(f"[kernels] {time.perf_counter() - t_start:.1f}s")
     # each kernel's launches come from the main path that runs it
     launches = serve_phase(dev, cfg)
+    paged_launches = paged_phase(dev, cfg, card)
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -1527,6 +1788,7 @@ def main() -> int:
     for row in table:
         row["launches"] = counts[row["path"]][row["name"]]
         assert row["launches"] > 0, row["name"]
+        row["paged_launches"] = paged_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

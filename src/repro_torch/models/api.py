@@ -88,6 +88,41 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+def chunk_step(params: Params, cache: dict, tokens: torch.Tensor,
+               cfg: ModelConfig, spec=None,
+               n_valid: int | torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, dict]:
+    """Advance a single-request decode cache by up to `tokens.shape[1]`
+    tokens — the chunked-prefill primitive.
+
+    A loop of `decode_step` over the chunk, so the cache sees exactly the
+    ops a token-by-token decode runs.  `n_valid` (an int, or a one-element
+    tensor) masks the tail of a right-padded final chunk: steps at index
+    >= n_valid leave the cache as it was, as the JAX package's masked scan
+    does.  Since `decode_step` writes K/V in place, those steps run on a
+    scratch copy of the cache (each starts from the state after the valid
+    steps and writes only the row at its length, which it reads back, so
+    the copy gives the masked scan's logits too); the paged engine passes
+    its last chunk unpadded and runs no masked step.  Returns (logits (1, c,
+    vocab) — position i holds the logits AFTER consuming tokens[:, i] —
+    and the advanced cache).  Restricted to b == 1: the partial-prefill
+    workspace is per-request."""
+    b, c = tokens.shape
+    if b != 1:
+        raise ValueError(f"chunk_step is single-request (got batch {b})")
+    n = c if n_valid is None else int(n_valid)
+    logits, kept = [], None
+    for i in range(c):
+        if i == n:
+            kept = cache
+            cache = {k: v.clone() for k, v in cache.items()}
+        lg, new = decode_step(params, cache, tokens[:, i:i + 1], cfg, spec)
+        logits.append(lg[:, -1])
+        cache = new if kept is None else dict(new, length=cache["length"])
+    return torch.stack(logits, dim=1), (cache if kept is None else kept)
+
+
+@torch.no_grad()
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             spec=None, max_len: int | None = None,
             true_len: torch.Tensor | None = None) -> tuple:

@@ -11,11 +11,17 @@
     for done in eng.run_until_complete():
         print(done.request_id, done.tokens, done.finish_reason)
 
-The engine runs on the CUDA device; pass `device="cpu"` to run the plain
-PyTorch versions on the CPU.
+`PagedEngine` takes the same arguments plus the paged ones (page_size,
+n_pages, prefill_chunk, chunk_budget, draft_tier, spec_k, prefix_cache)
+and emits the slot engine's tokens.  The engines run on the CUDA device;
+pass `device="cpu"` to run the plain PyTorch versions on the CPU.
 """
 
 from repro_torch.serving.engine import Engine  # noqa: F401
+from repro_torch.serving.paged import PagedEngine  # noqa: F401
+from repro_torch.serving.paging import (  # noqa: F401
+    PageAllocator, PagingError,
+)
 from repro_torch.serving.types import (  # noqa: F401
-    Completion, Request, SamplingParams,
+    Completion, Request, SamplingParams, SpecStats,
 )

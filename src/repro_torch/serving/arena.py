@@ -1,9 +1,13 @@
-"""Fixed-capacity slot arena for decode state.
+"""Decode-state arenas: the slot arena and the paged arena.
 
-The arena is the model's decode cache allocated once at `capacity` slots
+`SlotArena` is the model's decode cache allocated once at `capacity` slots
 (K/V (L, capacity, max_len, kv, hd) and a per-slot (capacity,) length).
 Admitting a request copies its single-row prefill cache into a free slot
 in place.
+
+`PagedArena` keeps the cache leaves that scale with `max_len` as page
+pools addressed through per-request block tables (the paged engine's
+layout); every other leaf stays a dense per-slot leaf.
 """
 
 from __future__ import annotations
@@ -32,3 +36,147 @@ class SlotArena:
             self.cache[key][:, slot] = req_cache[key][:, 0].to(
                 self.cache[key].dtype)
         self.cache["length"][slot] = req_cache["length"].reshape(-1)[0]
+
+
+def _slot_axis(req_shape: tuple, arena_shape: tuple) -> int:
+    """Axis along which a 1-row request cache stacks into the arena."""
+    if len(req_shape) != len(arena_shape):
+        raise ValueError(f"cache rank mismatch: {req_shape} vs {arena_shape}")
+    for i, (r, a) in enumerate(zip(req_shape, arena_shape)):
+        if r != a:
+            if r != 1:
+                raise ValueError(
+                    f"non-slot axis differs: {req_shape} vs {arena_shape}")
+            return i
+    return 0  # capacity == 1: a full overwrite along any axis is exact
+
+
+class PagedArena:
+    """Paged decode state.  Cache leaves that scale with `max_len` become
+    page POOLS — one global rows axis of `n_pages * page_size` positions —
+    addressed through per-request block tables; every other leaf (the
+    per-slot lengths) stays a dense per-slot leaf.
+
+    Which leaves page is discovered structurally, never by name: a leaf
+    pages iff probing `api.init_cache` (on the meta device) at `max_len`
+    and `2 * max_len` moves exactly one axis from `max_len` to
+    `2 * max_len`, and that axis sits right after the slot axis.  The
+    slot axis is probed at batch 1 against batch 2, so a capacity-1 arena
+    pages too (the JAX package probes at the capacity, finds no slot axis
+    at capacity 1 and keeps every leaf dense there).
+
+    Decode reads the pools through `view()`, a gather into fresh tensors
+    that reconstructs the dense (capacity, max_len) cache the slot decode
+    consumes, so the model's in-place K/V writes land in the view and never
+    in a pool.  `scatter_rows()` commits one written view row per slot back
+    to the pools; a write that must be dropped (an idle lane, a rejected
+    speculative position) goes to flat row 0, the trash page.  Pools start
+    at zero and receive only finite K/V: masked attention lanes contribute
+    exactly 0 only while stale rows stay finite.
+    """
+
+    TRASH_FLAT = 0   # flat row 0 == page 0: the write sink
+
+    def __init__(self, cfg: ModelConfig, capacity: int, max_len: int,
+                 page_size: int, n_pages: int, device: torch.device):
+        self.cfg, self.capacity, self.max_len = cfg, capacity, max_len
+        self.page_size, self.n_pages = page_size, n_pages
+        self.device = device
+        self.max_pages = -(-max_len // page_size)  # table width
+        meta = torch.device("meta")
+
+        def probe(batch, length):
+            cache = api.init_cache(cfg, batch, length, meta)
+            cache["length"] = torch.zeros((batch,), dtype=torch.int32,
+                                          device=meta)
+            return cache
+
+        dense, ref = probe(capacity, max_len), probe(1, max_len)
+        two, big = probe(2, max_len), probe(2, 2 * max_len)
+        if not set(dense) == set(ref) == set(two) == set(big):
+            raise ValueError("cache keys depend on batch/max_len")
+        self.slot_axes: dict[str, int] = {}
+        self.paged: dict[str, int] = {}   # key -> pool rows axis
+        cache = {}
+        for key in sorted(dense):
+            a, g = two[key].shape, big[key].shape
+            sax = _slot_axis(ref[key].shape, a)
+            self.slot_axes[key] = sax
+            grew = [i for i, (x, y) in enumerate(zip(a, g)) if x != y]
+            if (key != "length" and len(grew) == 1
+                    and a[grew[0]] == max_len and g[grew[0]] == 2 * max_len
+                    and grew[0] == sax + 1):
+                shape = a[:sax] + (n_pages * page_size,) + a[sax + 2:]
+                self.paged[key] = sax   # batch axis removed: rows at sax
+            else:
+                shape = dense[key].shape
+            cache[key] = torch.zeros(shape, dtype=dense[key].dtype,
+                                     device=device)
+        self.cache = cache
+
+    def view(self, cache: dict, table: torch.Tensor) -> dict:
+        """Gather the dense (capacity, max_len) per-slot cache the slot
+        decode consumes, into fresh tensors.  Rows of unreserved table
+        entries alias the trash page — harmless, they sit past `length`."""
+        ps = self.page_size
+        j = torch.arange(self.max_len, device=table.device)
+        idx = table[:, j // ps] * ps + (j % ps)[None, :]   # (cap, max_len)
+        out = dict(cache)
+        for key, axis in self.paged.items():
+            pool = cache[key]
+            rows = pool.index_select(axis, idx.reshape(-1))
+            out[key] = rows.unflatten(axis, idx.shape)
+        return out
+
+    def flat_rows(self, table: torch.Tensor, pos: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+        """Pool row of each lane's position; the trash row where `valid`
+        is False or the position lies past the table."""
+        ps = self.page_size
+        ok = valid & (pos < self.max_len)
+        p = torch.clamp(pos, 0, self.max_len - 1).long()
+        lanes = torch.arange(table.shape[0], device=table.device)
+        page = table[lanes, p // ps]
+        return torch.where(ok, page * ps + p % ps,
+                           torch.full_like(page, self.TRASH_FLAT))
+
+    def scatter_rows(self, cache: dict, view: dict, table: torch.Tensor,
+                     pos: torch.Tensor, valid: torch.Tensor) -> None:
+        """Commit, per slot, the single view row at `pos` (capacity,) into
+        the pools, in place; slots with `valid` False write the trash page
+        instead.  Several lanes may write the trash row in one call (which
+        one lands is unspecified, and only there); a live row is written
+        at most once.  Only paged leaves change."""
+        flat = self.flat_rows(table, pos, valid)
+        p = torch.clamp(pos, 0, self.max_len - 1).long()
+        lanes = torch.arange(table.shape[0], device=table.device)
+        for key, axis in self.paged.items():
+            v = view[key].movedim((axis, axis + 1), (0, 1))
+            rows = v[lanes, p].movedim(0, axis)        # lanes at the rows axis
+            cache[key].index_copy_(axis, flat, rows.to(cache[key].dtype))
+
+    def insert(self, req_cache: dict, slot: int,
+               flat_idx: torch.Tensor) -> None:
+        """Admit a 1-row prefill/workspace cache: paged leaves scatter
+        their `max_len` rows to `flat_idx` (host-built: prefix-shared and
+        unwritten positions point at the trash page, so read-only pages
+        are never touched and fresh pages stay zero past the prompt); slot
+        leaves copy into `slot`."""
+        for key, c in self.cache.items():
+            r = req_cache[key]
+            if key in self.paged:
+                axis = self.paged[key]
+                c.index_copy_(axis, flat_idx, r.squeeze(axis).to(c.dtype))
+            else:
+                c.narrow(self.slot_axes[key], slot, 1).copy_(r)
+
+    def copy_pages(self, src, dst) -> None:
+        """Page-granular pool copy (copy-on-write): page `src[i]` to
+        `dst[i]`."""
+        dev = self.device
+        src = torch.as_tensor(src, dtype=torch.long, device=dev)
+        dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        for key, axis in self.paged.items():
+            pages = self.cache[key].unflatten(
+                axis, (self.n_pages, self.page_size))
+            pages.index_copy_(axis, dst, pages.index_select(axis, src))

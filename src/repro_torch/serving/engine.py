@@ -49,6 +49,8 @@ class _Slot:
         self.admitted_tick = admitted_tick
         self.ready_wall = ready_wall
         self.first_wall = 0.0
+        #: engine tick at which the first token was emitted (chunked
+        #: prefill emits it later than admitted_tick)
         self.first_tick = admitted_tick
         self.admit_seq = admit_seq            # FIFO drain order
         self.tier_tokens: dict[str, int] = {}
@@ -90,12 +92,7 @@ class Engine:
         self.params = params if params is not None else api.init_params(
             cfg, seed, self.device)
 
-        self._arena = SlotArena(cfg, capacity, max_len, self.device)
-        self._tok = torch.zeros((capacity, 1), dtype=torch.int64,
-                                device=self.device)
-        self._temps = [0.0] * capacity
-        self._topks = [0] * capacity
-        self._gens: list[torch.Generator | None] = [None] * capacity
+        self._build_state()
 
         # Per-tier serving artifacts: the weight-plane cache is built once
         # per (weight, multiplier); switching tiers is a pointer swap.
@@ -123,6 +120,22 @@ class Engine:
         self._queue_wait_ticks = 0.0
         self._evictions = {"eos": 0, "length": 0}
         self.completions: list[Completion] = []
+
+    def _build_state(self) -> None:
+        """The decode arena and the per-lane sampling state."""
+        self._arena = SlotArena(self.cfg, self.capacity, self.max_len,
+                                self.device)
+        self._init_lanes()
+
+    def _init_lanes(self) -> None:
+        """Per-lane sampling state: last token, temperature, top-k and
+        generator of every slot."""
+        capacity = self.capacity
+        self._tok = torch.zeros((capacity, 1), dtype=torch.int64,
+                                device=self.device)
+        self._temps = [0.0] * capacity
+        self._topks = [0] * capacity
+        self._gens: list[torch.Generator | None] = [None] * capacity
 
     # --- degradation tiers ------------------------------------------------
 
@@ -329,6 +342,13 @@ class Engine:
         self._sched.note_ready(now, time.perf_counter())
         for request in self._sched.pop_expired(now):
             self._shed(request)
+        self._admit_ready(now)
+        if self.n_active:
+            self._decode_step()
+        self._tick += 1
+
+    def _admit_ready(self, now: float) -> None:
+        """Admit due requests, FIFO, while slots are free."""
         while self._free:
             request = self._sched.pop_ready(now)
             if request is None:
@@ -343,15 +363,23 @@ class Engine:
                     self._free.append(slot_id)
                     self._sched.restore(request, ready_wall)
                 raise
-        if self.n_active:
-            t0 = time.perf_counter()
-            tok_host = self._decode()
-            self._decode_steps += 1
-            self._decode_s += time.perf_counter() - t0
-            for slot_id in range(self.capacity):
-                if self._slots[slot_id] is not None:
-                    self._emit(slot_id, int(tok_host[slot_id]))
-        self._tick += 1
+
+    def _decode_lanes(self) -> list[int]:
+        """The slots that emit this step: every occupied one."""
+        return [i for i, s in enumerate(self._slots) if s is not None]
+
+    def _decode_step(self) -> None:
+        """One decode step of the whole arena; the decode lanes emit."""
+        lanes = self._decode_lanes()
+        if not lanes:
+            return
+        t0 = time.perf_counter()
+        tok_host = self._decode()
+        self._decode_steps += 1
+        self._decode_s += time.perf_counter() - t0
+        for slot_id in lanes:
+            if self._slots[slot_id] is not None:
+                self._emit(slot_id, int(tok_host[slot_id]))
 
     def run_until_complete(self) -> list[Completion]:
         """Drive step() until the queue and the arena are both empty;

@@ -1,0 +1,593 @@
+"""Paged-KV serving engine: block tables + chunked prefill + approx-draft
+speculative decoding.
+
+`PagedEngine` subclasses the slot `Engine` and replaces only the
+device-state layout and the per-tick admission and decode; submission
+validation, tier ladders, deadlines and eviction accounting are
+inherited.  Three capabilities stack, each optional but the first:
+
+  1. **Paged KV** (always on): the `max_len`-scaling cache leaves live in
+     global page pools (`PagedArena`); a host-side `PageAllocator` hands
+     out block tables with reserve-ahead allocation (every page a request
+     can ever touch is reserved at admission, so decode never runs out of
+     pages mid-request), prefix sharing and copy-on-write bookkeeping.
+     Each step gathers a dense per-slot view that holds, at every valid
+     position, exactly what the slot arena holds, so paged serving emits
+     exactly the tokens the slot engine emits.
+  2. **Chunked prefill** (`prefill_chunk=c`): prompts longer than `c`
+     prefill in `c`-token chunks, at most `chunk_budget` chunks per tick,
+     interleaved with decode.  The first chunk is a `prefill` of `c`
+     tokens, the rest are `api.chunk_step`, a loop of the model's own
+     `decode_step`.
+  3. **Speculative decoding** (`draft_tier=name`): an approximate
+     multiplier tier drafts `spec_k` greedy tokens on a throwaway view;
+     the serving tier re-runs them in one verify loop and emits the
+     longest agreeing prefix plus one correction.  Rejected positions are
+     scattered to the trash page — they never enter the KV pools — and
+     `Completion.spec` carries the proposed/accepted/corrections audit
+     (`accepted + corrections == len(tokens)` by construction).  Sampled
+     (temperature > 0) rows bypass speculation: they emit one token per
+     step, drawn once from the row's own generator as the slot engine
+     draws it, so seeded sampling stays token-identical too.
+
+Token identity with the slot engine rests on: masked attention lanes
+contribute exactly 0 (-1e30 under softmax; pools only ever hold finite
+K/V), the draft, verify and chunk loops run the same `decode_step` the
+slot engine runs, every op of a decode step is per-row (the GEMM
+quantizes rows and sums exactly in int32), greedy rows never draw from a
+generator and sampled rows draw once per emitted token in both engines.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import api
+from repro_torch.serving import sampling
+from repro_torch.serving.arena import PagedArena
+from repro_torch.serving.engine import Engine, _Slot
+from repro_torch.serving.paging import (
+    PageAllocator, PageLease, PagingError, TRASH_PAGE)
+from repro_torch.serving.types import Request, SpecStats
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device, so a host clock reading covers its work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _PagedSlot(_Slot):
+    """A slot record with the paged engine's own state: whether it is
+    still prefilling in chunks (it holds a slot and pages, but does not
+    decode or emit yet), and its speculation counters ({"proposed",
+    "accepted", "corrections"}; None when the engine does not speculate,
+    and then `Completion.spec` is None)."""
+
+    def __init__(self, *args, speculating: bool, prefilling: bool = False):
+        super().__init__(*args)
+        self.prefilling = prefilling
+        self.spec_counts: dict[str, int] | None = (
+            {"proposed": 0, "accepted": 0, "corrections": 0}
+            if speculating else None)
+
+
+@dataclasses.dataclass
+class _ChunkJob:
+    """A request mid-chunked-prefill: holds the single-row workspace
+    cache between ticks (its slot and pages are already reserved)."""
+    request: Request
+    slot_id: int
+    lease: PageLease
+    digest: str
+    gen: torch.Generator
+    workspace: dict
+    pos: int
+
+
+class PagedEngine(Engine):
+    """Paged + chunked + speculative continuous-batching engine.
+
+    Extra args on top of `Engine`:
+      page_size: KV positions per page.
+      n_pages: pool pages incl. the trash page; the default sizes the pool
+        so full occupancy at max_len always fits
+        (capacity * ceil(max_len / page_size) + 1).
+      prefill_chunk: chunk length for interleaved prefill; None/0 keeps
+        the slot engine's whole-prompt prefill-then-join admission.
+      chunk_budget: prefill chunks advanced per tick (oldest job first).
+      draft_tier: multiplier-tier name drafting speculative tokens (e.g.
+        "trunc4x4"; the serving tier itself gives the 100%-acceptance
+        identity draft).  None disables speculation.
+      spec_k: draft tokens proposed per speculative step.
+      prefix_cache: hash-matched prompt-prefix page sharing on/off.
+    """
+
+    def __init__(self, cfg: ModelConfig, params=None, *,
+                 page_size: int = 16, n_pages: int | None = None,
+                 prefill_chunk: int | None = None, chunk_budget: int = 1,
+                 draft_tier: str | None = None, spec_k: int = 4,
+                 prefix_cache: bool = True, **kw):
+        capacity = kw.get("capacity", 4)
+        max_len = kw.get("max_len", 256)
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1 (got {page_size})")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            prefill_chunk = None
+        if draft_tier is not None and spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1 (got {spec_k})")
+        self.page_size = page_size
+        self.n_pages = (n_pages if n_pages is not None
+                        else capacity * (-(-max_len // page_size)) + 1)
+        self.prefill_chunk = prefill_chunk
+        self.chunk_budget = max(1, chunk_budget)
+        self.draft_tier = draft_tier
+        self.spec_k = spec_k
+        self.prefix_cache = prefix_cache
+        super().__init__(cfg, params, **kw)
+        self._alloc = PageAllocator(self.n_pages, page_size)
+        self._jobs: list[_ChunkJob] = []
+        self._leases: dict[str, PageLease] = {}
+        self._paged_stalls = 0
+        self._chunks = 0
+        self._chunk_s = 0.0
+        self._spec_steps = 0
+        self._spec_totals = {"proposed": 0, "accepted": 0, "corrections": 0}
+        if draft_tier is not None:
+            if draft_tier in self._tier_specs:
+                self._draft_spec = self._tier_specs[draft_tier]
+                self._draft_exec = self._tier_exec[draft_tier]
+            else:
+                self._draft_spec = api.make_spec(cfg, mult=draft_tier,
+                                                 device=self.device)
+                self._draft_exec = (
+                    self.params if self._draft_spec is None
+                    else api.prepare_params(self.params, cfg,
+                                            self._draft_spec))
+
+    # --- device state -----------------------------------------------------
+
+    def _build_state(self) -> None:
+        capacity = self.capacity
+        self._arena = PagedArena(self.cfg, capacity, self.max_len,
+                                 self.page_size, self.n_pages, self.device)
+        self._table = torch.zeros((capacity, self._arena.max_pages),
+                                  dtype=torch.int64, device=self.device)
+        dense = set(self._arena.cache) - set(self._arena.paged) - {"length"}
+        if dense:
+            # draft and verify run in place on the view; a dense state leaf
+            # would need the JAX package's per-step snapshots
+            raise NotImplementedError(
+                f"{self.cfg.name}: cache leaves {sorted(dense)} do not page")
+        self._all_lanes = torch.ones((capacity,), dtype=torch.bool,
+                                     device=self.device)
+        self._init_lanes()
+
+    # --- submission / admission -------------------------------------------
+
+    def submit(self, request: Request) -> None:
+        sp = request.sampling
+        n = len(request.tokens)
+        if n >= 1 and sp.max_new_tokens >= 1:
+            need = -(-(n + sp.max_new_tokens - 1) // self.page_size)
+            if need > self.n_pages - 1:
+                raise ValueError(
+                    f"{request.request_id}: needs {need} pages, pool has "
+                    f"{self.n_pages - 1} usable")
+        super().submit(request)
+
+    def _flat_idx(self, lease: PageLease, n: int) -> torch.Tensor:
+        """Host-built scatter map for the admission insert: position j ->
+        pool row.  Prefix-shared positions and everything past the prompt
+        go to the trash page (shared pages stay read-only, fresh pages
+        stay zero past the prompt — the no-leak invariant)."""
+        ps = self.page_size
+        idx = np.full((self.max_len,), TRASH_PAGE, np.int64)
+        for j in range(lease.hit_tokens, n):
+            idx[j] = lease.pages[j // ps] * ps + j % ps
+        return torch.from_numpy(idx).to(self.device)
+
+    def _admit_ready(self, now: float) -> None:
+        """Advance at most `chunk_budget` prefill chunks, then admit while
+        slots AND pages allow.  Admission peeks at the FIFO head, reserves
+        every page the request can ever touch, and pops it only then; a
+        head that does not fit stalls the queue rather than be overtaken."""
+        self._advance_prefill()
+        while self._free:
+            request = self._sched.peek_ready(now)
+            if request is None:
+                break
+            sp = request.sampling
+            n = len(request.tokens)
+            rid = request.request_id
+            chunked = (self.prefill_chunk is not None
+                       and n > self.prefill_chunk)
+            # the compute path joins the prefix key: only bit-identically
+            # produced prefixes share pages
+            digest = (f"|chunk:{self.prefill_chunk}" if chunked else
+                      f"|bucket:{next(b for b in self.buckets if b >= n)}")
+            lease = self._alloc.alloc(
+                rid, n + sp.max_new_tokens - 1,
+                prompt=tuple(request.tokens) if self.prefix_cache else None,
+                digest=digest)
+            if lease is None:
+                self._paged_stalls += 1
+                break
+            self._sched.pop_ready(now)
+            ready_wall = self._sched.ready_wall(rid)
+            slot_id = self._free.pop()
+            self._leases[rid] = lease
+            try:
+                if chunked:
+                    self._start_chunked(request, ready_wall, slot_id,
+                                        lease, digest)
+                else:
+                    self._admit(request, ready_wall, slot_id,
+                                lease=lease, digest=digest)
+            except Exception:
+                if self._slots[slot_id] is None:
+                    self._free.append(slot_id)
+                    self._sched.restore(request, ready_wall)
+                    self._alloc.free(rid)
+                    self._leases.pop(rid, None)
+                raise
+
+    def _admit(self, request: Request, ready_wall: float, slot_id: int,
+               lease: PageLease | None = None, digest: str = "") -> None:
+        """Whole-prompt admission: the slot engine's prefill and first-
+        token draw (same bucket, same ops, same generator), then a paged
+        insert in place of the slot insert."""
+        sp = request.sampling
+        n = len(request.tokens)
+        bucket = next(b for b in self.buckets if b >= n)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :n] = np.asarray(request.tokens, np.int64)
+        t0 = time.perf_counter()
+        logits, req_cache = api.prefill(
+            self.exec_params, torch.from_numpy(padded).to(self.device),
+            self.cfg, self._spec, max_len=self.max_len,
+            true_len=torch.tensor([n], dtype=torch.int32,
+                                  device=self.device))
+        gen = self._request_generator(sp)
+        first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
+                                       [gen])
+        first_tok = int(first[0])           # syncs the prefill
+        self._prefill_s += time.perf_counter() - t0
+        self._admitted += 1
+        self._install(request, req_cache, slot_id, lease, gen, first_tok,
+                      ready_wall, digest)
+
+    def _start_chunked(self, request: Request, ready_wall: float,
+                       slot_id: int, lease: PageLease, digest: str) -> None:
+        """First chunk of an interleaved prefill: the request takes its
+        slot and pages now but joins decode only when the last chunk
+        lands; meanwhile every tick decodes the active lanes.  The
+        generator and the admission count are taken here, in admission
+        order, as the slot engine takes them."""
+        sp = request.sampling
+        c = self.prefill_chunk
+        prompt = np.asarray(request.tokens[:c], np.int64)[None]
+        gen = self._request_generator(sp)
+        self._admitted += 1
+        t0 = time.perf_counter()
+        _, workspace = api.prefill(
+            self.exec_params, torch.from_numpy(prompt).to(self.device),
+            self.cfg, self._spec, max_len=self.max_len,
+            true_len=torch.tensor([c], dtype=torch.int32,
+                                  device=self.device))
+        _sync(self.device)
+        self._prefill_s += time.perf_counter() - t0
+        self._chunks += 1
+        self._slots[slot_id] = _PagedSlot(
+            request, len(request.tokens), self._tick, ready_wall,
+            self._admitted, speculating=self.draft_tier is not None,
+            prefilling=True)
+        self._jobs.append(_ChunkJob(request, slot_id, lease, digest, gen,
+                                    workspace, c))
+
+    def _install(self, request: Request, req_cache: dict, slot_id: int,
+                 lease: PageLease, gen: torch.Generator, first_tok: int,
+                 ready_wall: float, digest: str,
+                 slot: _PagedSlot | None = None) -> None:
+        """Common tail of both admission paths: paged insert, lane state,
+        prefix registration, slot record, first emit."""
+        sp = request.sampling
+        n = len(request.tokens)
+        self._arena.insert(req_cache, slot_id, self._flat_idx(lease, n))
+        self._table[slot_id] = 0
+        self._table[slot_id, :len(lease.pages)] = torch.tensor(
+            lease.pages, dtype=torch.int64)
+        self._tok[slot_id, 0] = first_tok
+        self._temps[slot_id] = sp.temperature
+        self._topks[slot_id] = sp.top_k
+        self._gens[slot_id] = gen
+        if self.prefix_cache:
+            self._alloc.register_prefix(request.request_id,
+                                        tuple(request.tokens), digest)
+        if slot is None:
+            slot = _PagedSlot(request, n, self._tick, ready_wall,
+                              self._admitted,
+                              speculating=self.draft_tier is not None)
+            self._slots[slot_id] = slot
+        slot.prefilling = False
+        slot.first_wall = time.perf_counter()
+        slot.first_tick = self._tick
+        if slot.spec_counts is not None:
+            slot.spec_counts["corrections"] += 1
+            self._spec_totals["corrections"] += 1
+        self._emit(slot_id, first_tok)
+
+    # --- chunked-prefill advance ------------------------------------------
+
+    def _advance_prefill(self) -> None:
+        for _ in range(self.chunk_budget):
+            if not self._jobs:
+                return
+            job = self._jobs[0]
+            req = job.request
+            over_budget = any(
+                b is not None and self._tick - req.arrival + 1 >= b
+                for b in (req.deadline_ticks, req.ttft_deadline_ticks))
+            if over_budget:
+                self._jobs.pop(0)
+                self._evict(job.slot_id, "deadline")
+                continue
+            if self._advance_one(job):
+                self._jobs.pop(0)
+
+    def _advance_one(self, job: _ChunkJob) -> bool:
+        """Run one chunk; True when the prefill finished (first token
+        emitted, the request joins decode this tick)."""
+        tokens = job.request.tokens
+        n = len(tokens)
+        take = min(self.prefill_chunk, n - job.pos)
+        # the last chunk runs unpadded: eager PyTorch needs no static
+        # shape, and masked steps would leave the workspace as it is
+        piece = np.asarray(tokens[job.pos:job.pos + take], np.int64)[None]
+        t0 = time.perf_counter()
+        logits, job.workspace = api.chunk_step(
+            self.exec_params, job.workspace,
+            torch.from_numpy(piece).to(self.device), self.cfg, self._spec)
+        job.pos += take
+        first_tok = None
+        if job.pos >= n:
+            sp = job.request.sampling
+            first_tok = int(sampling.sample_tokens(
+                logits[:, take - 1], [sp.temperature], [sp.top_k],
+                [job.gen])[0])
+        _sync(self.device)
+        dt = time.perf_counter() - t0
+        self._prefill_s += dt
+        self._chunk_s += dt
+        self._chunks += 1
+        if first_tok is None:
+            return False
+        slot = self._slots[job.slot_id]
+        self._install(job.request, job.workspace, job.slot_id, job.lease,
+                      job.gen, first_tok, slot.ready_wall, job.digest,
+                      slot=slot)
+        return True
+
+    # --- eviction ---------------------------------------------------------
+
+    def _evict(self, slot_id: int, reason: str) -> None:
+        slot = self._slots[slot_id]
+        rid = slot.request.request_id
+        if slot.prefilling:
+            # never emitted: TTFT = time waited (the budget it blew)
+            slot.first_wall = time.perf_counter()
+        super()._evict(slot_id, reason)
+        if slot.spec_counts is not None:
+            self.completions[-1].spec = SpecStats(**slot.spec_counts)
+        self._alloc.free(rid)
+        self._leases.pop(rid, None)
+        # neutralize the freed lane: with a zero table row every write it
+        # makes lands in the trash page, so reused pages are never
+        # corrupted by a stale lane, and it draws from no generator
+        self._arena.cache["length"][slot_id] = 0
+        self._table[slot_id] = 0
+        self._temps[slot_id] = 0.0
+
+    def _slot_of(self, request_id: str) -> int:
+        slot_id = next((i for i, s in enumerate(self._slots)
+                        if s is not None
+                        and s.request.request_id == request_id), None)
+        if slot_id is None:
+            raise PagingError(
+                f"request {request_id!r} is not resident "
+                f"(never admitted, finished, or evicted)")
+        return slot_id
+
+    # --- copy-on-write ----------------------------------------------------
+
+    def resolve_cow(self, request_id: str, index: int
+                    ) -> tuple[int, int] | None:
+        """Make block-table entry `index` of `request_id` writable:
+        allocator bookkeeping, device page copy and table update.  The
+        serving path never needs it (decode writes strictly past the last
+        shareable page); it serves fork-style consumers and the tests."""
+        op = self._alloc.cow(request_id, index)
+        if op is None:
+            return None
+        src, dst = op
+        self._arena.copy_pages([src], [dst])
+        self._table[self._slot_of(request_id), index] = dst
+        return op
+
+    # --- decode -----------------------------------------------------------
+
+    def _decode_lanes(self) -> list[int]:
+        """Occupied slots that are not prefilling."""
+        return [i for i in super()._decode_lanes()
+                if not self._slots[i].prefilling]
+
+    def _decode_step(self) -> None:
+        """One decode step, or one draft + verify step when speculating."""
+        if self.draft_tier is None:
+            super()._decode_step()
+        elif lanes := self._decode_lanes():
+            self._spec_step(lanes)
+
+    def _decode(self) -> np.ndarray:
+        """Non-speculative paged decode: gather the dense view, run the
+        slot engine's decode and sampling, commit each lane's one new K/V
+        row to its page (idle lanes write the trash page)."""
+        cache = self._arena.cache
+        old_len = cache["length"]
+        view = self._arena.view(cache, self._table)
+        logits, view = api.decode_step(self.exec_params, view, self._tok,
+                                       self.cfg, self._spec)
+        tok = sampling.sample_tokens(logits[:, -1], self._temps,
+                                     self._topks, self._gens)
+        self._arena.scatter_rows(cache, view, self._table, old_len,
+                                 self._all_lanes)
+        cache["length"] = view["length"]
+        self._tok = tok[:, None]
+        return tok.cpu().numpy()              # syncs the step
+
+    def _draft_tokens(self) -> torch.Tensor:
+        """Draft `spec_k` greedy tokens per lane on a throwaway view —
+        nothing escapes but the proposals, so the draft tier never touches
+        KV pages.  Returns (capacity, spec_k)."""
+        view = self._arena.view(self._arena.cache, self._table)
+        tok, out = self._tok, []
+        for _ in range(self.spec_k):
+            logits, view = api.decode_step(self._draft_exec, view, tok,
+                                           self.cfg, self._draft_spec)
+            tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1)
+
+    def _verify(self, draft: torch.Tensor, k_row: np.ndarray
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Verify the drafts in one loop of the serving tier's own
+        decode_step.  Per lane: emit the longest agreeing prefix plus one
+        correction (greedy), or one token drawn once from the lane's
+        generator (sampled); commit only the K/V rows of emitted positions
+        (the rest go to the trash page); the length advances by the
+        emitted count.  Lanes past their `k_row` are frozen: their length
+        stays and their K/V rows are never committed.  Each live row is
+        taken right after the step that writes it, since a frozen lane at
+        max_len rewrites (clamped) its last row.  Returns (emitted
+        (capacity, k), emitted count m, accepted count a)."""
+        arena, k, cap = self._arena, self.spec_k, self.capacity
+        cache = arena.cache
+        old_len = cache["length"]
+        kr = torch.from_numpy(k_row).to(self.device)
+        lanes = torch.arange(cap, device=self.device)
+        view = arena.view(cache, self._table)
+        tok, lgs, rows = self._tok, [], []
+        for i in range(k):
+            pos = torch.clamp(old_len + i, max=self.max_len - 1).long()
+            logits, new = api.decode_step(self.exec_params, view, tok,
+                                          self.cfg, self._spec)
+            live = kr > i
+            new["length"] = torch.where(live, new["length"], view["length"])
+            view = new
+            lgs.append(logits[:, -1])
+            rows.append({key: view[key].movedim((ax, ax + 1), (0, 1))[
+                lanes, pos] for key, ax in arena.paged.items()})
+            tok = torch.where(live[:, None], draft[:, i:i + 1], tok)
+        e = torch.argmax(torch.stack(lgs, dim=1).float(), dim=-1)
+        corr0 = sampling.sample_tokens(lgs[0], self._temps, self._topks,
+                                       self._gens)
+        e, d, corr0 = e.cpu().numpy(), draft.cpu().numpy(), \
+            corr0.cpu().numpy()
+        greedy = np.array([t <= 0.0 for t in self._temps])
+        agree = np.cumprod(e == d, axis=1)
+        a = np.minimum(np.where(greedy, agree.sum(axis=1), 0), k_row)
+        m = np.where(a >= k_row, k_row, a + 1)        # 0 when k_row == 0
+        host_lanes = np.arange(cap)
+        corr = np.where(greedy, e[host_lanes, np.minimum(a, k - 1)], corr0)
+        emitted = np.where(np.arange(k)[None, :] < a[:, None], d,
+                           corr[:, None])
+        mt = torch.from_numpy(m).to(self.device)
+        flat = torch.cat([arena.flat_rows(self._table, old_len + i, mt > i)
+                          for i in range(k)])
+        for key, ax in arena.paged.items():
+            r = torch.cat([rw[key] for rw in rows]).movedim(0, ax)
+            cache[key].index_copy_(ax, flat, r.to(cache[key].dtype))
+        cache["length"] = old_len + mt.to(old_len.dtype)
+        self._tok = torch.from_numpy(
+            emitted[host_lanes, np.maximum(m - 1, 0)][:, None]).to(
+                self.device)
+        return emitted, m, a
+
+    def _spec_step(self, decoding: list[int]) -> None:
+        """Draft + verify one speculative step: greedy lanes emit up to
+        `spec_k` accepted drafts + 1 correction, sampled lanes emit one
+        token, idle and prefilling lanes are frozen (k_row = 0)."""
+        kr = np.zeros((self.capacity,), np.int64)
+        for i in decoding:
+            slot = self._slots[i]
+            sp = slot.request.sampling
+            if sp.temperature <= 0.0:
+                kr[i] = min(self.spec_k,
+                            sp.max_new_tokens - len(slot.tokens))
+            else:
+                kr[i] = 1
+        t0 = time.perf_counter()
+        emitted, mh, ah = self._verify(self._draft_tokens(), kr)
+        self._decode_steps += 1
+        self._spec_steps += 1
+        self._decode_s += time.perf_counter() - t0
+        for i in decoding:
+            slot = self._slots[i]
+            if slot.request.sampling.temperature <= 0.0:
+                slot.spec_counts["proposed"] += int(kr[i])
+                self._spec_totals["proposed"] += int(kr[i])
+            for j in range(int(mh[i])):
+                field = "accepted" if j < int(ah[i]) else "corrections"
+                # count BEFORE emitting: _emit may evict and freeze the
+                # Completion's SpecStats this very token
+                slot.spec_counts[field] += 1
+                self._spec_totals[field] += 1
+                self._emit(i, int(emitted[i, j]))
+                if self._slots[i] is None:
+                    break
+
+    # --- introspection ----------------------------------------------------
+
+    def debug_kv_rows(self, request_id: str) -> dict:
+        """Test/debug surface: the request's dense gathered KV rows per
+        paged leaf ((max_len, ...) each), its length, and how many
+        positions its lease reserves — what the no-leak check needs."""
+        slot_id = self._slot_of(request_id)
+        view = self._arena.view(self._arena.cache, self._table)
+        out = {}
+        for key, axis in self._arena.paged.items():
+            rows = view[key].movedim((axis, axis + 1), (0, 1))
+            out[key] = rows[slot_id].cpu().numpy()
+        lease = self._leases[request_id]
+        return {"rows": out,
+                "length": int(self._arena.cache["length"][slot_id]),
+                "reserved": len(lease.pages) * self.page_size,
+                "shared_tokens": lease.hit_tokens}
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["paged"] = {
+            **self._alloc.stats(),
+            "admission_stalls": self._paged_stalls,
+            "max_pages_per_request": self._arena.max_pages,
+            "paged_leaves": sorted(self._arena.paged),
+            "chunked": {"enabled": self.prefill_chunk is not None,
+                        "chunk": self.prefill_chunk,
+                        "budget": self.chunk_budget,
+                        "chunks": self._chunks,
+                        "chunk_step_s": self._chunk_s,
+                        "inflight": len(self._jobs)},
+        }
+        if self.draft_tier is not None:
+            tot = self._spec_totals
+            out["spec"] = {
+                "draft_tier": self.draft_tier, "k": self.spec_k,
+                "steps": self._spec_steps, **tot,
+                "acceptance_rate": (tot["accepted"] / tot["proposed"]
+                                    if tot["proposed"] else 0.0)}
+        return out

@@ -86,6 +86,14 @@ class Scheduler:
             return heapq.heappop(self._heap)[2]
         return None
 
+    def peek_ready(self, now: float) -> Request | None:
+        """Like `pop_ready` but non-destructive — the paged engine uses
+        it to gate admission on page availability without reordering the
+        FIFO (head-of-queue blocks until its pages fit)."""
+        if self._heap and self._heap[0][0] <= now:
+            return self._heap[0][2]
+        return None
+
     def next_arrival(self) -> float | None:
         return self._heap[0][0] if self._heap else None
 

@@ -31,6 +31,25 @@ class SamplingParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpecStats:
+    """Per-request speculative-decoding audit trail.
+
+    `proposed` counts draft-tier proposals the verifier examined;
+    `accepted` counts proposals emitted verbatim; `corrections` counts
+    tokens the verify tier emitted itself (every non-speculative token —
+    the prefill first token included — is a correction, so
+    `accepted + corrections == len(Completion.tokens)` always holds).
+    """
+    proposed: int = 0
+    accepted: int = 0
+    corrections: int = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / self.proposed if self.proposed else 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class Request:
     """One inference request.
 
@@ -100,3 +119,7 @@ class Completion:
     #: engine serves with degradation tiers.  Empty for shed requests;
     #: None only for completions minted before tier accounting existed.
     tier_tokens: dict[str, int] | None = None
+    #: speculative-decoding acceptance accounting (`SpecStats`) when the
+    #: paged engine served the request with a draft tier; None when
+    #: speculation was off (slot engine, or no draft configured).
+    spec: SpecStats | None = None

@@ -437,3 +437,48 @@ def test_cuda_calibrate_gemm_records_a_kernel_plan(cuda_dev, m, mult, skinny,
     assert c.meta["backend"] == torch.cuda.get_device_name(cuda_dev)
     assert fn.launches == 4           # the warm-up and three timed calls
     assert c.measured > 0 and c.scale > 0
+
+
+@pytest.mark.cuda
+def test_cuda_paged_engine_token_identical_to_slot_engine(cuda_dev):
+    """The reduced PagedEngine, chunked and trunc4x4-speculative, through
+    the kernels on the card: every stream equal to the slot engine's
+    through the kernels, and the paged path launched the decode kernels."""
+    from repro_torch import configs
+    from repro_torch.kernels import qgemm
+    from repro_torch.models import api
+    from repro_torch.serving import (
+        Engine, PagedEngine, Request, SamplingParams)
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
+                          mult="trunc2x2", kernel_policy="pallas",
+                          attn_impl="flash")
+    params = api.init_params(cfg, 0, cuda_dev)
+    rng = np.random.default_rng(1)
+    trace = []
+    for i in range(6):
+        sp = SamplingParams(max_new_tokens=int(rng.integers(3, 7))) \
+            if i % 3 else SamplingParams(temperature=0.8, top_k=8,
+                                         max_new_tokens=4, seed=50 + i)
+        trace.append(Request(f"r{i}", rng.integers(
+            1, cfg.vocab, int(rng.integers(4, 40))).tolist(), sp,
+            arrival=float(i // 2)))
+
+    def serve(eng):
+        for req in trace:
+            eng.submit(req)
+        return {c.request_id: (c.tokens, c.finish_reason)
+                for c in eng.run_until_complete()}
+
+    base = serve(Engine(cfg, params, capacity=3, max_len=64,
+                        device=cuda_dev))
+    qgemm.approx_qgemm_skinny.launches = 0
+    eng = PagedEngine(cfg, params, capacity=3, max_len=64, page_size=8,
+                      prefill_chunk=8, draft_tier="trunc4x4", spec_k=3,
+                      device=cuda_dev)
+    assert serve(eng) == base
+    st = eng.stats()
+    assert st["paged"]["chunked"]["chunks"] > 0 and st["spec"]["steps"] > 0
+    assert qgemm.approx_qgemm_skinny.launches > 0
+    eng._alloc.audit()
+    assert eng._alloc.pages_live == 0
+

@@ -33,6 +33,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serving.engine" in res["modules"]
+    for name in ("paged", "paging", "arena"):
+        assert f"repro_torch.serving.{name}" in res["modules"]
     assert "repro_torch.kernels.qgemm" in res["modules"]
     for name in ("workloads", "accelerator", "carbon", "dataflow", "target",
                  "ga", "ga_batched", "calibrate", "codesign"):
@@ -48,13 +50,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import configs
     from repro_torch.device import resolve_device
     from repro_torch.models import api
-    from repro_torch.serving import Engine
+    from repro_torch.serving import Engine, PagedEngine
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
                           mult="trunc2x2")
     for call in (lambda: api.init_params(cfg),
                  lambda: api.make_spec(cfg),
                  lambda: api.init_cache(cfg, 1, 8),
                  lambda: Engine(cfg),
+                 lambda: PagedEngine(cfg, prefill_chunk=8,
+                                     draft_tier="trunc4x4"),
                  lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
