@@ -51,8 +51,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  formula; then ms per decode step, chunk step and spec
                  step, tick-space TTFT of PD against S4, and the view's
                  gather and scatter on the profiler.  A run that leaves its
-                 slot engine fails the phase;
-  6. check     — a 2-layer full-width model served once through the kernels
+                 slot engine fails the phase.  PD runs metered: its
+                 per-request Joules must sum to the meter's total;
+  6. fleet     — the carbon-aware fleet on the same model: a metered
+                 two-replica fleet (us-west and eu-west on the diurnal
+                 trace, capacity 2, trunc2x2, 12 Poisson requests of 104
+                 tokens x 16, replica 0 killed at its step 5), Joules
+                 priced at the card's power limit: zero lost, exactly
+                 once, per-replica conservation, tokens equal to a lone
+                 slot engine, launches equal to `fleet_want`'s formula
+                 over the meters' counts, every tick decision equal to the
+                 same fleet on the CPU at the reduced size; the seeded
+                 chaos campaign (seed 7, tiers exact/trunc2x2/trunc4x4, 16
+                 requests): five invariants, report equal to its CPU tick
+                 twin, every death an injected one; the total-carbon
+                 search over the multi-die scenarios on the card, held to
+                 the CPU's (rtol 1e-6);
+  7. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -60,7 +75,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
-  7. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+  8. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -69,19 +84,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
-  8. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+  9. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
-  9. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 10. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 10. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 11. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 9's vgg_mini), each GA design within
+                 kernels on phase 10's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -89,8 +104,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 The line before the card line is a JSON object with one entry per kernel
 and main-path unit (quantize_rows has two: the decode step and the VGG16
-forward; `path` names the run its launches come from, and
-`paged_launches` holds each kernel's launches in run PD);
+forward; `path` names the run its launches come from,
+`paged_launches` holds each kernel's launches in run PD and
+`fleet_launches` those of the metered fleet);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -967,6 +983,10 @@ def paged_phase(dev, cfg, card: str) -> dict:
                                  spec_k=4, **paged_kw)),
     }
     res, engines = {}, {}
+    from repro_torch.fleet.meter import DevicePowerModel, EnergyMeter
+    # PD runs metered: the paged engine's five meter calls on the card
+    pd_meter = EnergyMeter(power=DevicePowerModel(tdp_w=card_tdp_w(card)))
+    runs["PD"][1]["meter"] = pd_meter
     for name, (cls, kw) in runs.items():
         eng = cls(cfg, params, **common, **kw)
         for req in trace:
@@ -1032,6 +1052,23 @@ def paged_phase(dev, cfg, card: str) -> dict:
     for name in ("PS", "PD"):
         for c in res[name]["done"]:
             assert c.spec.accepted + c.spec.corrections == len(c.tokens), c
+    pd, pd_st = res["PD"]["done"], res["PD"]["st"]
+    pd_j = sum(c.carbon.energy_j for c in pd)
+    assert abs(pd_j - pd_meter.energy_j) <= 1e-9 * pd_meter.energy_j, (
+        pd_j, pd_meter.energy_j)
+    assert pd_meter.open_energy_j() == 0.0
+    long = [r for r in trace if len(r.tokens) > 32]
+    assert pd_meter.prefill_calls == pd_st["admitted"] - len(long) + \
+        pd_st["paged"]["chunked"]["chunks"]
+    assert pd_meter.decode_steps == pd_st["decode_steps"]
+    assert all(c.carbon.tokens == len(c.tokens) for c in pd)
+    log(f"[paged] PD metered at {card_tdp_w(card):g} W: "
+        f"{pd_meter.energy_j:.3f} J ({pd_meter.prefill_j:.3f} J over "
+        f"{pd_meter.prefill_calls} prefill calls, {pd_meter.decode_j:.3f} J "
+        f"over {pd_meter.decode_steps} spec steps), per-request Joules sum "
+        f"to the total (rel {abs(pd_j - pd_meter.energy_j) / pd_j:.1e}); "
+        f"{pd_meter.energy_j / sum(len(c.tokens) for c in pd):.4f} J/token "
+        f"({card})")
 
     def per(total, count):
         return f"{total / count * 1e3:.2f} ms" if count else "none"
@@ -1157,6 +1194,297 @@ def profile_decode(eng, rng, cfg, steps: int = 4,
             f"ms/step  {e.count // steps:5d}/step  {e.key[:60]}")
     eng.run_until_complete()
     return kernels, wall / steps
+
+
+# ---------------------------------------------------------------------------
+# the fleet: metered replicas, failover, chaos and the total-carbon GA
+# ---------------------------------------------------------------------------
+
+#: The fleet phase's trace (`benchmarks/bench_fleet.py`'s defaults, with
+#: the serve phase's bucket): prompts of 104 tokens and 16 new ones, so
+#: max_len 128 is the bucket and plane 0 and flash run at the shapes the
+#: kernels phase checks; replica 0 dies at its step 5.
+FLEET_PROMPT, FLEET_GEN, FLEET_MAX_LEN = 104, 16, 128
+FLEET_REQUESTS, CHAOS_REQUESTS, FLEET_KILL = 12, 16, 5
+FLEET_SLO = 32.0
+CHAOS_SEED, CHAOS_TIERS = 7, ("exact", "trunc2x2", "trunc4x4")
+#: the traces are drawn at TinyLlama's vocab on both sides, so that the
+#: reduced CPU twin sees the same arrivals (its prompts taken mod 512)
+TRACE_VOCAB = 32000
+#: the card against the CPU on the total-carbon search
+TOTAL_RTOL = 1e-6
+
+
+def card_tdp_w(card: str) -> float:
+    """The power limit in the `nvidia-smi` line, in watts."""
+    import re
+    m = re.search(r"([0-9.]+)\s*W\b", card)
+    assert m, f"no power limit in {card!r}"
+    return float(m.group(1))
+
+
+def fleet_want(cfg, s: dict) -> dict:
+    """Kernel launches of a metered slot-engine fleet on one approximate
+    tier, from its meters' counts (`Replica.carbon_summary`, summed over
+    replicas and restarts).  Every metered prefill is a whole-prompt
+    prefill at bucket 128: 7L + 1 quantize_rows, 7L plane 0, one skinny
+    (the head at m = 1) and L flash.  Every metered decode step runs 7L + 1
+    quantize_rows and skinny.  A replica dies only at a step boundary, so
+    every launch is metered."""
+    per_step = 7 * cfg.n_layers + 1
+    p, d = s["prefill_calls"], s["decode_steps"]
+    return {"quantize_rows": per_step * (p + d),
+            "approx_qgemm_skinny": per_step * d + p,
+            "approx_qgemm_plane0": (per_step - 1) * p,
+            "flash_attention": cfg.n_layers * p,
+            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+
+
+def fleet_ticks(fleet) -> dict:
+    """What the router, the replicas and the controller decided, on the
+    tick clock only (no token values, no seconds): equal between the card
+    at full width and the CPU at the reduced size."""
+    import dataclasses
+    return {"routes": [dataclasses.astuple(r) for r in fleet.routes],
+            "requeue_events": fleet.requeue_events,
+            "recoveries": fleet.recoveries,
+            "tier_events": (fleet.controller.events if fleet.controller
+                            else []),
+            "completions": [(c.request_id, c.finish_reason, c.arrival,
+                             c.admitted_tick, c.finished_tick, c.attempt,
+                             len(c.tokens), c.tier_tokens)
+                            for c in fleet.completions()],
+            "wall_admitted": [r.wall_admitted for r in fleet.replicas],
+            "alive": [r.alive for r in fleet.replicas], "tick": fleet.tick}
+
+
+def _fleet_requests(vocab: int, n: int, deadlines: bool) -> list:
+    """`poisson_requests` at TRACE_VOCAB (seed 0), prompts taken mod the
+    model's `vocab`; the chaos trace carries the bench's deadlines."""
+    import dataclasses
+    from repro_torch.launch.fleet import poisson_requests
+    out = []
+    for r in poisson_requests(n, FLEET_PROMPT, FLEET_GEN, TRACE_VOCAB,
+                              seed=0):
+        r = dataclasses.replace(r, tokens=[t % vocab for t in r.tokens])
+        if deadlines:
+            r = dataclasses.replace(r, ttft_deadline_ticks=4.0 * FLEET_SLO,
+                                    deadline_ticks=8.0 * FLEET_SLO)
+        out.append(r)
+    return out
+
+
+def metered_fleet(cfg, params, dev, tdp_w: float):
+    """`build_fleet` on the bench's defaults (us-west and eu-west on the
+    diurnal trace, capacity 2, SLO 32 ticks, 1800 s per tick, seed 0), one
+    trunc2x2 tier, 12 Poisson requests, replica 0 killed at its step 5."""
+    from repro_torch.fleet.meter import DevicePowerModel
+    from repro_torch.launch.fleet import build_fleet
+    fleet = build_fleet(cfg, trace="diurnal", capacity=2,
+                        max_len=FLEET_MAX_LEN, seed=0,
+                        ttft_slo_ticks=FLEET_SLO, seconds_per_tick=1800.0,
+                        params=params, tiers=(MULT,),
+                        power=DevicePowerModel(tdp_w=tdp_w), device=dev)
+    reqs = _fleet_requests(cfg.vocab, FLEET_REQUESTS, deadlines=False)
+    for r in reqs:
+        fleet.submit(r)
+    fleet.replicas[0].inject_fault(at_step=FLEET_KILL)
+    return fleet, reqs
+
+
+def chaos_campaign(cfg, params, dev, tdp_w: float):
+    """`bench_fleet.py --chaos`'s campaign: the tier ladder exact,
+    trunc2x2, trunc4x4 under `DegradationConfig(patience=1)`, 16 Poisson
+    requests with the bench's deadlines, `ChaosSchedule.random(7)`."""
+    import dataclasses
+    from repro_torch.fleet.chaos import ChaosCampaign, ChaosSchedule
+    from repro_torch.fleet.meter import DevicePowerModel
+    from repro_torch.fleet.router import DegradationConfig, FleetConfig
+    from repro_torch.launch.fleet import build_fleet
+    # the exact tier serves on the raw weights (a cfg.mult other than
+    # exact would also prepare them once more, unused)
+    cfg = dataclasses.replace(cfg, mult="exact")
+    fleet = build_fleet(cfg, trace="diurnal", capacity=2,
+                        max_len=FLEET_MAX_LEN, seed=0,
+                        seconds_per_tick=1800.0, params=params,
+                        tiers=CHAOS_TIERS,
+                        fleet_cfg=FleetConfig(
+                            ttft_slo_ticks=FLEET_SLO,
+                            degradation=DegradationConfig(patience=1)),
+                        power=DevicePowerModel(tdp_w=tdp_w), device=dev)
+    schedule = ChaosSchedule.random(CHAOS_SEED,
+                                    [r.name for r in fleet.replicas])
+    reqs = _fleet_requests(cfg.vocab, CHAOS_REQUESTS, deadlines=True)
+    return fleet, ChaosCampaign(fleet, reqs, schedule)
+
+
+def _deaths_injected(fleet, applied: list[dict]) -> None:
+    """Every failover (a replica death) answers an injected death of that
+    replica at or before its tick: a kernel that failed to build or
+    launch would show as a death no event explains."""
+    deaths = [e for e in applied
+              if e["kind"] in ("kill", "transient", "submit_fault")]
+    for ev in fleet.requeue_events:
+        cause = [d for d in deaths if d["replica"] == ev["replica"]
+                 and d["tick"] <= ev["tick"]]
+        assert cause, ("a death no fault explains", ev, applied)
+    assert len(fleet.requeue_events) <= len(deaths), (
+        fleet.requeue_events, deaths)
+
+
+def _design_held(got: dict, want: dict) -> bool:
+    """A total-carbon winner on the card against the CPU's: the same
+    design, every number within TOTAL_RTOL."""
+    import math
+    for k, v in want.items():
+        g = got[k]
+        if isinstance(v, float):
+            if not math.isclose(g, v, rel_tol=TOTAL_RTOL, abs_tol=1e-30):
+                return False
+        elif g != v:
+            return False
+    return set(got) == set(want)
+
+
+def fleet_phase(dev, cfg, card: str) -> dict:
+    """The carbon-aware fleet at full width on the card.  Returns the
+    metered fleet's kernel launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import codesign as cd
+    from repro_torch.fleet import chaos
+    from repro_torch.fleet.total import OperationalModel
+    from repro_torch.models import api
+    from repro_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    tdp_w = card_tdp_w(card)
+    params = api.init_params(cfg, seed=0, device=dev)
+    rcfg = configs.reduced(configs.get_config("tinyllama-1.1b"), mult=MULT,
+                           kernel_policy="pallas", attn_impl="flash",
+                           dtype="float32")
+    rparams = api.init_params(rcfg, seed=0, device="cpu")
+
+    # 1. the metered fleet, with replica 0 killed at its step 5
+    fleet, reqs = metered_fleet(cfg, params, dev, tdp_w)
+    t0 = time.perf_counter()
+    comps, launches = counted(fleet.run_until_complete)
+    wall = time.perf_counter() - t0
+    s = fleet.stats()
+    twin, _ = metered_fleet(rcfg, rparams, "cpu", tdp_w)
+    twin.run_until_complete()
+    assert s["lost"] == [] and s["completed"] == FLEET_REQUESTS, s["lost"]
+    assert chaos.check_exactly_once(
+        fleet, {r.request_id: r for r in reqs}) == []
+    assert chaos.check_meter_conservation(fleet, {}) == [], \
+        chaos.check_meter_conservation(fleet, {})
+    ticks, twin_ticks = fleet_ticks(fleet), fleet_ticks(twin)
+    assert ticks == twin_ticks, "the card's fleet left its CPU tick twin"
+    assert [e["replica"] for e in fleet.requeue_events] == ["us-west"]
+    assert fleet.replicas[0]._steps == FLEET_KILL and not fleet.recoveries
+    summed = {k: sum(r.carbon_summary()[k] for r in fleet.replicas)
+              for k in ("prefill_calls", "decode_steps")}
+    want = fleet_want(cfg, summed)
+    assert launches == want, (launches, want)
+    lone = Engine(cfg, params, capacity=2, max_len=FLEET_MAX_LEN, device=dev)
+    for r in reqs:
+        lone.submit(r)
+    alone = {c.request_id: c.tokens for c in lone.run_until_complete()}
+    assert {c.request_id: c.tokens for c in comps} == alone
+    del lone
+    n_routes = len(fleet.routes)
+    share = {r.name: sum(rec.replica == r.name for rec in fleet.routes)
+             / n_routes for r in fleet.replicas}
+    log(f"[fleet] metered fleet, 2 replicas x capacity 2 ({MULT}), "
+        f"{FLEET_REQUESTS} requests x {FLEET_GEN} tokens, replica us-west "
+        f"killed at its step {FLEET_KILL}: {wall:.2f}s, {s['ticks']} ticks, "
+        f"requeued {s['requeued']}, lost 0, exactly once; ticks equal to "
+        f"the CPU twin; tokens equal to a lone slot engine; launches "
+        f"{launches} = formula over {summed}")
+    log("[fleet] routed share: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in share.items())
+        + f" ({n_routes} routes, low-carbon share "
+        f"{s['low_carbon_share']:.3f})")
+    for r in fleet.replicas:
+        c = r.carbon_summary()
+        log(f"[fleet]   {r.name}: alive {r.alive}, "
+            f"{c['prefill_calls']} prefills, {c['decode_steps']} decode "
+            f"steps, {c['energy_j']:.3f} J ({c['prefill_j']:.3f} prefill), "
+            f"{c['finalized_tokens']} tokens, {c['energy_j_per_token']:.4f} "
+            f"J/token, {c['co2e_g_per_token']:.4e} gCO2e/token, abandoned "
+            f"{c['abandoned_energy_j']:.3f} J; power model at "
+            f"{tdp_w:g} W on {card}")
+    t = s["totals"]
+    log(f"[fleet] totals {t['energy_j']:.3f} J, {t['co2e_g']:.4e} gCO2e, "
+        f"{t['energy_j_per_token']:.4f} J/token over {t['tokens']} tokens "
+        "(the power model applied to host-timed step seconds, not a "
+        "measured draw)")
+    del fleet, twin, comps
+    torch.cuda.empty_cache()
+
+    # 2. the chaos campaign, held to its CPU tick twin
+    fleet, campaign = chaos_campaign(cfg, params, dev, tdp_w)
+    t0 = time.perf_counter()
+    report, chaos_launches = counted(campaign.run)
+    wall = time.perf_counter() - t0
+    twin, twin_campaign = chaos_campaign(rcfg, rparams, "cpu", tdp_w)
+    twin_report = twin_campaign.run()
+    rep = report.to_dict()
+    assert report.ok, report.violations
+    assert rep == twin_report.to_dict(), (rep, twin_report.to_dict())
+    assert fleet_ticks(fleet) == fleet_ticks(twin)
+    _deaths_injected(fleet, report.events_applied)
+    for k in ("quantize_rows", "approx_qgemm_skinny", "approx_qgemm_plane0",
+              "flash_attention"):
+        assert chaos_launches[k] > 0, (k, chaos_launches)
+    log(f"[fleet] chaos seed {CHAOS_SEED}, tiers {','.join(CHAOS_TIERS)}: "
+        f"{wall:.2f}s; {rep['faults_by_kind']}; submitted "
+        f"{rep['submitted']}, completed {rep['completed']}, lost 0, "
+        f"requeued {rep['requeued']}, recoveries {rep['recoveries']}, "
+        f"restarts {rep['restarts']}, shed {rep['shed']}, deadline "
+        f"{rep['deadline_evictions']}, TTFT p95 {rep['ttft_p95_ticks']} "
+        f"ticks (SLO {rep['ttft_slo_ticks']}), tier tokens "
+        f"{rep['tier_occupancy']}, {rep['degradation_events']} tier "
+        f"changes; all five invariants hold; report equal to the CPU "
+        f"tick twin; deaths exactly the injected ones")
+    log(f"[fleet] chaos launches (trunc tiers; exact runs only flash): "
+        f"{chaos_launches}")
+    for r in fleet.replicas:
+        c = r.carbon_summary()
+        log(f"[fleet]   {r.name}: {c['energy_j_per_token']:.4f} J/token, "
+            f"{c['co2e_g_per_token']:.4e} gCO2e/token, "
+            f"{r.restarts} restarts ({card})")
+    del fleet, twin, campaign, params
+    torch.cuda.empty_cache()
+
+    # 3. the total-carbon search on the card against the CPU
+    t0 = time.perf_counter()
+    op = OperationalModel()
+    got = cd.run_total_carbon(cd.multi_die_scenarios(), op, device=dev)
+    card_s = time.perf_counter() - t0
+    want = cd.run_total_carbon(cd.multi_die_scenarios(), op, device="cpu")
+    for g, w in zip(got, want, strict=True):
+        assert g["scenario"] == w["scenario"] and g["op"] == w["op"]
+        for key in ("cdp_winner", "total_winner"):
+            assert _design_held(g[key], w[key]), (key, g[key], w[key])
+        assert g["differs"] == w["differs"]
+        # reduction = 1 - total / cdp_total: each total within TOTAL_RTOL
+        # moves it by at most 2 x TOTAL_RTOL x (1 - reduction)
+        red_diff = abs(g["total_reduction"] - w["total_reduction"])
+        assert red_diff <= 2 * TOTAL_RTOL * (1 - w["total_reduction"]) \
+            + 1e-12, (g["total_reduction"], w["total_reduction"])
+        tw = g["total_winner"]
+        log(f"[fleet] total carbon {g['scenario']['workload']} "
+            f"{g['scenario']['node_nm']}nm {g['scenario']['fps_min']:g} fps: "
+            f"CDP winner {g['cdp_winner']['multiplier']} x "
+            f"{g['cdp_winner']['n_dies']} dies, total winner "
+            f"{tw['multiplier']} x {tw['n_dies']} dies "
+            f"({tw['num_pes']} PEs, {tw['total_g_per_inf']:.4e} g/inf); "
+            f"total -{100 * g['total_reduction']:.3f}% (card vs CPU "
+            f"{red_diff:.1e}); winners equal to the CPU's")
+    log(f"[fleet] run_total_carbon on the card {card_s:.2f}s; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
 
 
 def check_phase(dev, cfg_full, mult: str, attn_impl: str) -> None:
@@ -1774,6 +2102,8 @@ def main() -> int:
     # each kernel's launches come from the main path that runs it
     launches = serve_phase(dev, cfg)
     paged_launches = paged_phase(dev, cfg, card)
+    fleet_launches = fleet_phase(dev, cfg, card)
+    log(f"[fleet] {time.perf_counter() - t_start:.1f}s")
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -1789,6 +2119,7 @@ def main() -> int:
         row["launches"] = counts[row["path"]][row["name"]]
         assert row["launches"] > 0, row["name"]
         row["paged_launches"] = paged_launches[row["name"]]
+        row["fleet_launches"] = fleet_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

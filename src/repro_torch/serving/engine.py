@@ -18,6 +18,11 @@ Request lifecycle: per-request TTFT/total deadlines in ticks, with
 load-shedding (`finish_reason="shed"`) and mid-decode deadline eviction
 (`"deadline"`); a crash inside admission re-queues the request before
 propagating.
+
+Metering (`meter=`, a `fleet.meter.EnergyMeter`): each prefill and decode
+step is timed on the host clock after the step's device sync, and the
+meter turns those seconds into per-request Joules and CO2eq
+(`Completion.carbon`, `stats()["carbon"]`).
 """
 
 from __future__ import annotations
@@ -36,6 +41,12 @@ from repro_torch.serving import sampling
 from repro_torch.serving.arena import SlotArena
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.types import Completion, Request
+
+
+def _n_devices(target) -> int:
+    """Devices a `HardwareTarget` spans: its mesh, else one per die."""
+    axes = target.mesh_axes or (("model", target.n_dies),)
+    return max(math.prod(size for _, size in axes), target.n_dies)
 
 
 class _Slot:
@@ -72,6 +83,12 @@ class Engine:
         `api.make_spec`); None keeps one tier named by `cfg.mult`.
       device: where the engine runs; None means the CUDA device, and
         raises when there is none.
+      meter: optional `fleet.meter.EnergyMeter`, charged with the measured
+        seconds of every prefill and decode step; None serves unmetered.
+      target: optional one-die `core.target.HardwareTarget`, kept for the
+        fleet's power model.  A target over more than one device, or a
+        `mesh`, raises `NotImplementedError`: the port has no
+        tensor-parallel serving yet.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any | None = None, *,
@@ -80,8 +97,18 @@ class Engine:
                  seed: int = 0,
                  on_token: Callable[[str, int], None] | None = None,
                  tiers: tuple[str, ...] | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 meter=None, target=None, mesh=None):
+        if mesh is not None or (target is not None
+                                and _n_devices(target) > 1):
+            raise NotImplementedError(
+                f"serving over a mesh or a multi-die target "
+                f"({mesh if mesh is not None else target.mesh_spec()!r}) "
+                "needs tensor-parallel serving on torch.distributed, which "
+                "the port does not have yet (ROADMAP Queue 1, sharding and "
+                "TP serving)")
         self.device = resolve_device(device)
+        self.meter, self.target = meter, target
         self.cfg, self.seed = cfg, seed
         self.capacity, self.max_len = capacity, max_len
         self.buckets = tuple(sorted(prefill_buckets or (max_len,)))
@@ -223,7 +250,7 @@ class Engine:
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
         first_tok = int(first[0])           # syncs the prefill
-        self._prefill_s += time.perf_counter() - t0
+        self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._admitted += 1
 
         self._arena.insert(req_cache, slot_id)
@@ -236,6 +263,12 @@ class Engine:
         slot.first_wall = time.perf_counter()
         self._slots[slot_id] = slot
         self._emit(slot_id, first_tok)
+
+    def _note_prefill(self, request_id: str, dt: float) -> None:
+        """Book a synced prefill (or prefill chunk) of `dt` seconds."""
+        self._prefill_s += dt
+        if self.meter is not None:
+            self.meter.on_prefill(request_id, dt)
 
     # --- token accounting / eviction -------------------------------------
 
@@ -274,6 +307,8 @@ class Engine:
             ttft_s=slot.first_wall - slot.ready_wall,
             ttft_ticks=slot.first_tick - slot.request.arrival + 1.0,
             latency_s=now - slot.ready_wall,
+            carbon=self._finalize(slot.request.request_id,
+                                  len(slot.tokens)),
             attempt=slot.request.attempt,
             tier_tokens=dict(slot.tier_tokens)))
         self._slots[slot_id] = None
@@ -295,8 +330,15 @@ class Engine:
             finished_tick=self._tick,
             ttft_s=0.0,
             latency_s=0.0,
+            carbon=self._finalize(request.request_id, 0),
             attempt=request.attempt,
             tier_tokens={}))
+
+    def _finalize(self, request_id: str, tokens: int):
+        """Close the request's meter account (None when unmetered)."""
+        if self.meter is None:
+            return None
+        return self.meter.finalize(request_id, tokens)
 
     # --- the serving loop -------------------------------------------------
 
@@ -375,11 +417,21 @@ class Engine:
             return
         t0 = time.perf_counter()
         tok_host = self._decode()
-        self._decode_steps += 1
-        self._decode_s += time.perf_counter() - t0
+        self._note_decode(lanes, time.perf_counter() - t0)
         for slot_id in lanes:
             if self._slots[slot_id] is not None:
                 self._emit(slot_id, int(tok_host[slot_id]))
+
+    def _note_decode(self, lanes: list[int], dt: float) -> None:
+        """Book a synced decode step of `dt` seconds over `lanes`.  The
+        meter is charged BEFORE the lanes emit: a request evicted at this
+        step carries its share of the step's energy."""
+        self._decode_steps += 1
+        self._decode_s += dt
+        if self.meter is not None:
+            self.meter.on_decode(
+                dt, [self._slots[i].request.request_id for i in lanes],
+                self.capacity)
 
     def run_until_complete(self) -> list[Completion]:
         """Drive step() until the queue and the arena are both empty;
@@ -394,16 +446,19 @@ class Engine:
 
     def stats(self) -> dict:
         done = len(self.completions)
-        return {"ticks": self._tick, "decode_steps": self._decode_steps,
-                "admitted": self._admitted,
-                "completed": done,
-                "prefill_s": self._prefill_s, "decode_s": self._decode_s,
-                "queue_wait_ticks_total": self._queue_wait_ticks,
-                "queue_wait_ticks_mean":
-                    self._queue_wait_ticks / done if done else 0.0,
-                "evictions": dict(self._evictions),
-                "device": str(self.device),
-                "tiers": {"active": self._tier,
-                          "ladder": list(self.tiers),
-                          "tokens": dict(self._tier_tokens),
-                          "switches": list(self._tier_switches)}}
+        out = {"ticks": self._tick, "decode_steps": self._decode_steps,
+               "admitted": self._admitted,
+               "completed": done,
+               "prefill_s": self._prefill_s, "decode_s": self._decode_s,
+               "queue_wait_ticks_total": self._queue_wait_ticks,
+               "queue_wait_ticks_mean":
+                   self._queue_wait_ticks / done if done else 0.0,
+               "evictions": dict(self._evictions),
+               "device": str(self.device),
+               "tiers": {"active": self._tier,
+                         "ladder": list(self.tiers),
+                         "tokens": dict(self._tier_tokens),
+                         "switches": list(self._tier_switches)}}
+        if self.meter is not None:
+            out["carbon"] = self.meter.summary()
+        return out

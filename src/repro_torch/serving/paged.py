@@ -257,7 +257,7 @@ class PagedEngine(Engine):
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
         first_tok = int(first[0])           # syncs the prefill
-        self._prefill_s += time.perf_counter() - t0
+        self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._admitted += 1
         self._install(request, req_cache, slot_id, lease, gen, first_tok,
                       ready_wall, digest)
@@ -281,7 +281,7 @@ class PagedEngine(Engine):
             true_len=torch.tensor([c], dtype=torch.int32,
                                   device=self.device))
         _sync(self.device)
-        self._prefill_s += time.perf_counter() - t0
+        self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._chunks += 1
         self._slots[slot_id] = _PagedSlot(
             request, len(request.tokens), self._tick, ready_wall,
@@ -362,7 +362,7 @@ class PagedEngine(Engine):
                 [job.gen])[0])
         _sync(self.device)
         dt = time.perf_counter() - t0
-        self._prefill_s += dt
+        self._note_prefill(job.request.request_id, dt)
         self._chunk_s += dt
         self._chunks += 1
         if first_tok is None:
@@ -533,9 +533,9 @@ class PagedEngine(Engine):
                 kr[i] = 1
         t0 = time.perf_counter()
         emitted, mh, ah = self._verify(self._draft_tokens(), kr)
-        self._decode_steps += 1
         self._spec_steps += 1
-        self._decode_s += time.perf_counter() - t0
+        # every decoding lane is charged alike, sampled or greedy
+        self._note_decode(decoding, time.perf_counter() - t0)
         for i in decoding:
             slot = self._slots[i]
             if slot.request.sampling.temperature <= 0.0:

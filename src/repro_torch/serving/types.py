@@ -111,6 +111,9 @@ class Completion:
     #: (first-token tick - arrival + 1): the wall-noise-free TTFT used
     #: by the slot-vs-paged bench gates.  0.0 for shed requests.
     ttft_ticks: float = 0.0
+    #: per-request operational footprint (`fleet.meter.RequestCarbon`)
+    #: when the engine serves with an energy meter; None otherwise.
+    carbon: Any | None = None
     #: retry ordinal of the attempt that produced this completion
     #: (copied from `Request.attempt`; 0 = first attempt).
     attempt: int = 0

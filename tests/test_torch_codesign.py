@@ -14,7 +14,11 @@ the PyTorch side on the CPU (`device="cpu"`).  Tolerances:
   every `inf` (masked genome) sits at the same place;
 * the torch GA cannot replay JAX's threefry stream, so it is held to the
   numpy GA's selected design and to `exhaustive_best`, as the JAX
-  package's own tests hold its GA.
+  package's own tests hold its GA;
+* the total-carbon objective takes the port's own
+  `fleet.total.OperationalModel` on both sides (the JAX package's GA and
+  codesign read it duck-typed); tests/test_torch_fleet.py holds it equal
+  to the JAX package's model field by field.
 """
 
 import dataclasses
@@ -36,7 +40,6 @@ from repro.core import multipliers as jmm
 from repro.core import netlist as jnl
 from repro.core import target as jtg
 from repro.core import workloads as jwl
-from repro.fleet.total import OperationalModel
 from repro_torch.core import accelerator as acc
 from repro_torch.core import calibrate as cal
 from repro_torch.core import carbon as cb
@@ -47,6 +50,7 @@ from repro_torch.core import ga_batched as gb
 from repro_torch.core import multipliers as mm
 from repro_torch.core import target as tg
 from repro_torch.core import workloads as wl
+from repro_torch.fleet.total import OperationalModel
 from repro_torch.launch import accuracy as acc_launch
 from repro_torch.launch import codesign as launch
 

@@ -482,3 +482,44 @@ def test_cuda_paged_engine_token_identical_to_slot_engine(cuda_dev):
     eng._alloc.audit()
     assert eng._alloc.pages_live == 0
 
+
+
+@pytest.mark.cuda
+def test_cuda_metered_fleet_failover_matches_a_lone_engine(cuda_dev):
+    """A reduced metered two-replica fleet through the kernels on the
+    card, replica 0 killed at its step 3: nothing lost, each replica's
+    meter conserves energy, and every stream equals a lone slot engine's
+    on the card."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.fleet import chaos
+    from repro_torch.fleet.meter import DevicePowerModel
+    from repro_torch.kernels import qgemm
+    from repro_torch.launch import fleet as launch
+    from repro_torch.models import api
+    from repro_torch.serving import Engine
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
+                          mult="trunc2x2", kernel_policy="pallas",
+                          attn_impl="flash")
+    params = api.init_params(cfg, 0, cuda_dev)
+    fleet = launch.build_fleet(cfg, trace="diurnal", capacity=2, max_len=48,
+                               params=params, device=cuda_dev,
+                               power=DevicePowerModel(tdp_w=700.0))
+    reqs = launch.poisson_requests(8, 6, 6, cfg.vocab, seed=0)
+    for r in reqs:
+        fleet.submit(r)
+    fleet.replicas[0].inject_fault(at_step=3)
+    qgemm.approx_qgemm_skinny.launches = 0
+    comps = fleet.run_until_complete()
+    assert qgemm.approx_qgemm_skinny.launches > 0
+    assert fleet.stats()["lost"] == [] and fleet.requeued >= 1
+    assert [e["replica"] for e in fleet.requeue_events] == ["us-west"]
+    assert chaos.check_meter_conservation(fleet, {}) == []
+    assert chaos.check_exactly_once(
+        fleet, {r.request_id: r for r in reqs}) == []
+    lone = Engine(cfg, params, capacity=2, max_len=48, device=cuda_dev)
+    for r in reqs:
+        lone.submit(dataclasses.replace(r, arrival=0.0))
+    want = {c.request_id: c.tokens for c in lone.run_until_complete()}
+    assert {c.request_id: c.tokens for c in comps} == want

@@ -40,6 +40,10 @@ def test_no_module_imports_jax_or_the_jax_package():
                  "ga", "ga_batched", "calibrate", "codesign"):
         assert f"repro_torch.core.{name}" in res["modules"]
     assert "repro_torch.launch.codesign" in res["modules"]
+    for name in ("grid", "meter", "total", "replica", "router", "chaos"):
+        assert f"repro_torch.fleet.{name}" in res["modules"]
+    assert "repro_torch.train.fault" in res["modules"]
+    assert "repro_torch.launch.fleet" in res["modules"]
     assert res["bad"] == []
 
 
@@ -50,10 +54,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch import configs
     from repro_torch.device import resolve_device
     from repro_torch.models import api
+    from repro_torch.fleet.replica import Replica
+    from repro_torch.launch.fleet import build_fleet
     from repro_torch.serving import Engine, PagedEngine
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
                           mult="trunc2x2")
     for call in (lambda: api.init_params(cfg),
+                 lambda: build_fleet(cfg, capacity=1, max_len=16),
+                 lambda: Replica("a", cfg, capacity=1, max_len=16),
                  lambda: api.make_spec(cfg),
                  lambda: api.init_cache(cfg, 1, 8),
                  lambda: Engine(cfg),
