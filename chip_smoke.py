@@ -13,11 +13,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  decode and prefill sizes, odd and two-pass rows, row
                  slices, rows holding NaN, +-inf and zeros; plans
                  logged), the plane-0 GEMM (also on K-major weights
-                 as prepared weights hand it, at the prefill shapes and a
+                 as prepared weights hand it, at the prefill shapes, the
+                 recurrent models' layers at M = 128 included, and a
                  large-M VGG16 im2col shape, its K split logged), the
                  skinny GEMM on K-major weights (every rank, the decode,
                  first-chunk prefill (m = 32) and VGG16 FC shapes, every
-                 m class with a K tail, its K split logged), the fused
+                 m class with a K tail, its K split logged; the recurrent
+                 models' layers and LM heads at m = 1, 4, 8 and 32), the fused
                  and the stacked low-rank GEMMs (ranks 1, 2, 4, 8, every VGG16 conv shape;
                  stacked bit-identical to fused, its launches counted over
                  these parity calls) bit-exact, flash attention within
@@ -67,7 +69,34 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  twin, every death an injected one; the total-carbon
                  search over the multi-die scenarios on the card, held to
                  the CPU's (rtol 1e-6);
-  7. check     — a 2-layer full-width model served once through the kernels
+  7. recurrent — mamba2-370m (48 layers) and then recurrentgemma-9b (38
+                 layers, 10.4B params) at full width and depth, trunc2x2,
+                 f32, random weights from a seeded CUDA generator, through
+                 the slot and paged engines on the paged trace (tokens in
+                 each model's vocabulary): S4, P, PS and PC against S4,
+                 but mamba2's PC against C4, a slot engine admitting
+                 through the same chunked prefill (under trunc2x2 its
+                 chunked prefill parts from the whole one by int8 codes
+                 that flip and grow with depth: C4's agreement with S4 is
+                 reported), and its PD against C8 (the 9B runs no PD: its
+                 trunc4x4 draft would prepare a second 17 GB int8 copy);
+                 the chunked prefill held to the whole one under exact
+                 (gap at most 1e-3, greedy tokens equal); the 9B's
+                 params prepared once and shared by every engine; each
+                 paged run token-identical to its slot engine, audit
+                 clean, no live page, launches equal to `paged_want`'s
+                 formula over
+                 `gemms_per_step` (97 GEMMs per mamba2 decode step, 241
+                 per hybrid step, no flash); ms per prefill, decode step,
+                 chunk step and spec step, one profiled decode step's
+                 device busy share, and the peak device memory;
+  8. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
+                 crosses two 256-token chunks) and the hybrid at 4 layers
+                 (window cut to 64 under 128-token prompts: the rings
+                 wrap), full width, once through the kernels and once
+                 through the plain versions on the card: logits compared,
+                 greedy tokens equal, the plain run launching nothing;
+  9. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -75,7 +104,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
-  8. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 10. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -84,19 +113,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
-  9. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 11. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 10. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 12. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 11. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 13. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 10's vgg_mini), each GA design within
+                 kernels on phase 12's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -105,8 +134,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 The line before the card line is a JSON object with one entry per kernel
 and main-path unit (quantize_rows has two: the decode step and the VGG16
 forward; `path` names the run its launches come from,
-`paged_launches` holds each kernel's launches in run PD and
-`fleet_launches` those of the metered fleet);
+`paged_launches` holds each kernel's launches in run PD,
+`fleet_launches` those of the metered fleet and `recurrent_launches`
+those of each recurrent model's runs, summed);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -353,7 +383,9 @@ def check_kernels(dev) -> tuple[dict, int]:
              for name in ("exact", "trunc2x2", "trunc3x1")}
     # plane 0: unprepared operands (transposed per call), then the K-major
     # weight that prepared weights hand the kernel, at the prefill shapes
-    # and at a large-M VGG16 im2col shape (conv 3 at batch 8)
+    # (TinyLlama's, then the recurrent models' layers at bucket 128) and at
+    # a large-M VGG16 im2col shape (conv 3 at batch 8)
+    rec_layers, rec_heads = recurrent_gemm_shapes()
     prefill = [(128, 2048, 2048), (128, 2048, 256), (128, 2048, 5632),
                (128, 5632, 2048)]
     for m, k, n in prefill + [(33, 257, 65), (300, 64, 512)]:
@@ -362,6 +394,7 @@ def check_kernels(dev) -> tuple[dict, int]:
             got = ops.approx_qgemm(a, b, spec)
             exact("approx_qgemm_plane0", got, G.approx_qgemm(a, b, spec),
                   f"({m},{k},{n}) {name}")
+    prefill += [(128, k, n) for k, n in rec_layers]
     for m, k, n in prefill + [(100352, 1152, 128)]:
         a, b = rand_q(m, k), rand_q(k, n)
         bt = b.T.contiguous()
@@ -421,6 +454,26 @@ def check_kernels(dev) -> tuple[dict, int]:
         log(f"[kernels] skinny ({m},{k},{n}): {splits} K split(s) of "
             f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
         del a, b, bt
+
+    # skinny at the recurrent models' shapes, layers and LM heads, at the m
+    # the recurrent phase gives it: 1 (chunk steps, the head after a
+    # prefill), 4 (decode at capacity 4), 8 (PD at capacity 8) and 32 (the
+    # first chunk of PC and PD)
+    for k, n in rec_layers + rec_heads:
+        b = rand_q(k, n)
+        bt = b.T.contiguous()
+        for m in (1, 4, 8, 32):
+            a = rand_q(m, k)
+            for name, spec in specs.items():
+                got = ops.approx_qgemm(a, b, spec, skinny=True, b_t=bt)
+                exact("approx_qgemm_skinny", got,
+                      G.approx_qgemm(a, b, spec),
+                      f"({m},{k},{n}) {name}, K-major weight")
+        splits, gran = qgemm.skinny_splits(k, n)
+        log(f"[kernels] skinny (1-32,{k},{n}): {splits} K split(s) of "
+            f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
+        del a, b, bt
+        torch.cuda.empty_cache()
 
     # fused / stacked: every distinct VGG16 im2col shape, the TinyLlama
     # prefill shapes, odd shapes, every rank; then a K tail that is a whole
@@ -921,37 +974,89 @@ def paged_trace(cfg) -> list:
     return sorted(out, key=lambda r: r.arrival)
 
 
+def gemms_per_step(cfg) -> int:
+    """Approximate GEMMs of one decode step, the LM head left out: 7 per
+    dense layer; mamba2's in and out projections (2 per layer); the
+    hybrid's 6 per recurrent block (its w_rg / w_in run exact) and 7 per
+    attention block (26 x 6 + 12 x 7 = 240 for recurrentgemma-9b)."""
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // 3
+        return 6 * (cfg.n_layers - n_attn) + 7 * n_attn
+    return 7 * cfg.n_layers
+
+
+def flash_per_prefill(cfg) -> int:
+    """Flash launches of one prefill: one per dense layer; none for mamba2
+    (no attention) or the hybrid (its attention is windowed, which the
+    reference routes to the blockwise forward: its flash has no window)."""
+    return cfg.n_layers if cfg.family == "lm" else 0
+
+
 def paged_want(cfg, st: dict, trace, prefill_chunk, spec_k) -> dict:
-    """Kernel launches of one paged run, from the engine's own counts.
+    """Kernel launches of one paged (or slot) run, from the engine's own
+    counts.  G = `gemms_per_step(cfg)`, F = `flash_per_prefill(cfg)`.
 
     Every decode-shaped step (a decode step, a draft or verify step, a
-    chunk step's token) runs 7 x layers GEMMs and the LM head at m <= 32:
-    7L + 1 quantize_rows and skinny launches.  A whole-prompt admission
-    prefills at bucket 128: 7L + 1 quantize_rows, 7L plane 0 (M = 128),
-    one skinny (the head at m = 1) and L flash.  A chunked admission's
-    first chunk prefills `prefill_chunk` = 32 tokens: 7L + 1 quantize_rows
-    and skinny (M = 32 takes skinny) and L flash; every later chunk runs
+    chunk step's token) runs G GEMMs and the LM head at m <= 32: G + 1
+    quantize_rows and skinny launches.  A whole-prompt admission
+    prefills at bucket 128: G + 1 quantize_rows, G plane 0 (M = 128),
+    one skinny (the head at m = 1) and F flash.  A chunked admission's
+    first chunk prefills `prefill_chunk` = 32 tokens: G + 1 quantize_rows
+    and skinny (M = 32 takes skinny) and F flash; every later chunk runs
     one decode step per prompt token it takes (the last chunk unpadded), so
     a chunked prompt of n tokens runs n - `prefill_chunk` of them.  A spec
     step runs spec_k draft and spec_k verify steps.  Every request of the
-    trace finishes its prefill (the phase asserts they all finish by
+    trace finishes its prefill (the phases assert they all finish by
     length)."""
-    n_layers, per_step = cfg.n_layers, 7 * cfg.n_layers + 1
+    per_step, flash = gemms_per_step(cfg) + 1, flash_per_prefill(cfg)
     long = [] if prefill_chunk is None else [
         len(r.tokens) for r in trace if len(r.tokens) > prefill_chunk]
     chunked = len(long)
     whole = st["admitted"] - chunked
     spec_steps = st.get("spec", {}).get("steps", 0)
     chunk_tokens = sum(n - prefill_chunk for n in long)
-    assert st["paged"]["chunked"]["chunks"] == sum(
-        -(-n // prefill_chunk) for n in long), st["paged"]["chunked"]
+    if prefill_chunk is not None and "paged" in st:
+        assert st["paged"]["chunked"]["chunks"] == sum(
+            -(-n // prefill_chunk) for n in long), st["paged"]["chunked"]
     steps = (st["decode_steps"] - spec_steps + 2 * spec_k * spec_steps
              + chunk_tokens)
     return {"quantize_rows": per_step * (steps + whole + chunked),
             "approx_qgemm_skinny": per_step * (steps + chunked) + whole,
             "approx_qgemm_plane0": (per_step - 1) * whole,
-            "flash_attention": n_layers * (whole + chunked),
+            "flash_attention": flash * (whole + chunked),
             "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+
+
+def paged_runs(with_pd: bool = True) -> dict:
+    """The paged phase's runs, by name: (engine class, keyword args).  S4
+    and S8 are slot engines; P, PC, PS and PD paged ones."""
+    from repro_torch.serving import Engine, PagedEngine
+    paged_kw = dict(page_size=16)
+    runs = {
+        "S4": (Engine, dict(capacity=4)),
+        "P": (PagedEngine, dict(capacity=4, **paged_kw)),
+        "PC": (PagedEngine, dict(capacity=4, prefill_chunk=32,
+                                 chunk_budget=1, **paged_kw)),
+        "PS": (PagedEngine, dict(capacity=4, draft_tier=MULT, spec_k=4,
+                                 **paged_kw)),
+    }
+    if with_pd:
+        runs["S8"] = (Engine, dict(capacity=8))
+        # bench_serving.py:134-147: the slot arena's 4 x 256 positions
+        # as 64 pages of 16 plus the trash page, served 8 wide
+        runs["PD"] = (PagedEngine, dict(
+            capacity=8, n_pages=65, prefill_chunk=32, chunk_budget=8,
+            draft_tier="trunc4x4", spec_k=4, **paged_kw))
+    return runs
+
+
+def run_want(cfg, name: str, kw: dict, st: dict, trace) -> dict:
+    """`paged_want` for one run of `paged_runs` (a slot run is a paged
+    run without chunks or drafts)."""
+    return paged_want(cfg, st, trace, kw.get("prefill_chunk"),
+                      kw.get("spec_k", 0) if "draft_tier" in kw else 0)
 
 
 def paged_phase(dev, cfg, card: str) -> dict:
@@ -961,27 +1066,13 @@ def paged_phase(dev, cfg, card: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.models import api
-    from repro_torch.serving import Engine, PagedEngine
+    from repro_torch.serving import PagedEngine
 
     t_phase = time.perf_counter()
     params = api.init_params(cfg, seed=0, device=dev)
     trace = paged_trace(cfg)
     common = dict(max_len=256, prefill_buckets=(128,), device=dev)
-    paged_kw = dict(page_size=16)
-    runs = {
-        "S4": (Engine, dict(capacity=4)),
-        "P": (PagedEngine, dict(capacity=4, **paged_kw)),
-        "PC": (PagedEngine, dict(capacity=4, prefill_chunk=32,
-                                 chunk_budget=1, **paged_kw)),
-        "PS": (PagedEngine, dict(capacity=4, draft_tier=MULT, spec_k=4,
-                                 **paged_kw)),
-        "S8": (Engine, dict(capacity=8)),
-        # bench_serving.py:134-147: the slot arena's 4 x 256 positions
-        # as 64 pages of 16 plus the trash page, served 8 wide
-        "PD": (PagedEngine, dict(capacity=8, n_pages=65, prefill_chunk=32,
-                                 chunk_budget=8, draft_tier="trunc4x4",
-                                 spec_k=4, **paged_kw)),
-    }
+    runs = paged_runs()
     res, engines = {}, {}
     from repro_torch.fleet.meter import DevicePowerModel, EnergyMeter
     # PD runs metered: the paged engine's five meter calls on the card
@@ -1010,9 +1101,7 @@ def paged_phase(dev, cfg, card: str) -> dict:
             eng._alloc.audit()
             assert pg["pages_live"] == 0, pg
             assert pg["alloc_failures"] == 0, pg
-            want = paged_want(cfg, st, trace, kw.get("prefill_chunk"),
-                              kw.get("spec_k", 0) if "draft_tier" in kw
-                              else 0)
+            want = run_want(cfg, name, kw, st, trace)
             assert launches == want, (name, launches, want)
             line += (f"; prefix hits {pg['prefix_hits']} "
                      f"({pg['prefix_hit_tokens']} tokens), stalls "
@@ -1487,6 +1576,386 @@ def fleet_phase(dev, cfg, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: Mamba-2 and RecurrentGemma served at full width
+# ---------------------------------------------------------------------------
+
+#: The recurrent phase's models, in order.  recurrentgemma-9b runs no PD:
+#: its trunc4x4 draft tier would prepare a second 17 GB int8 copy.
+RECURRENT_ARCHS = ("mamba2-370m", "recurrentgemma-9b")
+
+
+def recurrent_gemm_shapes() -> tuple[list, list]:
+    """The recurrent models' approximate GEMMs at full width, as (k, n):
+    the layers' and the LM heads', read off each family's
+    PREPARED_GEMM_WEIGHTS leaves initialised on the meta device."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    layers, heads = set(), set()
+
+    def walk(mod, name, leaf):
+        if isinstance(leaf, dict):
+            for k, v in leaf.items():
+                walk(mod, k, v)
+        elif name in mod.PREPARED_GEMM_WEIGHTS:
+            (heads if name == "lm_head" else layers).add(
+                tuple(leaf.shape[-2:]))
+
+    for arch in RECURRENT_ARCHS:
+        cfg = configs.get_config(arch, mult=MULT, dtype="float32")
+        mod = api.family_module(cfg)
+        walk(mod, "", mod.init_params(cfg, torch.Generator(),
+                                      torch.device("meta")))
+    return sorted(layers), sorted(heads)
+
+
+def chunked_slot_engine():
+    """A slot `Engine` class whose admissions prefill as the paged
+    engine's chunked prefill does (`prefill_chunk` tokens through
+    `api.prefill`, the rest through `api.chunk_step` in unpadded pieces of
+    `prefill_chunk`, the first token drawn from the last piece's logits):
+    the slot twin of mamba2's runs PC and PD.  The chunked computation is
+    the model's own, and under trunc2x2 mamba2's parts from its
+    whole-prompt prefill by more than its random weights' top-1 / top-2
+    margins, so its PC and PD are held to this twin, which differs from
+    them by nothing but the paged machinery; `prefill_gap` holds the
+    chunked path itself to the whole prefill under exact products."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving import Engine
+
+    class ChunkedSlotEngine(Engine):
+        def __init__(self, *args, prefill_chunk: int = 32, **kw):
+            self.prefill_chunk = prefill_chunk
+            super().__init__(*args, **kw)
+
+        def _prefill_request(self, request):
+            c, n = self.prefill_chunk, len(request.tokens)
+            if n <= c:
+                return super()._prefill_request(request)
+            toks = np.asarray(request.tokens, np.int64)[None]
+
+            def piece(a):
+                return torch.from_numpy(toks[:, a:a + c]).to(self.device)
+
+            _, cache = api.prefill(
+                self.exec_params, piece(0), self.cfg, self._spec,
+                max_len=self.max_len,
+                true_len=torch.tensor([c], dtype=torch.int32,
+                                      device=self.device))
+            for pos in range(c, n, c):
+                logits, cache = api.chunk_step(self.exec_params, cache,
+                                               piece(pos), self.cfg,
+                                               self._spec)
+            return logits[:, -1], cache
+
+    return ChunkedSlotEngine
+
+
+#: Whole vs chunked prefill under exact products: the largest logit gap
+#: allowed (measured 1.5e-5 for mamba2, 7.5e-5 for the 9B, on logits of
+#: about 4 and 9).
+EXACT_PREFILL_GAP = 1e-3
+
+
+def prefill_gap(dev, cfg, params, trace, count: int = 3) -> None:
+    """Whole-prompt prefill (bucket 128) against the chunked one (32
+    tokens, then chunk_step) on the `count` shortest chunked prompts,
+    under the serving multiplier and under exact: the largest logit gap,
+    the whole prefill's top-1 / top-2 margin, and whether the greedy
+    tokens agree.  Under exact the gap must be within EXACT_PREFILL_GAP
+    and the greedy tokens equal: the chunked path on the card is held to
+    the whole prefill where no int8 code can flip."""
+    import torch
+    from repro_torch.models import api
+
+    prompts = sorted((r for r in trace if len(r.tokens) > 32),
+                     key=lambda r: len(r.tokens))[:count]
+    held = []
+    for mult in (cfg.mult, "exact"):
+        spec = api.make_spec(cfg, mult=mult, device=dev)
+        p = api.prepare_params(params, cfg, spec) if spec else params
+        parts = []
+        for r in prompts:
+            n = len(r.tokens)
+            toks = torch.zeros((1, 128), dtype=torch.long, device=dev)
+            toks[0, :n] = torch.tensor(r.tokens, device=dev)
+            whole, _ = api.prefill(p, toks, cfg, spec, max_len=256,
+                                   true_len=torch.tensor(
+                                       [n], dtype=torch.int32, device=dev))
+            _, cache = api.prefill(p, toks[:, :32], cfg, spec, max_len=256,
+                                   true_len=torch.tensor(
+                                       [32], dtype=torch.int32, device=dev))
+            chunked, _ = api.chunk_step(p, cache, toks[:, 32:n], cfg, spec)
+            top = torch.topk(whole[0], 2).values
+            gap = (whole - chunked[:, -1]).abs().max().item()
+            argmax = bool(whole.argmax() == chunked[0, -1].argmax())
+            parts.append(
+                f"{r.request_id} (n {n}) gap {gap:.3e}, "
+                f"margin {(top[0] - top[1]).item():.3e}, argmax "
+                f"{'equal' if argmax else 'differs'}")
+            if mult == "exact":
+                held.append((r.request_id, gap, argmax))
+        log(f"[recurrent] {cfg.name} whole vs chunked prefill, {mult}: "
+            + "; ".join(parts))
+        del p
+    assert all(g <= EXACT_PREFILL_GAP and a for _, g, a in held), \
+        (cfg.name, held, EXACT_PREFILL_GAP)
+
+
+def _gb(nbytes: float) -> str:
+    return f"{nbytes / 1e9:.3f} GB"
+
+
+def _prepared_bytes(tree) -> int:
+    """Bytes of the int8 copies (`wq`, `wq_t`) in a prepared param tree."""
+    from repro_torch.approx import gemm as G
+    if isinstance(tree, dict):
+        return sum(_prepared_bytes(v) for v in tree.values())
+    if not G.is_prepared(tree):
+        return 0
+    return tree.wq.numel() + (tree.wq_t.numel() if tree.wq_t is not None
+                              else 0)
+
+
+def recurrent_serving(dev, cfg, card: str) -> dict:
+    """One recurrent model at full width and depth through the slot and
+    paged engines on `paged_trace`'s ten requests (tokens in the model's
+    vocabulary): S4, P, PS and PC, each held to S4; for mamba2, PC is held
+    instead to C4, the slot engine admitting through the same chunked
+    prefill (`chunked_slot_engine`), and PD to C8.  Each paged run
+    token-identical to its slot engine, audit clean, no live page, every
+    run's launches equal to `paged_want`'s formula; the chunked prefill
+    is held to the whole one under exact (`prefill_gap`) and, for mamba2,
+    C4's agreement with S4 reported.  recurrentgemma-9b's params
+    are prepared once and every engine shares the prepared tree; mamba2's
+    engines prepare their own tiers (PD's trunc4x4 needs the raw
+    weights).  Returns the kernels' launches summed over the runs."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, seed=0, device=dev)
+    n_params = api.param_count(params)
+    with_pd = cfg.name == "mamba2-370m"
+    if not with_pd:
+        params = api.prepare_params(params, cfg)
+    torch.cuda.synchronize()
+    log(f"[recurrent] {cfg.name}: {n_params / 1e9:.3f}B params f32, "
+        f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}; "
+        + ("prepared once, " + _gb(_prepared_bytes(params)) + " int8 "
+           "(wq + wq_t) shared by every engine; " if not with_pd else "")
+        + f"ready in {time.perf_counter() - t0:.1f}s; device memory "
+        f"{_gb(torch.cuda.memory_allocated())}, peak "
+        f"{_gb(torch.cuda.max_memory_allocated())}")
+    trace = paged_trace(cfg)
+    prefill_gap(dev, cfg, params, trace)
+    common = dict(max_len=256, prefill_buckets=(128,), device=dev)
+    runs = paged_runs(with_pd)
+    twin = chunked_slot_engine()
+    names = ["S4", "P", "PS"] + (["C4", "PC", "C8", "PD"] if with_pd
+                                 else ["PC"])
+    runs["C4"] = (twin, dict(capacity=4, prefill_chunk=32))
+    runs["C8"] = (twin, dict(capacity=8, prefill_chunk=32))
+    res, total, s4 = {}, dict.fromkeys(counters(), 0), None
+    for name in names:
+        cls, kw = runs[name]
+        eng = cls(cfg, params, **common, **kw)
+        for req in trace:
+            eng.submit(req)
+        t_run = time.perf_counter()
+        done, launches = counted(eng.run_until_complete)
+        wall = time.perf_counter() - t_run
+        st = eng.stats()
+        assert len(done) == len(trace), [c.request_id for c in done]
+        for c in done:
+            assert c.finish_reason == "length" and \
+                len(c.tokens) == PAGED_NEW, c
+            assert all(0 <= t < cfg.vocab for t in c.tokens), c.tokens
+        want = run_want(cfg, name, kw, st, trace)
+        assert launches == want, (cfg.name, name, launches, want)
+        line = (f"[recurrent] {cfg.name} {name}: {wall:.2f}s, "
+                f"{st['decode_steps']} decode steps, prefill "
+                f"{st['prefill_s']:.3f}s")
+        if cls is PagedEngine:
+            pg = st["paged"]
+            eng._alloc.audit()
+            assert pg["pages_live"] == 0 and pg["alloc_failures"] == 0, pg
+            assert pg["paged_leaves"] == [], pg
+            line += (f"; prefix hits {pg['prefix_hits']}, chunks "
+                     f"{pg['chunked']['chunks']}")
+        log(line + f"; launches {launches} (= the formula)")
+        res[name] = dict(toks={c.request_id: c.tokens for c in done},
+                         st=st, done=done)
+        for k in total:
+            total[k] += launches[k]
+        if name == "S4":
+            s4 = eng
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    diverged = []
+    for name, base in (("P", "S4"), ("PS", "S4"),
+                       ("PC", "C4" if with_pd else "S4"), ("PD", "C8")):
+        if name not in res:
+            continue
+        for rid, toks in res[name]["toks"].items():
+            want = res[base]["toks"][rid]
+            if toks != want:
+                at = next(i for i, (a, b) in enumerate(zip(toks, want))
+                          if a != b)
+                diverged.append((name, rid, at))
+                log(f"[recurrent] {cfg.name} {name} {rid} diverges from "
+                    f"{base} at token {at}: {toks} vs {want}")
+    assert not diverged, diverged
+    if with_pd:
+        # mamba2's chunked prefill against its whole one under trunc2x2:
+        # reported, not held (the model's own arithmetic parts them)
+        agree = []
+        for rid, toks in sorted(res["C4"]["toks"].items()):
+            same = [a == b for a, b in zip(toks, res["S4"]["toks"][rid])]
+            agree.append(f"{rid} {(same + [False]).index(False)}")
+        log(f"[recurrent] {cfg.name} C4 (chunked prefill) against S4 "
+            f"(whole prefill), tokens equal before the first difference: "
+            + ", ".join(agree))
+    ps = res["PS"]["st"]["spec"]
+    assert ps["acceptance_rate"] == 1.0, ps
+    for name in ("PS", "PD"):
+        for c in res.get(name, {}).get("done", []):
+            assert c.spec.accepted + c.spec.corrections == len(c.tokens), c
+    log(f"[recurrent] {cfg.name}: P and PS token-identical to S4, PC to "
+        f"{'C4, PD to C8' if with_pd else 'S4'} on all {len(trace)} "
+        f"requests; "
+        f"distinct tokens per request "
+        f"in S4: { {r: len(set(t)) for r, t in sorted(res['S4']['toks'].items())} }")
+
+    def per(total_s, count):
+        return f"{total_s / count * 1e3:.2f} ms" if count else "none"
+
+    s4_st, pc_st = res["S4"]["st"], res["PC"]["st"]
+    pc = pc_st["paged"]["chunked"]
+    long = [len(r.tokens) for r in trace if len(r.tokens) > 32]
+    prof = profile_decode(s4, np.random.default_rng(7), cfg, steps=1,
+                          tag=f"recurrent-profile {cfg.name}")
+    busy = "not measured" if prof is None else (
+        f"{sum(e.self_device_time_total for e in prof[0]) / 1e3:.3f} ms "
+        f"device of {prof[1] * 1e3:.2f} ms wall, "
+        f"{sum(e.self_device_time_total for e in prof[0]) / 1e6 / prof[1]:.1%}"
+        " busy")
+    log(f"[recurrent] {cfg.name} ms per prefill (bucket 128) "
+        f"{per(s4_st['prefill_s'], s4_st['admitted'])}, per decode step "
+        f"(S4) {per(s4_st['decode_s'], s4_st['decode_steps'])}, per chunk "
+        f"step (PC, up to 32 decode steps at m = 1) "
+        f"{per(pc['chunk_step_s'], pc['chunks'] - len(long))}, per spec "
+        f"step (PS, 8 decode steps) "
+        f"{per(res['PS']['st']['decode_s'], ps['steps'])}; one profiled "
+        f"decode step: {busy}; peak device memory "
+        f"{_gb(torch.cuda.max_memory_allocated())} ({card})")
+    del s4, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def recurrent_phase(dev, card: str) -> dict:
+    """The recurrent families on the card, after the TinyLlama phases'
+    tensors are freed.  Returns {arch: launches per kernel}."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[recurrent] device memory held before the phase: "
+        f"{_gb(torch.cuda.memory_allocated())}")
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        cfg = configs.get_config(arch, mult=MULT, kernel_policy="pallas",
+                                 dtype="float32")
+        out[arch] = recurrent_serving(dev, cfg, card)
+    log(f"[recurrent] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def recurrent_check_phase(dev) -> None:
+    """Both recurrent models at full width and reduced depth, served once
+    through the kernels and once through the plain versions on the card:
+    mamba2 at 2 layers on 512-token prompts (the SSD crosses two 256-token
+    chunks), the hybrid at 4 layers (a superblock and a tail block) with
+    the window cut to 64 under 128-token prompts, so the rings wrap.
+    Logits compared, greedy tokens equal; the plain run launches no
+    kernel."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    cases = (("mamba2-370m", dict(n_layers=2), 512, [512, 300, 257, 100]),
+             ("recurrentgemma-9b", dict(n_layers=4, window=64), 128,
+              [128, 77, 40, 101]))
+    for arch, over, s, lens in cases:
+        cfg = configs.get_config(arch, mult=MULT, dtype="float32", **over)
+        params = api.init_params(cfg, seed=1, device=dev)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, s))).to(dev)
+        true_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        g = gemms_per_step(cfg)
+        runs = {}
+        for policy in ("pallas", "xla"):
+            c = dataclasses.replace(cfg, kernel_policy=policy)
+            spec = api.make_spec(c, device=dev)
+            p = api.prepare_params(params, c, spec)
+            (logits, cache), n = counted(lambda: api.prefill(
+                p, tokens, c, spec, true_len=true_len))
+            want = dict.fromkeys(n, 0)
+            if policy == "pallas":
+                want.update(quantize_rows=g + 1, approx_qgemm_plane0=g,
+                            approx_qgemm_skinny=1)
+            assert n == want, (arch, policy, n, want)
+            runs[policy] = [c, spec, p, cache, logits]
+        tol = 1e-4     # the kernels are bit-exact with their plain versions
+        diffs, match = [], []
+        for step in range(9):
+            lp, lx = runs["pallas"][4], runs["xla"][4]
+            if step:
+                lp, lx = lp[:, -1], lx[:, -1]
+            assert torch.isfinite(lp).all() and lp.shape == (4, cfg.vocab)
+            diffs.append((lp - lx).abs().max().item())
+            tok = lp.argmax(-1)
+            match.append((tok == lx.argmax(-1)).float().mean().item())
+            if step == 8:
+                break
+            for run in runs.values():
+                c, spec, p, cache, _ = run
+                run[4], run[3] = api.decode_step(p, cache, tok[:, None], c,
+                                                 spec)
+        log(f"[recurrent-check] {arch} {over}, full width, prompts {lens}, "
+            f"kernels vs plain on the card: prefill logits max|diff| "
+            f"{diffs[0]:.3e}, decode steps 1-8 max|diff| "
+            f"{max(diffs[1:]):.3e} (limit {tol:g}; |logits| <= "
+            f"{lx.abs().max().item():.3f}), greedy token match "
+            f"{sum(match) / len(match):.3f}")
+        assert max(diffs) <= tol, diffs
+        assert all(m == 1.0 for m in match), match
+        del runs, params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def check_phase(dev, cfg_full, mult: str, attn_impl: str) -> None:
     """Kernels vs plain versions through the whole model on the card.
 
@@ -1575,7 +2044,8 @@ def flash_witness(runs: dict, tokens, true_len) -> None:
     c, spec, p = runs["pallas"][:3]
     cx, spec_x, px = runs["xla"][:3]
     b, s = tokens.shape
-    lp, lpx = T._layer(p["layers"], 0), T._layer(px["layers"], 0)
+    lp = C.block_params(p["layers"], 0)
+    lpx = C.block_params(px["layers"], 0)
     with torch.no_grad():
         x = C.rmsnorm(AL.embed(tokens, p["embed"]), lp["ln1"])
         positions = torch.arange(s, device=tokens.device)[None, :]
@@ -2104,6 +2574,9 @@ def main() -> int:
     paged_launches = paged_phase(dev, cfg, card)
     fleet_launches = fleet_phase(dev, cfg, card)
     log(f"[fleet] {time.perf_counter() - t_start:.1f}s")
+    recurrent_launches = recurrent_phase(dev, card)
+    recurrent_check_phase(dev)
+    log(f"[recurrent] {time.perf_counter() - t_start:.1f}s")
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -2120,6 +2593,8 @@ def main() -> int:
         assert row["launches"] > 0, row["name"]
         row["paged_launches"] = paged_launches[row["name"]]
         row["fleet_launches"] = fleet_launches[row["name"]]
+        row["recurrent_launches"] = {
+            arch: n[row["name"]] for arch, n in recurrent_launches.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

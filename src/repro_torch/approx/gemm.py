@@ -184,15 +184,23 @@ def is_prepared(w) -> bool:
 def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
     """Quantize (per-output-channel) and pre-map a static weight for the
     spec.  Identity for exact/absent specs.  Accepts stacked (..., k, n)
-    leaves; scales reduce over the contraction dim only.  The pre-mapped
+    leaves (quantized one matrix at a time); scales reduce over the
+    contraction dim only.  The pre-mapped
     planes serve the plain path only, so a "pallas"-pinned policy skips
     them; the K-major copy serves the plane-0, fused and skinny kernels,
     so it is made where the kernels run."""
     if spec is None or spec.is_exact or is_prepared(w):
         return w
     from repro_torch.kernels import dispatch
-    keep = tuple(i for i in range(w.ndim) if i != w.ndim - 2)
-    wq, sw = quant.quantize(w, axis=keep)
+    # one (k, n) matrix at a time: the scales reduce over k only, so this
+    # is the whole-stack quantization, with f32 temporaries of one matrix
+    # (a (12, 2, 4096, 12288) stack whole would need several of 4.8 GB)
+    lead = w.shape[:-2]
+    wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    sw = torch.empty((*lead, 1, w.shape[-1]), dtype=torch.float32,
+                     device=w.device)
+    for idx in np.ndindex(*lead):
+        wq[idx], sw[idx] = quant.quantize(w[idx], axis=1)
     no_planes = torch.zeros((*w.shape[:-2], 0, *w.shape[-2:]),
                             dtype=torch.int8, device=w.device)
     if dispatch.resolve(spec.policy) == "pallas":
@@ -207,7 +215,7 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
     wq_t = None
     if dispatch.use_kernels(spec.policy, w.device):
         wq_t = wq.transpose(-1, -2).contiguous()
-    return PreparedWeight(w=w, wq=wq, sw=sw.to(torch.float32),
+    return PreparedWeight(w=w, wq=wq, sw=sw,
                           planes=planes, mode=spec.mode, mult=spec.name,
                           wq_t=wq_t)
 

@@ -6,8 +6,11 @@
 
 Submits a batch of synthetic prompts as requests, serves them through the
 engine's prefill-then-join decode loop on the CUDA device, and reports
-per-phase latency and tokens/s.  `--device cpu` runs the plain PyTorch
-versions instead (use `--reduced` there).
+per-phase latency and tokens/s.  `--arch` takes any config of a ported
+family: the dense `lm` ones, `mamba2-370m` and `recurrentgemma-9b`
+(mamba2's prompt length must be at most its SSD chunk, 256, or a
+multiple of it).  `--device cpu` runs the plain PyTorch versions instead
+(use `--reduced` there).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""Unified model API for the `lm` family: spec resolution, init, the
-serving weight-plane cache, and the prefill / decode pair the serving
-engine drives.  Same signatures as the JAX package's `repro.models.api`,
+"""Unified model API for the `lm`, `ssm` and `hybrid` families: spec
+resolution, init, the serving weight-plane cache, and the prefill /
+decode / chunk steps the serving engines drive.  Same signatures as the JAX package's `repro.models.api`,
 plus an explicit `device` where something is created.
 """
 
@@ -13,16 +13,19 @@ import torch
 from repro_torch.approx import gemm as gemm_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, rglru, transformer
 
 Params = dict[str, Any]
 
+_FAMILIES = {"lm": transformer, "ssm": mamba2, "hybrid": rglru}
+
 
 def family_module(cfg: ModelConfig):
-    if cfg.family != "lm":
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (only 'lm')")
-    return transformer
+            f"family {cfg.family!r} is not ported yet "
+            f"(ported: {sorted(_FAMILIES)})")
+    return _FAMILIES[cfg.family]
 
 
 def make_spec(cfg: ModelConfig, mult: str | None = None,
@@ -82,8 +85,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig, spec=None) -> tuple[torch.Tensor, dict]:
-    """tokens (b, 1) -> (logits (b, 1, v), cache with length + 1); the
-    cache's K/V buffers are updated in place."""
+    """tokens (b, 1) -> (logits (b, 1, v), cache with length + 1).  K/V
+    buffers (the dense family's, the hybrid's rings) are updated in place;
+    recurrent states come back as fresh tensors."""
     return family_module(cfg).decode_step(params, cache, tokens, cfg, spec)
 
 
@@ -99,27 +103,25 @@ def chunk_step(params: Params, cache: dict, tokens: torch.Tensor,
     ops a token-by-token decode runs.  `n_valid` (an int, or a one-element
     tensor) masks the tail of a right-padded final chunk: steps at index
     >= n_valid leave the cache as it was, as the JAX package's masked scan
-    does.  Since `decode_step` writes K/V in place, those steps run on a
-    scratch copy of the cache (each starts from the state after the valid
-    steps and writes only the row at its length, which it reads back, so
-    the copy gives the masked scan's logits too); the paged engine passes
-    its last chunk unpadded and runs no masked step.  Returns (logits (1, c,
-    vocab) — position i holds the logits AFTER consuming tokens[:, i] —
-    and the advanced cache).  Restricted to b == 1: the partial-prefill
-    workspace is per-request."""
+    does.  Since `decode_step` writes K/V in place, each of those steps
+    runs on a scratch copy of the state after the valid steps, which also
+    gives it the masked scan's logits; the paged engine passes its last
+    chunk unpadded and runs no masked step.  Returns (logits (1, c, vocab)
+    — position i holds the logits AFTER consuming tokens[:, i] — and the
+    advanced cache).  Restricted to b == 1: the partial-prefill workspace
+    is per-request."""
     b, c = tokens.shape
     if b != 1:
         raise ValueError(f"chunk_step is single-request (got batch {b})")
     n = c if n_valid is None else int(n_valid)
-    logits, kept = [], None
+    logits = []
     for i in range(c):
-        if i == n:
-            kept = cache
-            cache = {k: v.clone() for k, v in cache.items()}
-        lg, new = decode_step(params, cache, tokens[:, i:i + 1], cfg, spec)
+        src = cache if i < n else {k: v.clone() for k, v in cache.items()}
+        lg, new = decode_step(params, src, tokens[:, i:i + 1], cfg, spec)
         logits.append(lg[:, -1])
-        cache = new if kept is None else dict(new, length=cache["length"])
-    return torch.stack(logits, dim=1), (cache if kept is None else kept)
+        if i < n:
+            cache = new
+    return torch.stack(logits, dim=1), cache
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """Shared model components: norms, RoPE, attention (naive / chunked /
-flash / decode), the KV-cache helpers, SwiGLU.
+flash / windowed / decode), the KV-cache and padding helpers, SwiGLU and
+the tanh-approximate GELU.
 
 All matmuls of the projections route through approx.layers so every model
 can run under a candidate approximate multiplier (`spec`).  Softmax, norms
@@ -20,6 +21,18 @@ from repro_torch.approx import layers as AL
 
 MultSpec = gemm_mod.MultSpec
 Params = dict[str, Any]
+
+
+def block_params(tree: Params, *index: int) -> Params:
+    """One block's params out of a layer-stacked tree: each leaf indexed
+    by `index` along its leading stack axes (a `PreparedWeight` through
+    `.layer`)."""
+    out = {}
+    for k, v in tree.items():
+        for i in index:
+            v = v.layer(i) if gemm_mod.is_prepared(v) else v[i]
+        out[k] = v
+    return out
 
 
 # --- norms ------------------------------------------------------------------
@@ -145,12 +158,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(q, k, v, impl: str = "chunked", chunk: int = 512,
               causal: bool = True, window: int = 0,
               policy: str | None = None) -> torch.Tensor:
-    """Dispatch.  "flash" takes the kernel when the dispatch policy says so
-    for this device (kernels/dispatch.py) and the plain chunked forward
-    otherwise; "chunked" is the plain online-softmax forward; "naive"
-    materializes the scores."""
+    """Dispatch.  A `window` takes the windowed blockwise forward
+    (models/attention.py), whatever `impl` says, as the JAX package routes
+    it: its flash kernel has no window.  Otherwise "flash" takes the
+    kernel when the dispatch policy says so for this device
+    (kernels/dispatch.py) and the plain chunked forward otherwise;
+    "chunked" is the plain online-softmax forward; "naive" materializes
+    the scores."""
     if window:
-        raise NotImplementedError("windowed attention is not ported yet")
+        from repro_torch.models.attention import blockwise_attention
+        return blockwise_attention(q, k, v, chunk, True, window)
     if impl == "naive":
         return naive_attention(q, k, v, causal)
     if impl == "flash":
@@ -212,6 +229,29 @@ def last_valid_slice(h: torch.Tensor,
     return h[torch.arange(h.shape[0], device=h.device), idx][:, None]
 
 
+def tail_window(x: torch.Tensor, true_len: torch.Tensor | None,
+                width: int) -> torch.Tensor:
+    """Last `width` valid steps of x (b, s, ch) -> (b, width, ch).  Rows
+    shorter than `width` are zero-filled on the left, as a causal conv
+    state would have seen them."""
+    if true_len is None:
+        return x[:, -width:]
+    xp = F.pad(x, (0, 0, width, 0))
+    start = torch.clamp(true_len, 0, x.shape[1]).long()
+    idx = start[:, None] + torch.arange(width, device=x.device)[None, :]
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return xp[rows, idx]
+
+
+def valid_mask(true_len: torch.Tensor | None, b: int,
+               s: int) -> torch.Tensor | None:
+    """(b, s) f32 mask of valid (non-pad) positions, or None."""
+    if true_len is None:
+        return None
+    pos = torch.arange(s, device=true_len.device)
+    return (pos[None, :] < true_len[:, None]).to(torch.float32)
+
+
 def prefill_length(true_len: torch.Tensor | None, s: int,
                    device=None) -> torch.Tensor:
     """Cache "length" after prefilling s tokens: per-row (b,) with a
@@ -231,6 +271,23 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16:
         return x * (1 / (1 + torch.exp(-x)))
     return F.silu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` (tanh approximation, its default).  In bf16 the
+    reference's formula rounds after every op, as `silu` does; in f32 the
+    one-op F.gelu is kept."""
+    if x.dtype == torch.bfloat16:
+        c = torch.tensor(0.7978845608028654, dtype=x.dtype)
+        cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x))))
+        return x * cdf
+    return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`, i.e. logaddexp(x, 0), in the reference's form:
+    max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down,

@@ -16,7 +16,6 @@ from typing import Any
 
 import torch
 
-from repro_torch.approx import gemm as gemm_mod
 from repro_torch.approx import layers as AL
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
@@ -85,11 +84,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return p
 
 
-def _layer(layers: Params, i: int) -> Params:
-    return {k: (v.layer(i) if gemm_mod.is_prepared(v) else v[i])
-            for k, v in layers.items()}
-
-
 def _head(params: Params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -154,7 +148,7 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
     h = AL.embed(tokens, params["embed"])
     length = C.cache_lengths(cache, b)
     for i in range(cfg.n_layers):
-        h = _decode_block(h, _layer(params["layers"], i), cache["k"][i],
+        h = _decode_block(h, C.block_params(params["layers"], i), cache["k"][i],
                           cache["v"][i], length, cfg, spec)
     h = C.rmsnorm(h, params["final_norm"])
     logits = AL.gemm(h, _head(params, cfg), spec)
@@ -180,7 +174,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     ks = torch.zeros(shape, dtype=dtype, device=tokens.device)
     vs = torch.zeros(shape, dtype=dtype, device=tokens.device)
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = C.block_params(params["layers"], i)
         x = C.rmsnorm(h, lp["ln1"])
         q, k, v = _qkv(x, lp, cfg, spec, positions)
         attn = C.attention(q, k, v, impl=cfg.attn_impl, chunk=cfg.attn_chunk,

@@ -19,22 +19,25 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 
 
-def _convert(tree, dev: torch.device, dtype: torch.dtype):
-    """Nested dicts and lists of arrays -> the same nesting of tensors."""
+def _convert(tree, dev: torch.device, dtype: torch.dtype | None):
+    """Nested dicts and lists of arrays -> the same nesting of tensors,
+    each of `dtype`, or of its own floating dtype when `dtype` is None."""
     if isinstance(tree, dict):
         return {k: _convert(v, dev, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_convert(v, dev, dtype) for v in tree]
     arr = np.asarray(tree)
     t = torch.from_numpy(np.ascontiguousarray(arr.astype(np.float32)))
-    return t.to(device=dev, dtype=dtype)
+    return t.to(device=dev, dtype=dtype or getattr(torch, arr.dtype.name))
 
 
 def from_reference(params_np: dict, cfg: ModelConfig,
                    device: str | torch.device | None = None) -> dict:
+    """The reference's param tree (numpy leaves, nested dicts such as the
+    hybrid's rec / attn / rec_tail) -> the port's, each leaf at the
+    reference leaf's own dtype."""
     api.family_module(cfg)      # raises for a family that is not ported
-    return _convert(params_np, resolve_device(device),
-                    getattr(torch, cfg.dtype))
+    return _convert(params_np, resolve_device(device), None)
 
 
 def cnn_from_reference(params_np: dict,

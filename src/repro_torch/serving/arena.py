@@ -1,13 +1,15 @@
 """Decode-state arenas: the slot arena and the paged arena.
 
 `SlotArena` is the model's decode cache allocated once at `capacity` slots
-(K/V (L, capacity, max_len, kv, hd) and a per-slot (capacity,) length).
-Admitting a request copies its single-row prefill cache into a free slot
-in place.
+(every leaf of `api.init_cache` at the capacity, and a per-slot
+(capacity,) length).  Admitting a request copies every leaf of its
+single-row prefill cache into a free slot in place, along the leaf's slot
+axis, which is found structurally.
 
 `PagedArena` keeps the cache leaves that scale with `max_len` as page
 pools addressed through per-request block tables (the paged engine's
-layout); every other leaf stays a dense per-slot leaf.
+layout); every other leaf (SSM states, conv tails, attention rings, the
+lengths) stays a dense per-slot leaf.
 """
 
 from __future__ import annotations
@@ -16,6 +18,24 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+
+
+def _probe(cfg: ModelConfig, batch: int, length: int) -> dict:
+    """The decode cache's shapes at `batch` and `length`, on the meta
+    device, with the per-slot (batch,) length the arenas keep."""
+    meta = torch.device("meta")
+    cache = api.init_cache(cfg, batch, length, meta)
+    cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=meta)
+    return cache
+
+
+def _slot_axes(cfg: ModelConfig, max_len: int) -> dict[str, int]:
+    """Each leaf's slot axis, probed at batch 1 against batch 2 (so a
+    capacity-1 arena has one too)."""
+    one, two = _probe(cfg, 1, max_len), _probe(cfg, 2, max_len)
+    if set(one) != set(two):
+        raise ValueError("cache keys depend on the batch size")
+    return {key: _slot_axis(one[key].shape, two[key].shape) for key in one}
 
 
 class SlotArena:
@@ -28,14 +48,14 @@ class SlotArena:
         cache["length"] = torch.zeros((capacity,), dtype=torch.int32,
                                       device=device)
         self.cache = cache
+        self.slot_axes = _slot_axes(cfg, max_len)
 
     def insert(self, req_cache: dict, slot: int) -> None:
-        """Copy a 1-row prefill cache (built with max_len=self.max_len and
-        a true_len vector) into `slot`."""
-        for key in ("k", "v"):
-            self.cache[key][:, slot] = req_cache[key][:, 0].to(
-                self.cache[key].dtype)
-        self.cache["length"][slot] = req_cache["length"].reshape(-1)[0]
+        """Copy every leaf of a 1-row prefill cache (built with
+        max_len=self.max_len and a true_len vector) into `slot`."""
+        for key, c in self.cache.items():
+            dst = c.narrow(self.slot_axes[key], slot, 1)
+            dst.copy_(req_cache[key].reshape(dst.shape))
 
 
 def _slot_axis(req_shape: tuple, arena_shape: tuple) -> int:
@@ -54,8 +74,9 @@ def _slot_axis(req_shape: tuple, arena_shape: tuple) -> int:
 class PagedArena:
     """Paged decode state.  Cache leaves that scale with `max_len` become
     page POOLS — one global rows axis of `n_pages * page_size` positions —
-    addressed through per-request block tables; every other leaf (the
-    per-slot lengths) stays a dense per-slot leaf.
+    addressed through per-request block tables; every other leaf (SSM
+    states, conv tails, attention rings, the per-slot lengths) stays a
+    dense per-slot leaf.
 
     Which leaves page is discovered structurally, never by name: a leaf
     pages iff probing `api.init_cache` (on the meta device) at `max_len`
@@ -68,8 +89,10 @@ class PagedArena:
     Decode reads the pools through `view()`, a gather into fresh tensors
     that reconstructs the dense (capacity, max_len) cache the slot decode
     consumes, so the model's in-place K/V writes land in the view and never
-    in a pool.  `scatter_rows()` commits one written view row per slot back
-    to the pools; a write that must be dropped (an idle lane, a rejected
+    in a pool.  The view's dense leaves are the arena's own tensors: the
+    engine copies them wherever a step must not advance them.
+    `scatter_rows()` commits one written view row per slot back to the
+    pools; a write that must be dropped (an idle lane, a rejected
     speculative position) goes to flat row 0, the trash page.  Pools start
     at zero and receive only finite K/V: masked attention lanes contribute
     exactly 0 only while stale rows stay finite.
@@ -83,25 +106,16 @@ class PagedArena:
         self.page_size, self.n_pages = page_size, n_pages
         self.device = device
         self.max_pages = -(-max_len // page_size)  # table width
-        meta = torch.device("meta")
-
-        def probe(batch, length):
-            cache = api.init_cache(cfg, batch, length, meta)
-            cache["length"] = torch.zeros((batch,), dtype=torch.int32,
-                                          device=meta)
-            return cache
-
-        dense, ref = probe(capacity, max_len), probe(1, max_len)
-        two, big = probe(2, max_len), probe(2, 2 * max_len)
-        if not set(dense) == set(ref) == set(two) == set(big):
+        self.slot_axes = _slot_axes(cfg, max_len)
+        dense = _probe(cfg, capacity, max_len)
+        two, big = _probe(cfg, 2, max_len), _probe(cfg, 2, 2 * max_len)
+        if not set(dense) == set(self.slot_axes) == set(big):
             raise ValueError("cache keys depend on batch/max_len")
-        self.slot_axes: dict[str, int] = {}
         self.paged: dict[str, int] = {}   # key -> pool rows axis
         cache = {}
         for key in sorted(dense):
             a, g = two[key].shape, big[key].shape
-            sax = _slot_axis(ref[key].shape, a)
-            self.slot_axes[key] = sax
+            sax = self.slot_axes[key]
             grew = [i for i, (x, y) in enumerate(zip(a, g)) if x != y]
             if (key != "length" and len(grew) == 1
                     and a[grew[0]] == max_len and g[grew[0]] == 2 * max_len

@@ -71,7 +71,7 @@ class Engine:
     """Slot-based continuous-batching engine.
 
     Args:
-      cfg: model config (the dense `lm` family).
+      cfg: model config (the `lm`, `ssm` or `hybrid` family).
       params: model params; initialized from `seed` when None.
       capacity: decode-arena slots (max concurrent requests).
       max_len: arena sequence horizon; prompt_len + max_new_tokens - 1
@@ -233,19 +233,25 @@ class Engine:
             self.seed * 1_000_003 + 1 + self._admitted
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def _admit(self, request: Request, ready_wall: float,
-               slot_id: int) -> None:
-        sp = request.sampling
+    def _prefill_request(self, request: Request) -> tuple:
+        """The whole prompt right-padded to its bucket, prefilled: (logits
+        of its last token (1, vocab), its 1-row cache at max_len)."""
         n = len(request.tokens)
         bucket = next(b for b in self.buckets if b >= n)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n] = np.asarray(request.tokens, np.int64)
-        t0 = time.perf_counter()
-        logits, req_cache = api.prefill(
+        return api.prefill(
             self.exec_params, torch.from_numpy(padded).to(self.device),
             self.cfg, self._spec, max_len=self.max_len,
             true_len=torch.tensor([n], dtype=torch.int32,
                                   device=self.device))
+
+    def _admit(self, request: Request, ready_wall: float,
+               slot_id: int) -> None:
+        sp = request.sampling
+        n = len(request.tokens)
+        t0 = time.perf_counter()
+        logits, req_cache = self._prefill_request(request)
         gen = self._request_generator(sp)
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])

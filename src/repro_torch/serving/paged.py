@@ -13,7 +13,12 @@ inherited.  Three capabilities stack, each optional but the first:
      pages mid-request), prefix sharing and copy-on-write bookkeeping.
      Each step gathers a dense per-slot view that holds, at every valid
      position, exactly what the slot arena holds, so paged serving emits
-     exactly the tokens the slot engine emits.
+     exactly the tokens the slot engine emits.  Leaves that do not scale
+     with `max_len` (SSM states, conv tails, the hybrid's attention rings)
+     stay dense per-slot leaves: a decode step commits them whole, the
+     draft runs on copies, and verify keeps a per-step snapshot of them
+     and sets each lane to its snapshot at its last emitted position, as
+     the JAX package's `_sel` / `_pick_snap` do.
   2. **Chunked prefill** (`prefill_chunk=c`): prompts longer than `c`
      prefill in `c`-token chunks, at most `chunk_budget` chunks per tick,
      interleaved with decode.  The first chunk is a `prefill` of `c`
@@ -158,12 +163,9 @@ class PagedEngine(Engine):
                                  self.page_size, self.n_pages, self.device)
         self._table = torch.zeros((capacity, self._arena.max_pages),
                                   dtype=torch.int64, device=self.device)
-        dense = set(self._arena.cache) - set(self._arena.paged) - {"length"}
-        if dense:
-            # draft and verify run in place on the view; a dense state leaf
-            # would need the JAX package's per-step snapshots
-            raise NotImplementedError(
-                f"{self.cfg.name}: cache leaves {sorted(dense)} do not page")
+        # the leaves that do not page, besides the lengths
+        self._dense = sorted(set(self._arena.cache) - set(self._arena.paged)
+                             - {"length"})
         self._all_lanes = torch.ones((capacity,), dtype=torch.bool,
                                      device=self.device)
         self._init_lanes()
@@ -243,16 +245,8 @@ class PagedEngine(Engine):
         token draw (same bucket, same ops, same generator), then a paged
         insert in place of the slot insert."""
         sp = request.sampling
-        n = len(request.tokens)
-        bucket = next(b for b in self.buckets if b >= n)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = np.asarray(request.tokens, np.int64)
         t0 = time.perf_counter()
-        logits, req_cache = api.prefill(
-            self.exec_params, torch.from_numpy(padded).to(self.device),
-            self.cfg, self._spec, max_len=self.max_len,
-            true_len=torch.tensor([n], dtype=torch.int32,
-                                  device=self.device))
+        logits, req_cache = self._prefill_request(request)
         gen = self._request_generator(sp)
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
@@ -436,7 +430,8 @@ class PagedEngine(Engine):
     def _decode(self) -> np.ndarray:
         """Non-speculative paged decode: gather the dense view, run the
         slot engine's decode and sampling, commit each lane's one new K/V
-        row to its page (idle lanes write the trash page)."""
+        row to its page (idle lanes write the trash page) and the dense
+        leaves whole, as the slot engine keeps them."""
         cache = self._arena.cache
         old_len = cache["length"]
         view = self._arena.view(cache, self._table)
@@ -446,15 +441,19 @@ class PagedEngine(Engine):
                                      self._topks, self._gens)
         self._arena.scatter_rows(cache, view, self._table, old_len,
                                  self._all_lanes)
+        for key in self._dense:
+            cache[key] = view[key]
         cache["length"] = view["length"]
         self._tok = tok[:, None]
         return tok.cpu().numpy()              # syncs the step
 
     def _draft_tokens(self) -> torch.Tensor:
-        """Draft `spec_k` greedy tokens per lane on a throwaway view —
-        nothing escapes but the proposals, so the draft tier never touches
-        KV pages.  Returns (capacity, spec_k)."""
-        view = self._arena.view(self._arena.cache, self._table)
+        """Draft `spec_k` greedy tokens per lane on a throwaway view (its
+        dense leaves copied, since the view shares the arena's) — nothing
+        escapes but the proposals, so the draft tier never touches the
+        arena.  Returns (capacity, spec_k)."""
+        view = self._own_dense(
+            self._arena.view(self._arena.cache, self._table))
         tok, out = self._tok, []
         for _ in range(self.spec_k):
             logits, view = api.decode_step(self._draft_exec, view, tok,
@@ -471,9 +470,13 @@ class PagedEngine(Engine):
         generator (sampled); commit only the K/V rows of emitted positions
         (the rest go to the trash page); the length advances by the
         emitted count.  Lanes past their `k_row` are frozen: their length
-        stays and their K/V rows are never committed.  Each live row is
-        taken right after the step that writes it, since a frozen lane at
-        max_len rewrites (clamped) its last row.  Returns (emitted
+        and dense state stay and their K/V rows are never committed.  Each
+        live row is taken right after the step that writes it, since a
+        frozen lane at max_len rewrites (clamped) its last row.  Each step
+        runs on copies of the dense leaves and keeps the lane-selected
+        result as a snapshot; each lane's dense state becomes its snapshot
+        at its last emitted position (step m - 1; step 0, the frozen
+        state, for a lane that emits nothing).  Returns (emitted
         (capacity, k), emitted count m, accepted count a)."""
         arena, k, cap = self._arena, self.spec_k, self.capacity
         cache = arena.cache
@@ -481,14 +484,19 @@ class PagedEngine(Engine):
         kr = torch.from_numpy(k_row).to(self.device)
         lanes = torch.arange(cap, device=self.device)
         view = arena.view(cache, self._table)
-        tok, lgs, rows = self._tok, [], []
+        tok, lgs, rows, snaps = self._tok, [], [], []
         for i in range(k):
             pos = torch.clamp(old_len + i, max=self.max_len - 1).long()
-            logits, new = api.decode_step(self.exec_params, view, tok,
+            logits, new = api.decode_step(self.exec_params,
+                                          self._own_dense(view), tok,
                                           self.cfg, self._spec)
             live = kr > i
             new["length"] = torch.where(live, new["length"], view["length"])
+            for key in self._dense:
+                new[key] = _sel(live, new[key], view[key],
+                                arena.slot_axes[key])
             view = new
+            snaps.append({key: view[key] for key in self._dense})
             lgs.append(logits[:, -1])
             rows.append({key: view[key].movedim((ax, ax + 1), (0, 1))[
                 lanes, pos] for key, ax in arena.paged.items()})
@@ -512,11 +520,20 @@ class PagedEngine(Engine):
         for key, ax in arena.paged.items():
             r = torch.cat([rw[key] for rw in rows]).movedim(0, ax)
             cache[key].index_copy_(ax, flat, r.to(cache[key].dtype))
+        last = torch.from_numpy(np.maximum(m - 1, 0)).to(self.device)
+        for key in self._dense:
+            cache[key] = _pick_snap([sn[key] for sn in snaps], last,
+                                    arena.slot_axes[key])
         cache["length"] = old_len + mt.to(old_len.dtype)
         self._tok = torch.from_numpy(
             emitted[host_lanes, np.maximum(m - 1, 0)][:, None]).to(
                 self.device)
         return emitted, m, a
+
+    def _own_dense(self, view: dict) -> dict:
+        """`view` with copies of its dense leaves, which a decode step may
+        then advance (or write in place) without touching the originals."""
+        return dict(view, **{key: view[key].clone() for key in self._dense})
 
     def _spec_step(self, decoding: list[int]) -> None:
         """Draft + verify one speculative step: greedy lanes emit up to
@@ -591,3 +608,20 @@ class PagedEngine(Engine):
                 "acceptance_rate": (tot["accepted"] / tot["proposed"]
                                     if tot["proposed"] else 0.0)}
         return out
+
+
+def _sel(live: torch.Tensor, new: torch.Tensor, old: torch.Tensor,
+         axis: int) -> torch.Tensor:
+    """Per-lane select along the slot `axis`: `new` where the lane is
+    live, `old` where it is frozen."""
+    shape = [1] * new.ndim
+    shape[axis] = live.shape[0]
+    return torch.where(live.reshape(shape), new, old)
+
+
+def _pick_snap(snaps: list, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """Per-lane snapshot pick: lane j takes step `idx[j]`'s leaf among the
+    per-step `snaps` (each with the lanes along `axis`)."""
+    moved = torch.stack(snaps).movedim(axis + 1, 1)          # (k, cap, ...)
+    lanes = torch.arange(idx.shape[0], device=idx.device)
+    return moved[idx, lanes].movedim(0, axis).contiguous()

@@ -523,3 +523,99 @@ def test_cuda_metered_fleet_failover_matches_a_lone_engine(cuda_dev):
         lone.submit(dataclasses.replace(r, arrival=0.0))
     want = {c.request_id: c.tokens for c in lone.run_until_complete()}
     assert {c.request_id: c.tokens for c in comps} == want
+
+
+_RECURRENT = [("mamba2-370m", dict(ssd_chunk=16)),
+              ("recurrentgemma-9b", dict(n_layers=4, window=16))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", _RECURRENT)
+def test_cuda_recurrent_models_kernels_match_plain(cuda_dev, arch, over):
+    """The reduced mamba2 (SSD chunks of 16) and hybrid (4 layers, window
+    16) on the card: 48-token prompts (three SSD chunks; rings that wrap)
+    and six decode steps, once through the kernels and once through the
+    plain versions.  The kernels are bit-exact with their plain versions
+    and every other op is the same on both sides, so the logits agree
+    within 1e-4 (room for nothing but rounding) and the greedy tokens are
+    equal; the plain run launches no kernel."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import qgemm
+    from repro_torch.models import api
+    cfg = configs.reduced(configs.get_config(arch), mult="trunc2x2", **over)
+    params = api.init_params(cfg, 0, cuda_dev)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 48))).to(cuda_dev)
+    true_len = torch.tensor([48, 30, 17], dtype=torch.int32, device=cuda_dev)
+    runs = {}
+    for policy in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, kernel_policy=policy)
+        spec = api.make_spec(c, device=cuda_dev)
+        p = api.prepare_params(params, c, spec)
+        qgemm.approx_qgemm_plane0.launches = 0
+        logits, cache = api.prefill(p, toks, c, spec, true_len=true_len)
+        assert (qgemm.approx_qgemm_plane0.launches > 0) == (
+            policy == "pallas")
+        runs[policy] = [c, spec, p, cache, [logits]]
+    for _ in range(6):
+        # both sides decode the kernel run's greedy tokens
+        tok = runs["pallas"][4][-1].argmax(-1)[:, None]
+        for run in runs.values():
+            c, spec, p, cache, out = run
+            logits, run[3] = api.decode_step(p, cache, tok, c, spec)
+            out.append(logits[:, -1])
+    for a, b in zip(runs["pallas"][4], runs["xla"][4]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", _RECURRENT)
+def test_cuda_recurrent_paged_engine_token_identical(cuda_dev, arch, over):
+    """The reduced recurrent families through the kernels on the card: the
+    paged engine, chunked and speculative (the serving tier drafting),
+    emits the slot engine's tokens, and its decode ran the skinny
+    kernel.  The hybrid keeps the reduced window (32) above every prompt:
+    past the window whole and chunked prefill differ in the reference
+    too (tests/test_torch_hybrid.py)."""
+    from repro_torch import configs
+    from repro_torch.kernels import qgemm
+    from repro_torch.models import api
+    from repro_torch.serving import (
+        Engine, PagedEngine, Request, SamplingParams)
+    over = {k: v for k, v in over.items() if k != "window"}
+    cfg = configs.reduced(configs.get_config(arch), mult="trunc2x2",
+                          kernel_policy="pallas", **over)
+    params = api.init_params(cfg, 0, cuda_dev)
+    rng = np.random.default_rng(1)
+    trace = []
+    for i in range(6):
+        sp = SamplingParams(max_new_tokens=int(rng.integers(3, 7))) \
+            if i % 3 else SamplingParams(temperature=0.8, top_k=8,
+                                         max_new_tokens=4, seed=50 + i)
+        trace.append(Request(f"r{i}", rng.integers(
+            1, cfg.vocab, int(rng.integers(4, 28))).tolist(), sp,
+            arrival=float(i // 2)))
+
+    def serve(eng):
+        for req in trace:
+            eng.submit(req)
+        return {c.request_id: (c.tokens, c.finish_reason)
+                for c in eng.run_until_complete()}
+
+    base = serve(Engine(cfg, params, capacity=3, max_len=64,
+                        device=cuda_dev))
+    qgemm.approx_qgemm_skinny.launches = 0
+    eng = PagedEngine(cfg, params, capacity=3, max_len=64, page_size=8,
+                      prefill_chunk=8, draft_tier="trunc2x2", spec_k=3,
+                      device=cuda_dev)
+    assert serve(eng) == base
+    st = eng.stats()
+    assert st["paged"]["chunked"]["chunks"] > 0 and st["spec"]["steps"] > 0
+    assert st["spec"]["acceptance_rate"] == 1.0
+    assert qgemm.approx_qgemm_skinny.launches > 0
+    eng._alloc.audit()
+    assert eng._alloc.pages_live == 0
