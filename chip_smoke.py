@@ -19,11 +19,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  skinny GEMM on K-major weights (every rank, the decode,
                  first-chunk prefill (m = 32) and VGG16 FC shapes, every
                  m class with a K tail, its K split logged; the recurrent
-                 models' layers and LM heads at m = 1, 4, 8 and 32), the fused
+                 and conditioned models' layers and LM heads at m = 1, 4,
+                 8 and 32, Whisper's tied head at N = 51865 among them),
+                 plane 0 also at M = 128 on the conditioned models' layers,
+                 at M = 1500 on Whisper's encoder shapes and at M = 1600
+                 and 6400 on the vision model's image K/V, the fused
                  and the stacked low-rank GEMMs (ranks 1, 2, 4, 8, every VGG16 conv shape;
                  stacked bit-identical to fused, its launches counted over
                  these parity calls) bit-exact, flash attention within
-                 2e-6 (f32) / 2e-2 (bf16); then each kernel's time per unit
+                 2e-6 (f32) / 2e-2 (bf16) (Whisper's encoder at (16,
+                 1500, 64) non-causal, StarCoder2's and the vision model's
+                 prefills at (36 / 32, 128, 128) among its shapes); then each kernel's time per unit
                  of its main path (CUDA events) beside its plain version
                  (quantize_rows per decode step and per VGG16 forward, with
                  x.to(torch.int8) on the same inputs as a same-bytes
@@ -69,9 +75,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  twin, every death an injected one; the total-carbon
                  search over the multi-die scenarios on the card, held to
                  the CPU's (rtol 1e-6);
-  7. recurrent — mamba2-370m (48 layers) and then recurrentgemma-9b (38
-                 layers, 10.4B params) at full width and depth, trunc2x2,
-                 f32, random weights from a seeded CUDA generator, through
+  7. recurrent — mamba2-370m (8 of its 48 layers, cut so the script
+                 stays well inside its time limit: the engines' steps are
+                 host-bound and scale with depth) and then
+                 recurrentgemma-9b (38 layers, 10.4B params) at full
+                 width, the 9B at full depth, trunc2x2, f32, random
+                 weights from a seeded CUDA generator, through
                  the slot and paged engines on the paged trace (tokens in
                  each model's vocabulary): S4, P, PS and PC against S4,
                  but mamba2's PC against C4, a slot engine admitting
@@ -86,7 +95,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  paged run token-identical to its slot engine, audit
                  clean, no live page, launches equal to `paged_want`'s
                  formula over
-                 `gemms_per_step` (97 GEMMs per mamba2 decode step, 241
+                 `step_launches` (17 GEMMs per mamba2 decode step, 241
                  per hybrid step, no flash); ms per prefill, decode step,
                  chunk step and spec step, one profiled decode step's
                  device busy share, and the peak device memory;
@@ -96,7 +105,39 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  wrap), full width, once through the kernels and once
                  through the plain versions on the card: logits compared,
                  greedy tokens equal, the plain run launching nothing;
-  9. check     — a 2-layer full-width model served once through the kernels
+  9. conditioned — whisper-medium (24 + 24 layers, 1500 frames),
+                 starcoder2-7b (32 layers, the GELU MLP) and
+                 llama-3.2-vision-11b (40 + 8 cross layers, 1600 image
+                 tokens, every cross-attention gate set to 1.0: it starts
+                 at 0, which multiplies the image path away) at full
+                 width and depth, trunc2x2, flash, f32, random weights
+                 from a seeded CUDA generator, prepared once, one model at
+                 a time, through the slot and paged engines on the paged
+                 trace, each request carrying its own seeded frames or
+                 image (the two prefix-sharing requests the same ones):
+                 S4, P, PS, C4 and PC (StarCoder2 S4 and P), P and PS
+                 token-identical to S4, PC to C4 (the slot engine that
+                 prefills the same chunks: under trunc2x2 the chunked
+                 prefill parts from the whole one by int8 codes that
+                 flip, which on these random weights move greedy and
+                 sampled streams; C4's agreement with S4 is reported);
+                 the chunked prefill held to the whole one under exact
+                 at full depth; audit clean, no live page, a
+                 prefix hit, launches equal to `paged_want`'s formula
+                 over `step_launches`; ms per prefill, decode step, chunk
+                 step and spec step, one profiled decode step's device
+                 busy share, device memory after prepare and at peak, and
+                 each model's seconds;
+ 10. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
+                 layers in one superblock) at full width, once through the
+                 kernels and once through the plain versions on the card,
+                 both on the chunked attention (flash's rounding moves
+                 int8 codes that trunc2x2 carries to the logits; a
+                 witness measures it and holds the GEMM kernels on
+                 flash's outputs): logits compared, greedy tokens equal,
+                 the plain run launching nothing; the whole prefill held
+                 to the chunked one under exact;
+ 11. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -104,7 +145,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 10. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 12. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -113,19 +154,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 11. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 13. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 12. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 14. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 13. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 15. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 12's vgg_mini), each GA design within
+                 kernels on phase 14's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -135,8 +176,9 @@ The line before the card line is a JSON object with one entry per kernel
 and main-path unit (quantize_rows has two: the decode step and the VGG16
 forward; `path` names the run its launches come from,
 `paged_launches` holds each kernel's launches in run PD,
-`fleet_launches` those of the metered fleet and `recurrent_launches`
-those of each recurrent model's runs, summed);
+`fleet_launches` those of the metered fleet, `recurrent_launches` and
+`conditioned_launches` those of each recurrent and conditioned model's
+runs, summed);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -385,7 +427,14 @@ def check_kernels(dev) -> tuple[dict, int]:
     # weight that prepared weights hand the kernel, at the prefill shapes
     # (TinyLlama's, then the recurrent models' layers at bucket 128) and at
     # a large-M VGG16 im2col shape (conv 3 at batch 8)
-    rec_layers, rec_heads = recurrent_gemm_shapes()
+    rec_layers, rec_heads = model_gemm_shapes(RECURRENT_ARCHS)
+    cond_layers, cond_heads = model_gemm_shapes(CONDITIONED_ARCHS)
+    # the conditioned models' large-M GEMMs: Whisper's encoder (and its
+    # cross K/V) at M = 1500, the vision cross K/V at M = 1600 (one image,
+    # a prefill or a chunk step) and 6400 (four images, a decode step)
+    whisper = [(1024, 1024), (1024, 4096), (4096, 1024)]
+    cond_large = [(1500, k, n) for k, n in whisper] + [
+        (m, 4096, 1024) for m in (1600, 6400)]
     prefill = [(128, 2048, 2048), (128, 2048, 256), (128, 2048, 5632),
                (128, 5632, 2048)]
     for m, k, n in prefill + [(33, 257, 65), (300, 64, 512)]:
@@ -394,11 +443,12 @@ def check_kernels(dev) -> tuple[dict, int]:
             got = ops.approx_qgemm(a, b, spec)
             exact("approx_qgemm_plane0", got, G.approx_qgemm(a, b, spec),
                   f"({m},{k},{n}) {name}")
-    prefill += [(128, k, n) for k, n in rec_layers]
-    for m, k, n in prefill + [(100352, 1152, 128)]:
+    prefill += [(128, k, n) for k, n in
+                dict.fromkeys(rec_layers + cond_layers)]
+    for m, k, n in prefill + cond_large + [(100352, 1152, 128)]:
         a, b = rand_q(m, k), rand_q(k, n)
         bt = b.T.contiguous()
-        names = specs if m == 128 else ["trunc2x2"]
+        names = ["trunc2x2"] if m == 100352 else specs
         for name in names:
             spec = specs[name]
             got = ops.approx_qgemm(a, b, spec, b_t=bt)
@@ -455,11 +505,14 @@ def check_kernels(dev) -> tuple[dict, int]:
             f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
         del a, b, bt
 
-    # skinny at the recurrent models' shapes, layers and LM heads, at the m
-    # the recurrent phase gives it: 1 (chunk steps, the head after a
-    # prefill), 4 (decode at capacity 4), 8 (PD at capacity 8) and 32 (the
-    # first chunk of PC and PD)
-    for k, n in rec_layers + rec_heads:
+    # skinny at the recurrent and conditioned models' shapes, layers and
+    # LM heads (Whisper's tied one at the odd N = 51865 among them), at the
+    # m their phases give it: 1 (chunk steps, the head after a prefill), 4
+    # (decode at capacity 4), 8 (PD at capacity 8) and 32 (the first chunk
+    # of PC and PD)
+    for k, n in rec_layers + rec_heads + [
+            kn for kn in cond_layers + cond_heads
+            if kn not in rec_layers + rec_heads]:
         b = rand_q(k, n)
         bt = b.T.contiguous()
         for m in (1, 4, 8, 32):
@@ -512,9 +565,12 @@ def check_kernels(dev) -> tuple[dict, int]:
     torch.cuda.empty_cache()
 
     # flash: the whole-prompt prefill (s = 128), the paged engine's first
-    # chunk (s = 32, one partial tile), other widths and odd lengths
+    # chunk (s = 32, one partial tile), other widths and odd lengths;
+    # Whisper's encoder (16 heads over 1500 frames, non-causal) and the
+    # prefills of StarCoder2 (36 heads) and the vision model (32) at d 128
     for bh, s, d in [(32, 128, 64), (32, 32, 64), (2, 256, 128),
-                     (1, 64, 256), (3, 77, 64), (4, 100, 32)]:
+                     (1, 64, 256), (3, 77, 64), (4, 100, 32),
+                     (16, 1500, 64), (36, 128, 128), (32, 128, 128)]:
         for dtype, tol in ((torch.float32, 2e-6), (torch.bfloat16, 2e-2)):
             q, k_, v = (torch.randn((bh, s, d), generator=gen, device=dev)
                         .to(dtype) for _ in range(3))
@@ -955,7 +1011,26 @@ PAGED_SHARED = [(16, 2), (16, 6)]
 PAGED_NEW = 16
 
 
+def seeded_extras(cfg, batch: int, step: int) -> dict:
+    """Seeded conditioning for `batch` requests, drawn by the data
+    pipeline's `frames_batch` / `img_batch`: a (batch, *shape) array for
+    each key `api.extras_shapes` names ({} where the config takes none)."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import api
+    draw = {"frames": synthetic.frames_batch,
+            "img_embeds": synthetic.img_batch}
+    return {key: draw[key](batch, *shape, step)
+            for key, shape in api.extras_shapes(cfg).items()}
+
+
 def paged_trace(cfg) -> list:
+    """Ten requests, tokens in the model's vocabulary: six greedy, two
+    sampled, two sharing a 64-token prefix.  Where the config takes
+    conditioning, each request carries its own seeded frames or image
+    embeddings (`seeded_extras`), and the prefix-sharing pair the same
+    ones, so their prefix pages are shared."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.serving import Request, SamplingParams
     rng = np.random.default_rng(0)      # the serve phase's six prompts
@@ -971,46 +1046,94 @@ def paged_trace(cfg) -> list:
     for i, (n, t) in enumerate(PAGED_SHARED):
         out.append(Request(f"h{i}", prefix + rng.integers(
             0, cfg.vocab, n).tolist(), greedy, arrival=t))
-    return sorted(out, key=lambda r: r.arrival)
+    out = sorted(out, key=lambda r: r.arrival)
+    steps = [100 if r.request_id.startswith("h") else i
+             for i, r in enumerate(out)]
+    return [dataclasses.replace(r, extras={
+        k: v[0] for k, v in seeded_extras(cfg, 1, step).items()} or None)
+        for r, step in zip(out, steps)]
 
 
-def gemms_per_step(cfg) -> int:
-    """Approximate GEMMs of one decode step, the LM head left out: 7 per
-    dense layer; mamba2's in and out projections (2 per layer); the
-    hybrid's 6 per recurrent block (its w_rg / w_in run exact) and 7 per
-    attention block (26 x 6 + 12 x 7 = 240 for recurrentgemma-9b)."""
+def gemm_rows(cfg, b: int, s: int, prefill: bool) -> list[int]:
+    """The row count M of every approximate GEMM of one step, the LM head
+    (at M = b) last: a prefill of b prompts of s tokens, or a decode step
+    of b lanes (s = 1).  Per layer: 7 dense GEMMs under SwiGLU, 6 under
+    the GELU MLP; mamba2's in and out projections (2); the hybrid's 6 per
+    recurrent block (its w_rg / w_in run exact) and 7 per attention block
+    (26 x 6 + 12 x 7 = 240 for recurrentgemma-9b); Whisper's 8 per
+    decoder layer (self q, k, v, o; cross q, o; the MLP's two), and in
+    prefill its encoder's 6 per layer and its cross K/V (2 per decoder
+    layer, made once) at M = b x enc_seq; the vision model's 4 per
+    cross-attention block (q, o, and the image's k, v at M = b x
+    n_img_tokens, in every step)."""
+    t = b * s
     if cfg.family == "ssm":
-        return 2 * cfg.n_layers
-    if cfg.family == "hybrid":
+        rows = [t] * (2 * cfg.n_layers)
+    elif cfg.family == "hybrid":
         n_attn = cfg.n_layers // 3
-        return 6 * (cfg.n_layers - n_attn) + 7 * n_attn
-    return 7 * cfg.n_layers
+        rows = [t] * (6 * (cfg.n_layers - n_attn) + 7 * n_attn)
+    elif cfg.family == "encdec":
+        rows = [t] * (8 * cfg.n_layers)
+        if prefill:
+            e = b * cfg.enc_seq
+            rows += [e] * (6 * cfg.n_enc_layers + 2 * cfg.n_layers)
+    else:
+        per_layer = 7 if cfg.mlp_style == "swiglu" else 6
+        rows = [t] * (per_layer * cfg.n_layers)
+        if cfg.cross_every:
+            n_cross = cfg.n_layers // cfg.cross_every
+            rows += [t] * (2 * n_cross) + \
+                [b * cfg.n_img_tokens] * (2 * n_cross)
+    return rows + [b]
 
 
-def flash_per_prefill(cfg) -> int:
-    """Flash launches of one prefill: one per dense layer; none for mamba2
-    (no attention) or the hybrid (its attention is windowed, which the
-    reference routes to the blockwise forward: its flash has no window)."""
-    return cfg.n_layers if cfg.family == "lm" else 0
+def step_launches(cfg, b: int, s: int, prefill: bool) -> dict:
+    """Kernel launches of one step (`gemm_rows`): each GEMM quantizes its
+    rows once and runs skinny at M <= 32, plane 0 above; a prefill runs
+    `flash_per_prefill` flash launches."""
+    from repro_torch.kernels import approx_qgemm as qk
+    rows = gemm_rows(cfg, b, s, prefill)
+    skinny = sum(m <= qk.SKINNY_MAX_M for m in rows)
+    return {"quantize_rows": len(rows), "approx_qgemm_skinny": skinny,
+            "approx_qgemm_plane0": len(rows) - skinny,
+            "flash_attention": flash_per_prefill(cfg, s) if prefill else 0,
+            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
 
 
-def paged_want(cfg, st: dict, trace, prefill_chunk, spec_k) -> dict:
+def flash_per_prefill(cfg, s: int = 128) -> int:
+    """Flash launches of one prefill of s tokens: one per self-attention
+    layer of an `lm` (the vision model's cross-attention takes the naive
+    impl up to 2^20 scores); Whisper's encoder layers (non-causal over its
+    frames) and decoder layers, and its cross-attention too where s equals
+    enc_seq (the reference's impl rule); none for mamba2 (no attention) or
+    the hybrid (its attention is windowed, which the reference routes to
+    the blockwise forward: its flash has no window); none where the config
+    takes another attention impl."""
+    if cfg.attn_impl != "flash":
+        return 0
+    if cfg.family == "lm":
+        return cfg.n_layers
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + cfg.n_layers * (2 if s == cfg.enc_seq
+                                                  else 1)
+    return 0
+
+
+def paged_want(cfg, st: dict, trace, prefill_chunk, spec_k,
+               capacity: int = 4, bucket: int = 128) -> dict:
     """Kernel launches of one paged (or slot) run, from the engine's own
-    counts.  G = `gemms_per_step(cfg)`, F = `flash_per_prefill(cfg)`.
+    counts and `step_launches`.
 
-    Every decode-shaped step (a decode step, a draft or verify step, a
-    chunk step's token) runs G GEMMs and the LM head at m <= 32: G + 1
-    quantize_rows and skinny launches.  A whole-prompt admission
-    prefills at bucket 128: G + 1 quantize_rows, G plane 0 (M = 128),
-    one skinny (the head at m = 1) and F flash.  A chunked admission's
-    first chunk prefills `prefill_chunk` = 32 tokens: G + 1 quantize_rows
-    and skinny (M = 32 takes skinny) and F flash; every later chunk runs
-    one decode step per prompt token it takes (the last chunk unpadded), so
-    a chunked prompt of n tokens runs n - `prefill_chunk` of them.  A spec
-    step runs spec_k draft and spec_k verify steps.  Every request of the
-    trace finishes its prefill (the phases assert they all finish by
-    length)."""
-    per_step, flash = gemms_per_step(cfg) + 1, flash_per_prefill(cfg)
+    Every decode-shaped step (a decode step, a draft or verify step) runs
+    at b = `capacity`, and each token of a later chunk runs one decode
+    step at b = 1 (M <= 32 everywhere but the vision model's image K/V,
+    which take plane 0).  A whole-prompt admission prefills at `bucket`;
+    a chunked admission's first chunk prefills `prefill_chunk` = 32
+    tokens (M = 32 takes skinny), and every later chunk runs one decode
+    step per prompt token it takes (the last chunk unpadded), so a chunked
+    prompt of n tokens runs n - `prefill_chunk` of them.  A spec step runs
+    spec_k draft and spec_k verify steps.  Every request of the trace
+    finishes its prefill (the phases assert they all finish by length)."""
     long = [] if prefill_chunk is None else [
         len(r.tokens) for r in trace if len(r.tokens) > prefill_chunk]
     chunked = len(long)
@@ -1020,13 +1143,17 @@ def paged_want(cfg, st: dict, trace, prefill_chunk, spec_k) -> dict:
     if prefill_chunk is not None and "paged" in st:
         assert st["paged"]["chunked"]["chunks"] == sum(
             -(-n // prefill_chunk) for n in long), st["paged"]["chunked"]
-    steps = (st["decode_steps"] - spec_steps + 2 * spec_k * spec_steps
-             + chunk_tokens)
-    return {"quantize_rows": per_step * (steps + whole + chunked),
-            "approx_qgemm_skinny": per_step * (steps + chunked) + whole,
-            "approx_qgemm_plane0": (per_step - 1) * whole,
-            "flash_attention": flash * (whole + chunked),
-            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+    steps = st["decode_steps"] - spec_steps + 2 * spec_k * spec_steps
+    parts = [(steps, step_launches(cfg, capacity, 1, False)),
+             (chunk_tokens, step_launches(cfg, 1, 1, False)),
+             (whole, step_launches(cfg, 1, bucket, True))]
+    if chunked:
+        parts.append((chunked, step_launches(cfg, 1, prefill_chunk, True)))
+    out = dict.fromkeys(counters(), 0)
+    for count, per in parts:
+        for k in out:
+            out[k] += count * per[k]
+    return out
 
 
 def paged_runs(with_pd: bool = True) -> dict:
@@ -1056,7 +1183,8 @@ def run_want(cfg, name: str, kw: dict, st: dict, trace) -> dict:
     """`paged_want` for one run of `paged_runs` (a slot run is a paged
     run without chunks or drafts)."""
     return paged_want(cfg, st, trace, kw.get("prefill_chunk"),
-                      kw.get("spec_k", 0) if "draft_tier" in kw else 0)
+                      kw.get("spec_k", 0) if "draft_tier" in kw else 0,
+                      capacity=kw.get("capacity", 4))
 
 
 def paged_phase(dev, cfg, card: str) -> dict:
@@ -1583,12 +1711,23 @@ def fleet_phase(dev, cfg, card: str) -> dict:
 #: The recurrent phase's models, in order.  recurrentgemma-9b runs no PD:
 #: its trunc4x4 draft tier would prepare a second 17 GB int8 copy.
 RECURRENT_ARCHS = ("mamba2-370m", "recurrentgemma-9b")
+#: Their depths in the recurrent phase.  mamba2's is cut from 48 layers:
+#: at full depth the phase took 268-430 s of the script's 1200 s.  The 9B
+#: keeps its 38: at 14, its trunc2x2 top-1 margins fall below what the
+#: chunked prefill's flipped int8 codes move, and its PC parts from S4
+#: (PERF.md).
+RECURRENT_DEPTH = {"mamba2-370m": 8, "recurrentgemma-9b": 38}
+#: The conditioned phase's models, in the order it serves them (the
+#: largest, about 60 GB with its prepared weights, last).
+CONDITIONED_ARCHS = ("whisper-medium", "starcoder2-7b",
+                     "llama-3.2-vision-11b")
 
 
-def recurrent_gemm_shapes() -> tuple[list, list]:
-    """The recurrent models' approximate GEMMs at full width, as (k, n):
-    the layers' and the LM heads', read off each family's
-    PREPARED_GEMM_WEIGHTS leaves initialised on the meta device."""
+def model_gemm_shapes(archs) -> tuple[list, list]:
+    """The models' approximate GEMMs at full width, as (k, n): the
+    layers' and the LM heads' (a head tied to the embedding, Whisper's,
+    as (d, vocab)), read off each family's PREPARED_GEMM_WEIGHTS leaves
+    initialised on the meta device."""
     import torch
     from repro_torch import configs
     from repro_torch.models import api
@@ -1603,11 +1742,13 @@ def recurrent_gemm_shapes() -> tuple[list, list]:
             (heads if name == "lm_head" else layers).add(
                 tuple(leaf.shape[-2:]))
 
-    for arch in RECURRENT_ARCHS:
+    for arch in archs:
         cfg = configs.get_config(arch, mult=MULT, dtype="float32")
         mod = api.family_module(cfg)
         walk(mod, "", mod.init_params(cfg, torch.Generator(),
                                       torch.device("meta")))
+        if cfg.tie_embeddings:
+            heads.add((cfg.d_model, cfg.vocab))
     return sorted(layers), sorted(heads)
 
 
@@ -1632,10 +1773,10 @@ def chunked_slot_engine():
             self.prefill_chunk = prefill_chunk
             super().__init__(*args, **kw)
 
-        def _prefill_request(self, request):
+        def _prefill_request(self, request, extras):
             c, n = self.prefill_chunk, len(request.tokens)
             if n <= c:
-                return super()._prefill_request(request)
+                return super()._prefill_request(request, extras)
             toks = np.asarray(request.tokens, np.int64)[None]
 
             def piece(a):
@@ -1643,13 +1784,13 @@ def chunked_slot_engine():
 
             _, cache = api.prefill(
                 self.exec_params, piece(0), self.cfg, self._spec,
-                max_len=self.max_len,
+                max_len=self.max_len, extras=extras,
                 true_len=torch.tensor([c], dtype=torch.int32,
                                       device=self.device))
             for pos in range(c, n, c):
                 logits, cache = api.chunk_step(self.exec_params, cache,
                                                piece(pos), self.cfg,
-                                               self._spec)
+                                               self._spec, extras)
             return logits[:, -1], cache
 
     return ChunkedSlotEngine
@@ -1661,16 +1802,18 @@ def chunked_slot_engine():
 EXACT_PREFILL_GAP = 1e-3
 
 
-def prefill_gap(dev, cfg, params, trace, count: int = 3) -> None:
+def prefill_gap(dev, cfg, params, trace, count: int = 3,
+                tag: str = "recurrent") -> None:
     """Whole-prompt prefill (bucket 128) against the chunked one (32
-    tokens, then chunk_step) on the `count` shortest chunked prompts,
-    under the serving multiplier and under exact: the largest logit gap,
-    the whole prefill's top-1 / top-2 margin, and whether the greedy
-    tokens agree.  Under exact the gap must be within EXACT_PREFILL_GAP
-    and the greedy tokens equal: the chunked path on the card is held to
-    the whole prefill where no int8 code can flip."""
+    tokens, then chunk_step) on the `count` shortest chunked prompts, each
+    with its own extras, under the serving multiplier and under exact: the
+    largest logit gap, the whole prefill's top-1 / top-2 margin, and
+    whether the greedy tokens agree.  Under exact the gap must be within
+    EXACT_PREFILL_GAP and the greedy tokens equal: the chunked path on the
+    card is held to the whole prefill where no int8 code can flip."""
     import torch
     from repro_torch.models import api
+    from repro_torch.serving.engine import prefill_extras
 
     prompts = sorted((r for r in trace if len(r.tokens) > 32),
                      key=lambda r: len(r.tokens))[:count]
@@ -1681,15 +1824,17 @@ def prefill_gap(dev, cfg, params, trace, count: int = 3) -> None:
         parts = []
         for r in prompts:
             n = len(r.tokens)
+            ex = prefill_extras(cfg, r.extras, dev)
             toks = torch.zeros((1, 128), dtype=torch.long, device=dev)
             toks[0, :n] = torch.tensor(r.tokens, device=dev)
             whole, _ = api.prefill(p, toks, cfg, spec, max_len=256,
-                                   true_len=torch.tensor(
+                                   extras=ex, true_len=torch.tensor(
                                        [n], dtype=torch.int32, device=dev))
             _, cache = api.prefill(p, toks[:, :32], cfg, spec, max_len=256,
-                                   true_len=torch.tensor(
+                                   extras=ex, true_len=torch.tensor(
                                        [32], dtype=torch.int32, device=dev))
-            chunked, _ = api.chunk_step(p, cache, toks[:, 32:n], cfg, spec)
+            chunked, _ = api.chunk_step(p, cache, toks[:, 32:n], cfg, spec,
+                                        ex)
             top = torch.topk(whole[0], 2).values
             gap = (whole - chunked[:, -1]).abs().max().item()
             argmax = bool(whole.argmax() == chunked[0, -1].argmax())
@@ -1699,7 +1844,7 @@ def prefill_gap(dev, cfg, params, trace, count: int = 3) -> None:
                 f"{'equal' if argmax else 'differs'}")
             if mult == "exact":
                 held.append((r.request_id, gap, argmax))
-        log(f"[recurrent] {cfg.name} whole vs chunked prefill, {mult}: "
+        log(f"[{tag}] {cfg.name} whole vs chunked prefill, {mult}: "
             + "; ".join(parts))
         del p
     assert all(g <= EXACT_PREFILL_GAP and a for _, g, a in held), \
@@ -1721,19 +1866,22 @@ def _prepared_bytes(tree) -> int:
                               else 0)
 
 
-def recurrent_serving(dev, cfg, card: str) -> dict:
-    """One recurrent model at full width and depth through the slot and
-    paged engines on `paged_trace`'s ten requests (tokens in the model's
-    vocabulary): S4, P, PS and PC, each held to S4; for mamba2, PC is held
-    instead to C4, the slot engine admitting through the same chunked
-    prefill (`chunked_slot_engine`), and PD to C8.  Each paged run
-    token-identical to its slot engine, audit clean, no live page, every
-    run's launches equal to `paged_want`'s formula; the chunked prefill
-    is held to the whole one under exact (`prefill_gap`) and, for mamba2,
-    C4's agreement with S4 reported.  recurrentgemma-9b's params
-    are prepared once and every engine shares the prepared tree; mamba2's
-    engines prepare their own tiers (PD's trunc4x4 needs the raw
-    weights).  Returns the kernels' launches summed over the runs."""
+def model_serving(dev, cfg, card: str, names: list[str],
+                  tag: str = "recurrent") -> dict:
+    """One model at full width and depth through the slot and paged
+    engines on `paged_trace`'s ten requests (with their conditioning,
+    where the model takes any), the runs of `names`: S4, P, PS and PC, each
+    held to S4; where C4 runs, PC is held instead to it, the slot engine
+    admitting through the same chunked prefill (`chunked_slot_engine`),
+    and PD to C8.  Each paged run token-identical to its slot engine,
+    audit clean, no live page, every run's launches equal to
+    `paged_want`'s formula; where PC runs, the chunked prefill is held to
+    the whole one under exact (`prefill_gap`); C4's agreement with S4 is
+    reported.  A cross-attention model's gates are set to 1.0 after init
+    (they start at 0, which multiplies the image path away).  Unless PD
+    runs, the params are prepared once and every engine shares the
+    prepared tree (PD's trunc4x4 needs the raw weights).  Returns the
+    kernels' launches summed over the runs."""
     import gc
 
     import numpy as np
@@ -1744,27 +1892,29 @@ def recurrent_serving(dev, cfg, card: str) -> dict:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     params = api.init_params(cfg, seed=0, device=dev)
+    if cfg.cross_every:
+        params["cross"]["xgate"].fill_(1.0)
     n_params = api.param_count(params)
-    with_pd = cfg.name == "mamba2-370m"
+    with_pd = "PD" in names
     if not with_pd:
         params = api.prepare_params(params, cfg)
     torch.cuda.synchronize()
-    log(f"[recurrent] {cfg.name}: {n_params / 1e9:.3f}B params f32, "
+    log(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f}B params f32, "
         f"{cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}; "
         + ("prepared once, " + _gb(_prepared_bytes(params)) + " int8 "
            "(wq + wq_t) shared by every engine; " if not with_pd else "")
-        + f"ready in {time.perf_counter() - t0:.1f}s; device memory "
-        f"{_gb(torch.cuda.memory_allocated())}, peak "
-        f"{_gb(torch.cuda.max_memory_allocated())}")
+        + f"ready in {time.perf_counter() - t0:.1f}s; device memory after "
+        f"prepare {_gb(torch.cuda.memory_allocated())}, peak "
+        f"{_gb(torch.cuda.max_memory_allocated())} ({card})")
     trace = paged_trace(cfg)
-    prefill_gap(dev, cfg, params, trace)
+    if "PC" in names:
+        prefill_gap(dev, cfg, params, trace, tag=tag)
     common = dict(max_len=256, prefill_buckets=(128,), device=dev)
     runs = paged_runs(with_pd)
     twin = chunked_slot_engine()
-    names = ["S4", "P", "PS"] + (["C4", "PC", "C8", "PD"] if with_pd
-                                 else ["PC"])
     runs["C4"] = (twin, dict(capacity=4, prefill_chunk=32))
     runs["C8"] = (twin, dict(capacity=8, prefill_chunk=32))
+    paged_leaves = [] if cfg.family in ("ssm", "hybrid") else ["k", "v"]
     res, total, s4 = {}, dict.fromkeys(counters(), 0), None
     for name in names:
         cls, kw = runs[name]
@@ -1782,14 +1932,16 @@ def recurrent_serving(dev, cfg, card: str) -> dict:
             assert all(0 <= t < cfg.vocab for t in c.tokens), c.tokens
         want = run_want(cfg, name, kw, st, trace)
         assert launches == want, (cfg.name, name, launches, want)
-        line = (f"[recurrent] {cfg.name} {name}: {wall:.2f}s, "
+        line = (f"[{tag}] {cfg.name} {name}: {wall:.2f}s, "
                 f"{st['decode_steps']} decode steps, prefill "
                 f"{st['prefill_s']:.3f}s")
         if cls is PagedEngine:
             pg = st["paged"]
             eng._alloc.audit()
             assert pg["pages_live"] == 0 and pg["alloc_failures"] == 0, pg
-            assert pg["paged_leaves"] == [], pg
+            assert pg["paged_leaves"] == paged_leaves, pg
+            # h1 shares h0's 64-token prefix, conditioning included
+            assert pg["prefix_hits"] >= bool(paged_leaves), pg
             line += (f"; prefix hits {pg['prefix_hits']}, chunks "
                      f"{pg['chunked']['chunks']}")
         log(line + f"; launches {launches} (= the formula)")
@@ -1805,7 +1957,7 @@ def recurrent_serving(dev, cfg, card: str) -> dict:
 
     diverged = []
     for name, base in (("P", "S4"), ("PS", "S4"),
-                       ("PC", "C4" if with_pd else "S4"), ("PD", "C8")):
+                       ("PC", "C4" if "C4" in res else "S4"), ("PD", "C8")):
         if name not in res:
             continue
         for rid, toks in res[name]["toks"].items():
@@ -1814,52 +1966,57 @@ def recurrent_serving(dev, cfg, card: str) -> dict:
                 at = next(i for i, (a, b) in enumerate(zip(toks, want))
                           if a != b)
                 diverged.append((name, rid, at))
-                log(f"[recurrent] {cfg.name} {name} {rid} diverges from "
+                log(f"[{tag}] {cfg.name} {name} {rid} diverges from "
                     f"{base} at token {at}: {toks} vs {want}")
     assert not diverged, diverged
-    if with_pd:
-        # mamba2's chunked prefill against its whole one under trunc2x2:
+    if "C4" in res:
+        # the chunked prefill against the whole one under trunc2x2:
         # reported, not held (the model's own arithmetic parts them)
         agree = []
         for rid, toks in sorted(res["C4"]["toks"].items()):
             same = [a == b for a, b in zip(toks, res["S4"]["toks"][rid])]
             agree.append(f"{rid} {(same + [False]).index(False)}")
-        log(f"[recurrent] {cfg.name} C4 (chunked prefill) against S4 "
+        log(f"[{tag}] {cfg.name} C4 (chunked prefill) against S4 "
             f"(whole prefill), tokens equal before the first difference: "
             + ", ".join(agree))
-    ps = res["PS"]["st"]["spec"]
-    assert ps["acceptance_rate"] == 1.0, ps
+    if "PS" in res:
+        ps = res["PS"]["st"]["spec"]
+        assert ps["acceptance_rate"] == 1.0, ps
     for name in ("PS", "PD"):
         for c in res.get(name, {}).get("done", []):
             assert c.spec.accepted + c.spec.corrections == len(c.tokens), c
-    log(f"[recurrent] {cfg.name}: P and PS token-identical to S4, PC to "
-        f"{'C4, PD to C8' if with_pd else 'S4'} on all {len(trace)} "
-        f"requests; "
-        f"distinct tokens per request "
-        f"in S4: { {r: len(set(t)) for r, t in sorted(res['S4']['toks'].items())} }")
+    held = ", ".join(f"{n} to {b}" for n, b in (
+        ("P", "S4"), ("PS", "S4"), ("PC", "C4" if "C4" in res else "S4"),
+        ("PD", "C8")) if n in res)
+    log(f"[{tag}] {cfg.name}: {held}, token-identical on all {len(trace)} "
+        f"requests; distinct tokens per request in S4: "
+        f"{ {r: len(set(t)) for r, t in sorted(res['S4']['toks'].items())} }")
 
     def per(total_s, count):
         return f"{total_s / count * 1e3:.2f} ms" if count else "none"
 
-    s4_st, pc_st = res["S4"]["st"], res["PC"]["st"]
-    pc = pc_st["paged"]["chunked"]
-    long = [len(r.tokens) for r in trace if len(r.tokens) > 32]
+    s4_st = res["S4"]["st"]
+    line = (f"[{tag}] {cfg.name} ms per prefill (bucket 128) "
+            f"{per(s4_st['prefill_s'], s4_st['admitted'])}, per decode "
+            f"step (S4) {per(s4_st['decode_s'], s4_st['decode_steps'])}")
+    if "PC" in res:
+        pc = res["PC"]["st"]["paged"]["chunked"]
+        long = [len(r.tokens) for r in trace if len(r.tokens) > 32]
+        line += (f", per chunk step (PC, up to 32 decode steps at m = 1) "
+                 f"{per(pc['chunk_step_s'], pc['chunks'] - len(long))}")
+    if "PS" in res:
+        line += (f", per spec step (PS, 8 decode steps) "
+                 f"{per(res['PS']['st']['decode_s'], ps['steps'])}")
     prof = profile_decode(s4, np.random.default_rng(7), cfg, steps=1,
-                          tag=f"recurrent-profile {cfg.name}")
+                          tag=f"{tag}-profile {cfg.name}")
     busy = "not measured" if prof is None else (
         f"{sum(e.self_device_time_total for e in prof[0]) / 1e3:.3f} ms "
         f"device of {prof[1] * 1e3:.2f} ms wall, "
         f"{sum(e.self_device_time_total for e in prof[0]) / 1e6 / prof[1]:.1%}"
         " busy")
-    log(f"[recurrent] {cfg.name} ms per prefill (bucket 128) "
-        f"{per(s4_st['prefill_s'], s4_st['admitted'])}, per decode step "
-        f"(S4) {per(s4_st['decode_s'], s4_st['decode_steps'])}, per chunk "
-        f"step (PC, up to 32 decode steps at m = 1) "
-        f"{per(pc['chunk_step_s'], pc['chunks'] - len(long))}, per spec "
-        f"step (PS, 8 decode steps) "
-        f"{per(res['PS']['st']['decode_s'], ps['steps'])}; one profiled "
-        f"decode step: {busy}; peak device memory "
-        f"{_gb(torch.cuda.max_memory_allocated())} ({card})")
+    log(line + f"; one profiled decode step: {busy}; peak device memory "
+        f"{_gb(torch.cuda.max_memory_allocated())}; "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
     del s4, params, res
     gc.collect()
     torch.cuda.empty_cache()
@@ -1882,21 +2039,80 @@ def recurrent_phase(dev, card: str) -> dict:
     out = {}
     for arch in RECURRENT_ARCHS:
         cfg = configs.get_config(arch, mult=MULT, kernel_policy="pallas",
-                                 dtype="float32")
-        out[arch] = recurrent_serving(dev, cfg, card)
+                                 dtype="float32",
+                                 n_layers=RECURRENT_DEPTH[arch])
+        # mamba2's chunked prefill parts from its whole one under
+        # trunc2x2 (PERF.md): its PC and PD are held to C4 / C8
+        names = (["S4", "P", "PS", "C4", "PC", "C8", "PD"]
+                 if arch == "mamba2-370m" else ["S4", "P", "PS", "PC"])
+        out[arch] = model_serving(dev, cfg, card, names)
     log(f"[recurrent] phase {time.perf_counter() - t_phase:.1f}s")
     return out
 
 
-def recurrent_check_phase(dev) -> None:
-    """Both recurrent models at full width and reduced depth, served once
-    through the kernels and once through the plain versions on the card:
-    mamba2 at 2 layers on 512-token prompts (the SSD crosses two 256-token
-    chunks), the hybrid at 4 layers (a superblock and a tail block) with
-    the window cut to 64 under 128-token prompts, so the rings wrap.
-    Logits compared, greedy tokens equal; the plain run launches no
-    kernel."""
+def kernels_vs_plain(dev, cfg, params, tokens, true_len, tag: str,
+                     extras: dict | None = None,
+                     max_len: int | None = None) -> dict:
+    """`cfg` served from `params` once through the kernels and once
+    through the plain versions on the card: a prefill of `tokens` (rows
+    of `true_len` tokens, with `extras`), then 8 greedy decode steps on
+    the kernel run's tokens.  Logits compared at every step (limit 1e-4:
+    the kernels are bit-exact with their plain versions), greedy tokens
+    equal, the kernel run's prefill launches equal to `step_launches`,
+    the plain run's none.  Returns {policy: (cfg, spec, prepared params,
+    prefill logits)}."""
     import dataclasses
+
+    import torch
+    from repro_torch.models import api
+
+    b, s = tokens.shape
+    runs, first = {}, {}
+    for policy in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, kernel_policy=policy)
+        spec = api.make_spec(c, device=dev)
+        p = api.prepare_params(params, c, spec)
+        (logits, cache), n = counted(lambda: api.prefill(
+            p, tokens, c, spec, max_len=max_len, extras=extras,
+            true_len=true_len))
+        want = (step_launches(cfg, b, s, True) if policy == "pallas"
+                else dict.fromkeys(n, 0))
+        assert n == want, (cfg.name, policy, n, want)
+        runs[policy] = [c, spec, p, cache, logits]
+        first[policy] = (c, spec, p, logits)
+    tol = 1e-4
+    diffs, match = [], []
+    for step in range(9):
+        lp, lx = runs["pallas"][4], runs["xla"][4]
+        if step:
+            lp, lx = lp[:, -1], lx[:, -1]
+        assert torch.isfinite(lp).all() and lp.shape == (b, cfg.vocab)
+        diffs.append((lp - lx).abs().max().item())
+        tok = lp.argmax(-1)
+        match.append((tok == lx.argmax(-1)).float().mean().item())
+        if step == 8:
+            break
+        for run in runs.values():
+            c, spec, p, cache, _ = run
+            run[4], run[3] = api.decode_step(p, cache, tok[:, None], c,
+                                             spec, extras)
+    log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, full width, prompts "
+        f"{true_len.tolist()}, kernels vs plain on the card: prefill "
+        f"logits max|diff| {diffs[0]:.3e}, decode steps 1-8 max|diff| "
+        f"{max(diffs[1:]):.3e} (limit {tol:g}; |logits| <= "
+        f"{lx.abs().max().item():.3f}), greedy token match "
+        f"{sum(match) / len(match):.3f}")
+    assert max(diffs) <= tol, diffs
+    assert all(m == 1.0 for m in match), match
+    return first
+
+
+def recurrent_check_phase(dev) -> None:
+    """Both recurrent models at full width and reduced depth through
+    `kernels_vs_plain`: mamba2 at 2 layers on 512-token prompts (the SSD
+    crosses two 256-token chunks), the hybrid at 4 layers (a superblock
+    and a tail block) with the window cut to 64 under 128-token prompts,
+    so the rings wrap."""
     import gc
 
     import numpy as np
@@ -1913,47 +2129,166 @@ def recurrent_check_phase(dev) -> None:
         rng = np.random.default_rng(1)
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, s))).to(dev)
         true_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-        g = gemms_per_step(cfg)
-        runs = {}
-        for policy in ("pallas", "xla"):
-            c = dataclasses.replace(cfg, kernel_policy=policy)
-            spec = api.make_spec(c, device=dev)
-            p = api.prepare_params(params, c, spec)
-            (logits, cache), n = counted(lambda: api.prefill(
-                p, tokens, c, spec, true_len=true_len))
-            want = dict.fromkeys(n, 0)
-            if policy == "pallas":
-                want.update(quantize_rows=g + 1, approx_qgemm_plane0=g,
-                            approx_qgemm_skinny=1)
-            assert n == want, (arch, policy, n, want)
-            runs[policy] = [c, spec, p, cache, logits]
-        tol = 1e-4     # the kernels are bit-exact with their plain versions
-        diffs, match = [], []
-        for step in range(9):
-            lp, lx = runs["pallas"][4], runs["xla"][4]
-            if step:
-                lp, lx = lp[:, -1], lx[:, -1]
-            assert torch.isfinite(lp).all() and lp.shape == (4, cfg.vocab)
-            diffs.append((lp - lx).abs().max().item())
-            tok = lp.argmax(-1)
-            match.append((tok == lx.argmax(-1)).float().mean().item())
-            if step == 8:
-                break
-            for run in runs.values():
-                c, spec, p, cache, _ = run
-                run[4], run[3] = api.decode_step(p, cache, tok[:, None], c,
-                                                 spec)
-        log(f"[recurrent-check] {arch} {over}, full width, prompts {lens}, "
-            f"kernels vs plain on the card: prefill logits max|diff| "
-            f"{diffs[0]:.3e}, decode steps 1-8 max|diff| "
-            f"{max(diffs[1:]):.3e} (limit {tol:g}; |logits| <= "
-            f"{lx.abs().max().item():.3f}), greedy token match "
-            f"{sum(match) / len(match):.3f}")
-        assert max(diffs) <= tol, diffs
-        assert all(m == 1.0 for m in match), match
-        del runs, params, cache
+        kernels_vs_plain(dev, cfg, params, tokens, true_len,
+                         "recurrent-check")
+        del params
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def conditioned_phase(dev, card: str) -> dict:
+    """The conditioned families on the card, after the recurrent phases'
+    tensors are freed, one model at a time: whisper-medium (24 + 24
+    layers, 1500 frames), starcoder2-7b (32 layers, the GELU MLP) and
+    llama-3.2-vision-11b (40 + 8 cross layers, 1600 image tokens, every
+    gate set to 1.0), full width and depth, trunc2x2, flash, f32, through
+    `model_serving` on `paged_trace` with its conditioning: S4, P, PS, C4 and PC, P and
+    PS held to S4, PC to C4 (under trunc2x2 the chunked prefill parts from
+    the whole one by int8 codes that flip, and on these random weights
+    the flips move greedy and sampled streams, as mamba2's do: C4's
+    agreement with S4 is reported, and the chunked prefill is held to the
+    whole one under exact); StarCoder2 S4 and P (its path differs from
+    TinyLlama's only in the MLP and the widths).  Returns {arch: launches
+    per kernel}."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[conditioned] device memory held before the phase: "
+        f"{_gb(torch.cuda.memory_allocated())}")
+    out = {}
+    for arch in CONDITIONED_ARCHS:
+        cfg = configs.get_config(arch, mult=MULT, kernel_policy="pallas",
+                                 attn_impl="flash", dtype="float32")
+        names = (["S4", "P"] if arch == "starcoder2-7b"
+                 else ["S4", "P", "PS", "C4", "PC"])
+        out[arch] = model_serving(dev, cfg, card, names, tag="conditioned")
+    log(f"[conditioned] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def conditioned_check_phase(dev) -> None:
+    """Whisper (2 + 2 layers) and the vision model (2 layers in one
+    superblock, its gate at 1.0) at full width through `kernels_vs_plain`,
+    four prompts of 128, 77, 40 and 101 tokens, each with its own seeded
+    frames or image.  Both runs take the plain chunked attention, as
+    `check_phase` does under pareto:0.01: flash's f32 rounding moves int8
+    codes, which trunc2x2 carries to the logits (0.21 at Whisper's 2
+    layers on the card, 0.18 between flash's plain version and the
+    chunked forward on the CPU), so only the GEMM and quantize kernels
+    differ; `attention_witness` measures flash against chunked and holds
+    the GEMM kernels to the plain path on flash's own outputs.  Then the
+    whole prefill held to the chunked one under exact (`prefill_gap`), on
+    `paged_trace`'s prompts."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    cases = (("whisper-medium", dict(n_layers=2, n_enc_layers=2)),
+             ("llama-3.2-vision-11b", dict(n_layers=2, cross_every=2)))
+    for arch, over in cases:
+        cfg = configs.get_config(arch, mult=MULT, dtype="float32",
+                                 attn_impl="chunked", **over)
+        params = api.init_params(cfg, seed=1, device=dev)
+        if cfg.cross_every:
+            params["cross"]["xgate"].fill_(1.0)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 128))).to(
+            dev)
+        true_len = torch.tensor([128, 77, 40, 101], dtype=torch.int32,
+                                device=dev)
+        ex = {k: torch.from_numpy(v).to(dev)
+              for k, v in seeded_extras(cfg, 4, 1).items()}
+        runs = kernels_vs_plain(dev, cfg, params, tokens, true_len,
+                                "conditioned-check", extras=ex, max_len=160)
+        attention_witness(runs, tokens, true_len, ex)
+        del runs
+        prefill_gap(dev, cfg, params, paged_trace(cfg),
+                    tag="conditioned-check")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[conditioned-check] {time.perf_counter() - t_phase:.1f}s")
+
+
+def attention_witness(runs: dict, tokens, true_len, ex: dict) -> None:
+    """Flash against the plain chunked attention at the first attention
+    of a conditioned model that `conditioned_check_phase` runs on chunked
+    attention (Whisper's encoder layer 0, non-causal over its 1500
+    frames; the vision model's layer 0, causal over 128 tokens): their
+    divergence, the int8 codes it moves at the o-projection input and
+    what it makes of the prefill logits (kernels on both sides) are
+    printed as readings; the o-projection GEMM through the kernels and
+    through the plain path must agree to the bit on both outputs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.approx import layers as AL
+    from repro_torch.kernels import quantize as qz
+    from repro_torch.models import api
+    from repro_torch.models import common as C
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as T
+
+    c, spec, p, prefill_logits = runs["pallas"]
+    _, spec_x, px, _ = runs["xla"]
+    with torch.no_grad():
+        if c.family == "encdec":
+            where = "encoder layer 0"
+            lp = C.block_params(p["enc_layers"], 0)
+            lpx = C.block_params(px["enc_layers"], 0)
+            frames = ex["frames"]
+            h = frames + C.sinusoid_positions(frames.shape[1], c.d_model,
+                                              frames.device)
+            x = C.layernorm(h, lp["ln1"], lp["ln1b"])
+            b, s = x.shape[:2]
+            q = AL.dense(x, lp["wq"], lp["bq"], spec).reshape(
+                b, s, c.n_heads, c.hd)
+            k, v = encdec._project_kv(x, lp, c, spec)
+            causal, bias = False, "bo"
+        else:
+            where = "layer 0"
+            lp = C.block_params(p["layers"], 0, 0)
+            lpx = C.block_params(px["layers"], 0, 0)
+            b, s = tokens.shape
+            x = C.rmsnorm(AL.embed(tokens, p["embed"]), lp["ln1"])
+            positions = torch.arange(s, device=tokens.device)[None, :]
+            q, k, v = T._qkv(x, lp, c, spec, positions)
+            causal, bias = True, None
+        outs = {"flash": C.flash_attention(q, k, v, causal),
+                "chunked": C.chunked_attention(q, k, v, c.attn_chunk,
+                                               causal)}
+        outs = {name: o.reshape(b, s, -1) for name, o in outs.items()}
+        for name, o in outs.items():
+            got = AL.dense(o, lp["wo"], lp.get(bias), spec)
+            want = AL.dense(o, lpx["wo"], lpx.get(bias), spec_x)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{c.name} o-projection on {name}'s output: kernels "
+                    f"!= plain (max |diff| "
+                    f"{(got - want).abs().max().item():.3e})")
+        div = (outs["flash"] - outs["chunked"]).abs().max().item()
+        codes = [qz.quantize_rows_plain(o.reshape(b * s, -1), 0)[0]
+                 for o in outs.values()]
+        moved = (codes[0] != codes[1]).sum().item()
+        cf = dataclasses.replace(c, attn_impl="flash")
+        lf, _ = api.prefill(p, tokens, cf, spec, max_len=160, extras=ex,
+                            true_len=true_len)
+        ldiff = (lf - prefill_logits).abs().max().item()
+    log(f"[conditioned-check] {c.name} flash witness, {where} o-projection "
+        f"input: flash vs chunked max|diff| {div:.3e}, {moved} of "
+        f"{codes[0].numel()} int8 codes moved; the o-projection GEMM "
+        f"through the kernels equals the plain path's on both; prefill "
+        f"logits with flash vs chunked attention (kernels on both) "
+        f"max|diff| {ldiff:.3e}")
 
 
 def check_phase(dev, cfg_full, mult: str, attn_impl: str) -> None:
@@ -2577,6 +2912,9 @@ def main() -> int:
     recurrent_launches = recurrent_phase(dev, card)
     recurrent_check_phase(dev)
     log(f"[recurrent] {time.perf_counter() - t_start:.1f}s")
+    conditioned_launches = conditioned_phase(dev, card)
+    conditioned_check_phase(dev)
+    log(f"[conditioned] {time.perf_counter() - t_start:.1f}s")
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -2595,6 +2933,8 @@ def main() -> int:
         row["fleet_launches"] = fleet_launches[row["name"]]
         row["recurrent_launches"] = {
             arch: n[row["name"]] for arch, n in recurrent_launches.items()}
+        row["conditioned_launches"] = {
+            arch: n[row["name"]] for arch, n in conditioned_launches.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

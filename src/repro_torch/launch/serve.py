@@ -7,10 +7,14 @@
 Submits a batch of synthetic prompts as requests, serves them through the
 engine's prefill-then-join decode loop on the CUDA device, and reports
 per-phase latency and tokens/s.  `--arch` takes any config of a ported
-family: the dense `lm` ones, `mamba2-370m` and `recurrentgemma-9b`
-(mamba2's prompt length must be at most its SSD chunk, 256, or a
-multiple of it).  `--device cpu` runs the plain PyTorch versions instead
-(use `--reduced` there).
+family: the dense `lm` ones (starcoder2-7b's GELU MLP among them),
+`llama-3.2-vision-11b`, `whisper-medium`, `mamba2-370m` and
+`recurrentgemma-9b` (mamba2's prompt length must be at most its SSD
+chunk, 256, or a multiple of it).  Whisper's requests carry synthetic
+frames and the vision model's synthetic image embeddings
+(`data/synthetic.frames_batch` / `img_batch`), one per request.
+`--device cpu` runs the plain PyTorch versions instead (use `--reduced`
+there).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import argparse
 import numpy as np
 
 from repro_torch import configs
+from repro_torch.data import synthetic
 from repro_torch.serving import Engine, Request, SamplingParams
 
 
@@ -52,6 +57,13 @@ def main(argv=None) -> int:
                                   kernel_policy=args.kernel_policy)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    frames = img = None
+    if cfg.family == "encdec":
+        frames = synthetic.frames_batch(args.batch, cfg.enc_seq,
+                                        cfg.d_model, 0, args.seed)
+    if cfg.cross_every:
+        img = synthetic.img_batch(args.batch, cfg.n_img_tokens,
+                                  cfg.d_model, 0, args.seed)
     max_len = args.prompt_len + args.gen
     eng = Engine(cfg, capacity=args.capacity or args.batch, max_len=max_len,
                  prefill_buckets=(args.prompt_len,), seed=args.seed,
@@ -59,7 +71,13 @@ def main(argv=None) -> int:
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         max_new_tokens=args.gen)
     for i in range(args.batch):
-        eng.submit(Request(f"r{i}", prompts[i].tolist(), sp))
+        extras = {}
+        if frames is not None:
+            extras["frames"] = frames[i]
+        if img is not None:
+            extras["img_embeds"] = img[i]
+        eng.submit(Request(f"r{i}", prompts[i].tolist(), sp,
+                           extras=extras or None))
     done = eng.run_until_complete()
 
     stats = eng.stats()

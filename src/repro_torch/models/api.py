@@ -1,7 +1,10 @@
-"""Unified model API for the `lm`, `ssm` and `hybrid` families: spec
-resolution, init, the serving weight-plane cache, and the prefill /
-decode / chunk steps the serving engines drive.  Same signatures as the JAX package's `repro.models.api`,
-plus an explicit `device` where something is created.
+"""Unified model API for the `lm`, `ssm`, `hybrid` and `encdec` families:
+spec resolution, init, the serving weight-plane cache, and the prefill /
+decode / chunk steps the serving engines drive.  Same signatures as the
+JAX package's `repro.models.api`, plus an explicit `device` where
+something is created.  `extras` carries a request's conditioning, as the
+family's own functions name it: "frames" (b, enc_seq, d) for `encdec`,
+"img_embeds" (b, n_img_tokens, d) for a cross-attention `lm`.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ import torch
 from repro_torch.approx import gemm as gemm_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba2, rglru, transformer
+from repro_torch.models import encdec, mamba2, rglru, transformer
 
 Params = dict[str, Any]
 
-_FAMILIES = {"lm": transformer, "ssm": mamba2, "hybrid": rglru}
+_FAMILIES = {"lm": transformer, "ssm": mamba2, "hybrid": rglru,
+             "encdec": encdec}
 
 
 def family_module(cfg: ModelConfig):
@@ -26,6 +30,23 @@ def family_module(cfg: ModelConfig):
             f"family {cfg.family!r} is not ported yet "
             f"(ported: {sorted(_FAMILIES)})")
     return _FAMILIES[cfg.family]
+
+
+def extras_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The conditioning a config consumes, by extras key, as one request's
+    array shape: {} for a family that takes none."""
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = (cfg.enc_seq, cfg.d_model)
+    if cfg.cross_every:
+        out["img_embeds"] = (cfg.n_img_tokens, cfg.d_model)
+    return out
+
+
+def static_cache_keys(cfg: ModelConfig) -> frozenset:
+    """Cache leaves that `decode_step` reads and never writes (it returns
+    them as the same tensors): encdec's cross-attention K/V."""
+    return getattr(family_module(cfg), "STATIC_CACHE_KEYS", frozenset())
 
 
 def make_spec(cfg: ModelConfig, mult: str | None = None,
@@ -84,31 +105,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
-                cfg: ModelConfig, spec=None) -> tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, spec=None, extras: dict | None = None
+                ) -> tuple[torch.Tensor, dict]:
     """tokens (b, 1) -> (logits (b, 1, v), cache with length + 1).  K/V
-    buffers (the dense family's, the hybrid's rings) are updated in place;
-    recurrent states come back as fresh tensors."""
-    return family_module(cfg).decode_step(params, cache, tokens, cfg, spec)
+    buffers (the dense family's, the hybrid's rings, encdec's self K/V)
+    are updated in place; recurrent states come back as fresh tensors."""
+    return family_module(cfg).decode_step(params, cache, tokens, cfg, spec,
+                                          **(extras or {}))
 
 
 @torch.no_grad()
 def chunk_step(params: Params, cache: dict, tokens: torch.Tensor,
-               cfg: ModelConfig, spec=None,
+               cfg: ModelConfig, spec=None, extras: dict | None = None,
                n_valid: int | torch.Tensor | None = None
                ) -> tuple[torch.Tensor, dict]:
     """Advance a single-request decode cache by up to `tokens.shape[1]`
     tokens — the chunked-prefill primitive.
 
-    A loop of `decode_step` over the chunk, so the cache sees exactly the
-    ops a token-by-token decode runs.  `n_valid` (an int, or a one-element
-    tensor) masks the tail of a right-padded final chunk: steps at index
-    >= n_valid leave the cache as it was, as the JAX package's masked scan
-    does.  Since `decode_step` writes K/V in place, each of those steps
-    runs on a scratch copy of the state after the valid steps, which also
-    gives it the masked scan's logits; the paged engine passes its last
-    chunk unpadded and runs no masked step.  Returns (logits (1, c, vocab)
-    — position i holds the logits AFTER consuming tokens[:, i] — and the
-    advanced cache).  Restricted to b == 1: the partial-prefill workspace
+    A loop of `decode_step` over the chunk, each step given `extras`, so
+    the cache sees exactly the ops a token-by-token decode runs.
+    `n_valid` (an int, or a one-element tensor) masks the tail of a
+    right-padded final chunk: steps at index >= n_valid leave the cache as
+    it was, as the JAX package's masked scan does.  Since `decode_step`
+    writes K/V in place, each of those steps runs on a scratch copy of the
+    state after the valid steps, which also gives it the masked scan's
+    logits; the paged engine passes its last chunk unpadded and runs no
+    masked step.  Returns (logits (1, c, vocab) — position i holds the
+    logits AFTER consuming tokens[:, i] — and the advanced cache).
+    Restricted to b == 1: the partial-prefill workspace
     is per-request."""
     b, c = tokens.shape
     if b != 1:
@@ -117,7 +141,8 @@ def chunk_step(params: Params, cache: dict, tokens: torch.Tensor,
     logits = []
     for i in range(c):
         src = cache if i < n else {k: v.clone() for k, v in cache.items()}
-        lg, new = decode_step(params, src, tokens[:, i:i + 1], cfg, spec)
+        lg, new = decode_step(params, src, tokens[:, i:i + 1], cfg, spec,
+                              extras)
         logits.append(lg[:, -1])
         if i < n:
             cache = new
@@ -127,11 +152,13 @@ def chunk_step(params: Params, cache: dict, tokens: torch.Tensor,
 @torch.no_grad()
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             spec=None, max_len: int | None = None,
+            extras: dict | None = None,
             true_len: torch.Tensor | None = None) -> tuple:
     """tokens (b, s) -> (last-valid-position logits (b, v), cache padded to
     max_len).  `true_len` (b,) supports right-padded prompts."""
     return family_module(cfg).prefill(params, tokens, cfg, spec,
-                                      max_len=max_len, true_len=true_len)
+                                      max_len=max_len, true_len=true_len,
+                                      **(extras or {}))
 
 
 def param_count(params: Params) -> int:

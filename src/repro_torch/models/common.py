@@ -1,6 +1,7 @@
-"""Shared model components: norms, RoPE, attention (naive / chunked /
-flash / windowed / decode), the KV-cache and padding helpers, SwiGLU and
-the tanh-approximate GELU.
+"""Shared model components: norms (RMS and biased LayerNorm), RoPE and
+sinusoidal positions, attention (naive / chunked / flash / windowed /
+decode), the KV-cache and padding helpers, SwiGLU, the GELU MLP and the
+tanh-approximate GELU.
 
 All matmuls of the projections route through approx.layers so every model
 can run under a candidate approximate multiplier (`spec`).  Softmax, norms
@@ -43,6 +44,29 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 with a (1 + scale) gain and a bias, as the JAX
+    package's."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * (1.0 + scale.float()) + \
+        bias.float()
+    return out.to(x.dtype)
+
+
+def sinusoid_positions(s: int, d: int, device=None) -> torch.Tensor:
+    """(s, d) f32 sinusoidal positions: sin on the first d/2 channels, cos
+    on the rest.  The power is taken in f64 and rounded once: torch's f32
+    power is an ulp off XLA's on a few exponents, and at 1500 positions
+    an ulp of the angle moves sin by 1e-4."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d).double()).float()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --- rotary embeddings --------------------------------------------------------
@@ -96,21 +120,25 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       chunk: int = 512, causal: bool = True) -> torch.Tensor:
     """Online-softmax attention forward, O(chunk * s) live memory — the
     plain twin of the flash kernel (the JAX package's blockwise attention;
-    its custom backward comes with training)."""
+    its custom backward comes with training).  q (b, sq, h, d); k, v
+    (b, skv, kvh, d): a non-causal call may attend across lengths
+    (cross-attention), as the reference's blockwise forward does."""
     b, s_orig, h, d = q.shape
-    kvh = k.shape[2]
+    kvh, skv = k.shape[2], k.shape[1]
     c = min(chunk, s_orig)
     pad = (-s_orig) % c
     if pad:
         q = F.pad(q, (0, 0, 0, 0, 0, pad))
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kpad = (-skv) % c
+    if kpad:
+        k = F.pad(k, (0, 0, 0, 0, 0, kpad))
+        v = F.pad(v, (0, 0, 0, 0, 0, kpad))
     s = s_orig + pad
     qg, g = _gqa_shape(q, kvh)
     scale = d ** -0.5
-    n = s // c
-    kc = k.reshape(b, n, c, kvh, d).float()
-    vc = v.reshape(b, n, c, kvh, d).float()
+    n, nk = s // c, (skv + kpad) // c
+    kc = k.reshape(b, nk, c, kvh, d).float()
+    vc = v.reshape(b, nk, c, kvh, d).float()
     blocks = []
     for iq in range(n):
         qs = qg[:, iq * c:(iq + 1) * c].float() * scale     # (b,c,kv,g,d)
@@ -118,13 +146,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l_p = torch.zeros((b, kvh, g, c), device=q.device)
         acc = torch.zeros((b, kvh, g, c, d), device=q.device)
         qi = iq * c + torch.arange(c, device=q.device)
-        for ik in range(n):
+        for ik in range(nk):
             ki = ik * c + torch.arange(c, device=q.device)
             sc = torch.einsum("bqkgd,bmkd->bkgqm", qs, kc[:, ik])
             if causal:
                 mask = qi[:, None] >= ki[None, :]
             else:
-                mask = (ki[None, :] < s_orig).expand(c, c)
+                mask = (ki[None, :] < skv).expand(c, c)
             sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
             m_n = torch.maximum(m_p, sc.amax(dim=-1))
             p = torch.exp(sc - m_n[..., None])
@@ -295,3 +323,9 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down,
     gate = AL.gemm(x, w_gate, spec)
     up = AL.gemm(x, w_up, spec)
     return AL.gemm(silu(gate) * up, w_down, spec)
+
+
+def gelu_mlp(x: torch.Tensor, w_up, b_up, w_down, b_down,
+             spec: MultSpec | None) -> torch.Tensor:
+    h = AL.dense(x, w_up, b_up, spec)
+    return AL.dense(gelu(h), w_down, b_down, spec)

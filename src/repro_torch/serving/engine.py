@@ -19,6 +19,12 @@ load-shedding (`finish_reason="shed"`) and mid-decode deadline eviction
 (`"deadline"`); a crash inside admission re-queues the request before
 propagating.
 
+Conditioning: a request of the `encdec` family carries its frames, one of
+a cross-attention `lm` its image embeddings, in `Request.extras`
+(`api.extras_shapes` names the keys and shapes).  Prefill consumes them
+(zeros where a request carries none, as in the reference); image
+embeddings are also kept per slot and passed to every decode step.
+
 Metering (`meter=`, a `fleet.meter.EnergyMeter`): each prefill and decode
 step is timed on the host clock after the step's device sync, and the
 meter turns those seconds into per-request Joules and CO2eq
@@ -49,6 +55,27 @@ def _n_devices(target) -> int:
     return max(math.prod(size for _, size in axes), target.n_dies)
 
 
+def prefill_extras(cfg: ModelConfig, extras: dict | None,
+                   device) -> dict:
+    """One request's conditioning as prefill takes it: each array the
+    config consumes, reshaped to (1, ...) on `device` (f64 to f32, as the
+    reference's `jnp.asarray` gives it); zeros of the model's dtype where
+    the request carries none."""
+    given = extras or {}
+    out = {}
+    for key, shape in api.extras_shapes(cfg).items():
+        arr = given.get(key)
+        if arr is None:
+            out[key] = torch.zeros((1, *shape), device=device,
+                                   dtype=getattr(torch, cfg.dtype))
+            continue
+        t = torch.as_tensor(arr)
+        if t.dtype == torch.float64:
+            t = t.float()
+        out[key] = t.to(device).reshape(1, *shape)
+    return out
+
+
 class _Slot:
     """Host-side record of one occupied arena slot."""
 
@@ -71,7 +98,8 @@ class Engine:
     """Slot-based continuous-batching engine.
 
     Args:
-      cfg: model config (the `lm`, `ssm` or `hybrid` family).
+      cfg: model config (the `lm`, `ssm`, `hybrid` or `encdec` family;
+        not MoE).
       params: model params; initialized from `seed` when None.
       capacity: decode-arena slots (max concurrent requests).
       max_len: arena sequence horizon; prompt_len + max_new_tokens - 1
@@ -155,14 +183,29 @@ class Engine:
         self._init_lanes()
 
     def _init_lanes(self) -> None:
-        """Per-lane sampling state: last token, temperature, top-k and
-        generator of every slot."""
-        capacity = self.capacity
+        """Per-lane state: last token, temperature, top-k and generator of
+        every slot, and, for a cross-attention model, its image
+        embeddings (capacity, n_img_tokens, d) in the model's dtype."""
+        capacity, cfg = self.capacity, self.cfg
         self._tok = torch.zeros((capacity, 1), dtype=torch.int64,
                                 device=self.device)
         self._temps = [0.0] * capacity
         self._topks = [0] * capacity
         self._gens: list[torch.Generator | None] = [None] * capacity
+        self._img = None
+        if cfg.cross_every:
+            self._img = torch.zeros(
+                (capacity, cfg.n_img_tokens, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device=self.device)
+
+    def _decode_extras(self) -> dict:
+        """The per-slot conditioning every decode step takes."""
+        return {} if self._img is None else {"img_embeds": self._img}
+
+    def _set_lane_extras(self, slot_id: int, extras: dict) -> None:
+        """Keep an admitted request's image embeddings in its slot."""
+        if self._img is not None:
+            self._img[slot_id] = extras["img_embeds"][0].to(self._img.dtype)
 
     # --- degradation tiers ------------------------------------------------
 
@@ -219,30 +262,50 @@ class Engine:
             if v is not None and v < 1:
                 raise ValueError(f"{request.request_id}: {field} must be "
                                  f">= 1 tick (got {v})")
-        if request.extras:
-            raise ValueError(f"{request.request_id}: extras (frames / "
-                             "image embeddings) need a family that is not "
-                             "ported yet")
+        self._check_extras(request)
         self._ids.add(request.request_id)
         self._sched.submit(request)
 
+    def _check_extras(self, request: Request) -> None:
+        """Extras only for a config that consumes them, each under one of
+        its keys and reshapable to that key's shape."""
+        if not request.extras:
+            return
+        rid, want = request.request_id, api.extras_shapes(self.cfg)
+        if not want:
+            raise ValueError(f"{rid}: extras (frames / image embeddings) "
+                             f"given to {self.cfg.name}, which takes none")
+        for key, arr in request.extras.items():
+            if key not in want:
+                raise ValueError(f"{rid}: extras key {key!r}; "
+                                 f"{self.cfg.name} takes {sorted(want)}")
+            size = arr.numel() if torch.is_tensor(arr) else np.size(arr)
+            if size != math.prod(want[key]):
+                raise ValueError(
+                    f"{rid}: extras[{key!r}] of {size} values does not "
+                    f"reshape to {want[key]}")
+
     # --- admission (prefill-then-join) -----------------------------------
+
+    def _prefill_extras(self, request: Request) -> dict:
+        return prefill_extras(self.cfg, request.extras, self.device)
 
     def _request_generator(self, sp) -> torch.Generator:
         seed = sp.seed if sp.seed is not None else \
             self.seed * 1_000_003 + 1 + self._admitted
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def _prefill_request(self, request: Request) -> tuple:
-        """The whole prompt right-padded to its bucket, prefilled: (logits
-        of its last token (1, vocab), its 1-row cache at max_len)."""
+    def _prefill_request(self, request: Request, extras: dict) -> tuple:
+        """The whole prompt right-padded to its bucket, prefilled with the
+        request's `extras` (`_prefill_extras`): (logits of its last token
+        (1, vocab), its 1-row cache at max_len)."""
         n = len(request.tokens)
         bucket = next(b for b in self.buckets if b >= n)
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n] = np.asarray(request.tokens, np.int64)
         return api.prefill(
             self.exec_params, torch.from_numpy(padded).to(self.device),
-            self.cfg, self._spec, max_len=self.max_len,
+            self.cfg, self._spec, max_len=self.max_len, extras=extras,
             true_len=torch.tensor([n], dtype=torch.int32,
                                   device=self.device))
 
@@ -250,8 +313,9 @@ class Engine:
                slot_id: int) -> None:
         sp = request.sampling
         n = len(request.tokens)
+        extras = self._prefill_extras(request)
         t0 = time.perf_counter()
-        logits, req_cache = self._prefill_request(request)
+        logits, req_cache = self._prefill_request(request, extras)
         gen = self._request_generator(sp)
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
@@ -260,6 +324,7 @@ class Engine:
         self._admitted += 1
 
         self._arena.insert(req_cache, slot_id)
+        self._set_lane_extras(slot_id, extras)
         self._tok[slot_id, 0] = first_tok
         self._temps[slot_id] = sp.temperature
         self._topks[slot_id] = sp.top_k
@@ -375,7 +440,8 @@ class Engine:
 
     def _decode(self) -> np.ndarray:
         logits, cache = api.decode_step(self.exec_params, self._arena.cache,
-                                        self._tok, self.cfg, self._spec)
+                                        self._tok, self.cfg, self._spec,
+                                        self._decode_extras())
         self._arena.cache = cache
         tok = sampling.sample_tokens(logits[:, -1], self._temps,
                                      self._topks, self._gens)

@@ -18,7 +18,11 @@ inherited.  Three capabilities stack, each optional but the first:
      stay dense per-slot leaves: a decode step commits them whole, the
      draft runs on copies, and verify keeps a per-step snapshot of them
      and sets each lane to its snapshot at its last emitted position, as
-     the JAX package's `_sel` / `_pick_snap` do.
+     the JAX package's `_sel` / `_pick_snap` do.  Dense leaves that decode
+     never writes (`api.static_cache_keys`: encdec's cross K/V) are
+     neither copied nor snapshotted.  The prefix-cache key joins the
+     request's conditioning (`_conditioning_digest`): equal tokens under
+     other frames or images are other K/V.
   2. **Chunked prefill** (`prefill_chunk=c`): prompts longer than `c`
      prefill in `c`-token chunks, at most `chunk_budget` chunks per tick,
      interleaved with decode.  The first chunk is a `prefill` of `c`
@@ -46,6 +50,7 @@ generator and sampled rows draw once per emitted token in both engines.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 
 import numpy as np
@@ -91,6 +96,7 @@ class _ChunkJob:
     lease: PageLease
     digest: str
     gen: torch.Generator
+    extras: dict
     workspace: dict
     pos: int
 
@@ -138,6 +144,8 @@ class PagedEngine(Engine):
         self._alloc = PageAllocator(self.n_pages, page_size)
         self._jobs: list[_ChunkJob] = []
         self._leases: dict[str, PageLease] = {}
+        #: conditioning digests of queued requests, dropped at admission
+        self._digests: dict[str, str] = {}
         self._paged_stalls = 0
         self._chunks = 0
         self._chunk_s = 0.0
@@ -163,9 +171,10 @@ class PagedEngine(Engine):
                                  self.page_size, self.n_pages, self.device)
         self._table = torch.zeros((capacity, self._arena.max_pages),
                                   dtype=torch.int64, device=self.device)
-        # the leaves that do not page, besides the lengths
+        # the leaves that do not page and that decode writes, besides the
+        # lengths
         self._dense = sorted(set(self._arena.cache) - set(self._arena.paged)
-                             - {"length"})
+                             - {"length"} - api.static_cache_keys(self.cfg))
         self._all_lanes = torch.ones((capacity,), dtype=torch.bool,
                                      device=self.device)
         self._init_lanes()
@@ -182,6 +191,22 @@ class PagedEngine(Engine):
                     f"{request.request_id}: needs {need} pages, pool has "
                     f"{self.n_pages - 1} usable")
         super().submit(request)
+
+    def _conditioning_digest(self, request: Request) -> str:
+        """Prefix-cache key component: each extras key with its array's
+        shape, dtype and the sha1 of its raw bytes (frames and image
+        embeddings change the K/V of equal tokens).  Hashed once per
+        request: a head stalled for pages is not re-hashed every tick."""
+        rid = request.request_id
+        if rid not in self._digests:
+            parts = []
+            for key in sorted(request.extras or {}):
+                t = torch.as_tensor(request.extras[key]).detach().cpu()
+                raw = t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                parts.append(f"{key}:{tuple(t.shape)}:{t.dtype}:"
+                             f"{hashlib.sha1(raw.tobytes()).hexdigest()[:16]}")
+            self._digests[rid] = "|".join(parts)
+        return self._digests[rid]
 
     def _flat_idx(self, lease: PageLease, n: int) -> torch.Tensor:
         """Host-built scatter map for the admission insert: position j ->
@@ -209,10 +234,11 @@ class PagedEngine(Engine):
             rid = request.request_id
             chunked = (self.prefill_chunk is not None
                        and n > self.prefill_chunk)
-            # the compute path joins the prefix key: only bit-identically
-            # produced prefixes share pages
-            digest = (f"|chunk:{self.prefill_chunk}" if chunked else
-                      f"|bucket:{next(b for b in self.buckets if b >= n)}")
+            # the conditioning and the compute path join the prefix key:
+            # only bit-identically produced prefixes share pages
+            path = (f"chunk:{self.prefill_chunk}" if chunked else
+                    f"bucket:{next(b for b in self.buckets if b >= n)}")
+            digest = f"{self._conditioning_digest(request)}|{path}"
             lease = self._alloc.alloc(
                 rid, n + sp.max_new_tokens - 1,
                 prompt=tuple(request.tokens) if self.prefix_cache else None,
@@ -221,6 +247,7 @@ class PagedEngine(Engine):
                 self._paged_stalls += 1
                 break
             self._sched.pop_ready(now)
+            self._digests.pop(rid, None)
             ready_wall = self._sched.ready_wall(rid)
             slot_id = self._free.pop()
             self._leases[rid] = lease
@@ -245,16 +272,17 @@ class PagedEngine(Engine):
         token draw (same bucket, same ops, same generator), then a paged
         insert in place of the slot insert."""
         sp = request.sampling
+        extras = self._prefill_extras(request)
         t0 = time.perf_counter()
-        logits, req_cache = self._prefill_request(request)
+        logits, req_cache = self._prefill_request(request, extras)
         gen = self._request_generator(sp)
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
         first_tok = int(first[0])           # syncs the prefill
         self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._admitted += 1
-        self._install(request, req_cache, slot_id, lease, gen, first_tok,
-                      ready_wall, digest)
+        self._install(request, req_cache, extras, slot_id, lease, gen,
+                      first_tok, ready_wall, digest)
 
     def _start_chunked(self, request: Request, ready_wall: float,
                        slot_id: int, lease: PageLease, digest: str) -> None:
@@ -266,12 +294,13 @@ class PagedEngine(Engine):
         sp = request.sampling
         c = self.prefill_chunk
         prompt = np.asarray(request.tokens[:c], np.int64)[None]
+        extras = self._prefill_extras(request)
         gen = self._request_generator(sp)
         self._admitted += 1
         t0 = time.perf_counter()
         _, workspace = api.prefill(
             self.exec_params, torch.from_numpy(prompt).to(self.device),
-            self.cfg, self._spec, max_len=self.max_len,
+            self.cfg, self._spec, max_len=self.max_len, extras=extras,
             true_len=torch.tensor([c], dtype=torch.int32,
                                   device=self.device))
         _sync(self.device)
@@ -282,17 +311,19 @@ class PagedEngine(Engine):
             self._admitted, speculating=self.draft_tier is not None,
             prefilling=True)
         self._jobs.append(_ChunkJob(request, slot_id, lease, digest, gen,
-                                    workspace, c))
+                                    extras, workspace, c))
 
-    def _install(self, request: Request, req_cache: dict, slot_id: int,
-                 lease: PageLease, gen: torch.Generator, first_tok: int,
-                 ready_wall: float, digest: str,
+    def _install(self, request: Request, req_cache: dict, extras: dict,
+                 slot_id: int, lease: PageLease, gen: torch.Generator,
+                 first_tok: int, ready_wall: float, digest: str,
                  slot: _PagedSlot | None = None) -> None:
-        """Common tail of both admission paths: paged insert, lane state,
-        prefix registration, slot record, first emit."""
+        """Common tail of both admission paths: paged insert, lane state
+        (the image embeddings of a cross-attention model among it), prefix
+        registration, slot record, first emit."""
         sp = request.sampling
         n = len(request.tokens)
         self._arena.insert(req_cache, slot_id, self._flat_idx(lease, n))
+        self._set_lane_extras(slot_id, extras)
         self._table[slot_id] = 0
         self._table[slot_id, :len(lease.pages)] = torch.tensor(
             lease.pages, dtype=torch.int64)
@@ -346,7 +377,8 @@ class PagedEngine(Engine):
         t0 = time.perf_counter()
         logits, job.workspace = api.chunk_step(
             self.exec_params, job.workspace,
-            torch.from_numpy(piece).to(self.device), self.cfg, self._spec)
+            torch.from_numpy(piece).to(self.device), self.cfg, self._spec,
+            job.extras)
         job.pos += take
         first_tok = None
         if job.pos >= n:
@@ -362,9 +394,9 @@ class PagedEngine(Engine):
         if first_tok is None:
             return False
         slot = self._slots[job.slot_id]
-        self._install(job.request, job.workspace, job.slot_id, job.lease,
-                      job.gen, first_tok, slot.ready_wall, job.digest,
-                      slot=slot)
+        self._install(job.request, job.workspace, job.extras, job.slot_id,
+                      job.lease, job.gen, first_tok, slot.ready_wall,
+                      job.digest, slot=slot)
         return True
 
     # --- eviction ---------------------------------------------------------
@@ -436,7 +468,8 @@ class PagedEngine(Engine):
         old_len = cache["length"]
         view = self._arena.view(cache, self._table)
         logits, view = api.decode_step(self.exec_params, view, self._tok,
-                                       self.cfg, self._spec)
+                                       self.cfg, self._spec,
+                                       self._decode_extras())
         tok = sampling.sample_tokens(logits[:, -1], self._temps,
                                      self._topks, self._gens)
         self._arena.scatter_rows(cache, view, self._table, old_len,
@@ -457,7 +490,8 @@ class PagedEngine(Engine):
         tok, out = self._tok, []
         for _ in range(self.spec_k):
             logits, view = api.decode_step(self._draft_exec, view, tok,
-                                           self.cfg, self._draft_spec)
+                                           self.cfg, self._draft_spec,
+                                           self._decode_extras())
             tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
             out.append(tok)
         return torch.cat(out, dim=1)
@@ -489,7 +523,8 @@ class PagedEngine(Engine):
             pos = torch.clamp(old_len + i, max=self.max_len - 1).long()
             logits, new = api.decode_step(self.exec_params,
                                           self._own_dense(view), tok,
-                                          self.cfg, self._spec)
+                                          self.cfg, self._spec,
+                                          self._decode_extras())
             live = kr > i
             new["length"] = torch.where(live, new["length"], view["length"])
             for key in self._dense:

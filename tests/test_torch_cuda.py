@@ -260,6 +260,26 @@ def test_cuda_flash_attention_tensor_core_widths(cuda_dev, bh, s, d, dtype,
                                    atol=3 * tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bh,s,d,causal", [
+    (16, 1500, 64, False),     # Whisper's encoder: 16 heads, 1500 frames
+    (36, 128, 128, True),      # StarCoder2's prefill (36 query heads)
+    (32, 128, 128, True)])     # the vision model's prefill
+def test_cuda_flash_attention_conditioned_shapes(cuda_dev, bh, s, d, causal,
+                                                 dtype, tol):
+    gen = torch.Generator(device=cuda_dev).manual_seed(s + d)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=cuda_dev)
+               .to(dtype) for _ in range(3))
+    n0 = fk.flash_attention.launches
+    got = fk.flash_attention(q, k, v, causal=causal)
+    assert fk.flash_attention.launches == n0 + 1
+    want = fk.flash_attention_plain(q, k, v, causal=causal, bq=64, bkv=64)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=3 * tol)
+
+
 # --- the redesigned skinny kernel ----------------------------------------------
 
 #: TinyLlama-1.1B's five distinct decode GEMMs (K, N) and VGG16's three FC
@@ -318,6 +338,24 @@ def test_cuda_skinny_main_path_shapes(cuda_dev, kn):
         got, want = _skinny_pair(a, bt, spec, rank, k, cuda_dev)
         assert qgemm.approx_qgemm_skinny.launches == n0 + 1
         assert torch.equal(got, want), mult
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+def test_cuda_skinny_whisper_tied_head(cuda_dev, m):
+    """Whisper's tied head, (1024, 51865): an odd N that the route pads,
+    through `ops.approx_qgemm` (the head is unprepared: its weight is
+    transposed per call) and on the K-major weight against the plain
+    version, bit for bit."""
+    k, n = 1024, 51865
+    spec = G.spec_from_name("trunc2x2").to(cuda_dev)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=cuda_dev)
+    b = torch.randint(-128, 128, (k, n), dtype=torch.int8, device=cuda_dev)
+    got = ops.approx_qgemm(a, b, spec, skinny=True)
+    assert got.shape == (m, n)
+    assert torch.equal(got, G.approx_qgemm(a, b, spec))
+    kern, plain = _skinny_pair(a, b.T.contiguous(), spec, 0, k, cuda_dev)
+    assert torch.equal(kern, plain)
 
 
 @pytest.mark.cuda

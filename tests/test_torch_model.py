@@ -50,6 +50,8 @@ def _cfgs(mult, arch="tinyllama-1.1b"):
     pytest.param("qwen1.5-32b", "trunc2x2", id="qwen1.5-32b-trunc2x2"),
     pytest.param("mistral-large-123b", "trunc2x2",
                  id="mistral-large-123b-trunc2x2"),
+    # the GELU MLP with biases (w_up/mb_up, w_down/mb_down)
+    pytest.param("starcoder2-7b", "trunc2x2", id="starcoder2-7b-trunc2x2"),
 ])
 def test_prefill_and_decode_match_jax(arch, mult):
     cj, ct = _cfgs(mult, arch)
@@ -164,12 +166,16 @@ def test_cache_helpers():
 
 
 def test_unported_families_raise():
-    """encdec (whisper) and the MoE layers (grok) are not ported yet; the
-    ssm and hybrid families are (tests/test_torch_ssm.py,
-    tests/test_torch_hybrid.py)."""
-    with pytest.raises(NotImplementedError):
-        api.init_cache(configs.reduced(configs.get_config("whisper-medium")),
-                       1, 8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        api.init_params(configs.reduced(configs.get_config("grok-1-314b")),
-                        device="cpu")
+    """The MoE layers (grok-1, llama4-maverick) are not ported yet; every
+    other family is (encdec: tests/test_torch_encdec.py, the vision cross
+    attention: tests/test_torch_vision.py, ssm and hybrid:
+    tests/test_torch_ssm.py, tests/test_torch_hybrid.py)."""
+    for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
+        cfg = configs.reduced(configs.get_config(arch))
+        with pytest.raises(NotImplementedError, match="MoE"):
+            api.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="MoE"):
+            api.init_cache(cfg, 1, 8, device="cpu")
+    for arch in ("whisper-medium", "llama-3.2-vision-11b", "starcoder2-7b"):
+        cfg = configs.reduced(configs.get_config(arch))
+        assert set(api.init_cache(cfg, 1, 8, device="cpu")) >= {"k", "v"}

@@ -1,7 +1,9 @@
-"""Engine checks shared by tests/test_torch_ssm.py and
-tests/test_torch_hybrid.py: the port's slot and paged engines on a
-recurrent family (whose whole cache, or part of it, is dense per-slot
-state), on the CPU at a reduced size.
+"""Engine checks shared by tests/test_torch_ssm.py,
+tests/test_torch_hybrid.py, tests/test_torch_encdec.py and
+tests/test_torch_vision.py: the port's slot and paged engines on a family
+whose cache is partly or wholly dense per-slot state, or whose requests
+carry conditioning (`Request.extras`: frames, image embeddings, seeded
+per request by `conditioning`), on the CPU at a reduced size.
 
   * the slot engine's greedy streams equal lone per-request decoding
     (one request at a time, prefill at the same bucket, then greedy
@@ -38,9 +40,26 @@ def prompt(n: int, seed: int, vocab: int) -> list:
     return np.random.default_rng(seed).integers(1, vocab, (n,)).tolist()
 
 
-def mixed_trace(vocab: int, n_requests: int = 8, seed: int = 1) -> list:
+def conditioning(cfg, seed: int, batch: int | None = None) -> dict | None:
+    """Seeded random extras for one request of `cfg` (a batch of them,
+    with a leading axis, given `batch`; None for a config that takes
+    none): frames of unit variance, image embeddings of 0.1, as the data
+    pipeline's `frames_batch` / `img_batch` draw them."""
+    shapes = api.extras_shapes(cfg)
+    if not shapes:
+        return None
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    scale = {"frames": 1.0, "img_embeds": 0.1}
+    return {key: (rng.standard_normal((*lead, *shape)) * scale[key]).astype(
+        np.float32) for key, shape in sorted(shapes.items())}
+
+
+def mixed_trace(vocab: int, n_requests: int = 8, seed: int = 1,
+                cfg=None) -> list:
     """Heterogeneous prompt lengths (4-23), staggered arrivals, greedy and
-    seeded sampled rows alternating."""
+    seeded sampled rows alternating; with a `cfg` that takes extras, each
+    request carries its own seeded `conditioning`."""
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n_requests):
@@ -50,7 +69,9 @@ def mixed_trace(vocab: int, n_requests: int = 8, seed: int = 1) -> list:
             SamplingParams(temperature=0.9, top_k=8, max_new_tokens=gen,
                            seed=100 + i)
         out.append(Request(f"t{i}", rng.integers(1, vocab, (n,)).tolist(),
-                           sp, arrival=float(i) * 0.7))
+                           sp, arrival=float(i) * 0.7,
+                           extras=None if cfg is None
+                           else conditioning(cfg, 10_000 + i)))
     return out
 
 
@@ -63,38 +84,47 @@ def serve(engine, trace) -> dict:
 
 def slot_engine_equals_lone_decoding(cfg, params) -> None:
     """Five greedy requests through three slots (two join mid-decode, one
-    waits for a freed slot) against each request decoded alone."""
+    waits for a freed slot) against each request decoded alone, each with
+    its own `conditioning` where the config takes it."""
     bucket, max_len = 24, 40
     lens, gens = [5, 23, 9, 14, 11], [6, 4, 5, 3, 7]
     arrivals = [0.0, 0.0, 0.0, 2.0, 3.0]
     prompts = [prompt(n, 10 + i, cfg.vocab) for i, n in enumerate(lens)]
+    extras = [conditioning(cfg, 10_000 + i) for i in range(len(lens))]
     eng = Engine(cfg, params, capacity=3, max_len=max_len,
                  prefill_buckets=(bucket,), device="cpu")
     for i, (p, g, t) in enumerate(zip(prompts, gens, arrivals)):
         eng.submit(Request(f"r{i}", p, SamplingParams(max_new_tokens=g),
-                           arrival=t))
+                           arrival=t, extras=extras[i]))
     done = {c.request_id: c.tokens for c in eng.run_until_complete()}
     spec = api.make_spec(cfg, device="cpu")
     prepared = api.prepare_params(params, cfg, spec)
     for i, (p, g) in enumerate(zip(prompts, gens)):
         padded = torch.zeros((1, bucket), dtype=torch.long)
         padded[0, :len(p)] = torch.tensor(p)
+        ex = {k: torch.from_numpy(v)[None]
+              for k, v in (extras[i] or {}).items()}
         logits, cache = api.prefill(prepared, padded, cfg, spec,
-                                    max_len=max_len,
+                                    max_len=max_len, extras=ex,
                                     true_len=torch.tensor([len(p)]))
         tok = logits.argmax(-1)[:, None]
         stream = [int(tok)]
         for _ in range(g - 1):
-            logits, cache = api.decode_step(prepared, cache, tok, cfg, spec)
+            logits, cache = api.decode_step(prepared, cache, tok, cfg, spec,
+                                            ex)
             tok = logits[:, -1].argmax(-1)[:, None]
             stream.append(int(tok))
         assert done[f"r{i}"] == stream, (i, done[f"r{i}"], stream)
     assert eng.stats()["admitted"] == 5
 
 
-def paged_equals_slot_engine(cfg, params, case: str) -> None:
+def paged_equals_slot_engine(cfg, params, case: str,
+                             paged_leaves: tuple = ()) -> None:
+    """`PagedEngine` against the slot engine on `mixed_trace` (with each
+    request's conditioning where the config takes it); `paged_leaves` are
+    the cache leaves that page (none of a recurrent cache)."""
     kw = PAGED_CASES[case]
-    trace = mixed_trace(cfg.vocab)
+    trace = mixed_trace(cfg.vocab, cfg=cfg)
     base = serve(Engine(cfg, params, capacity=3, max_len=64, device="cpu"),
                  list(trace))
     eng = PagedEngine(cfg, params, capacity=3, max_len=64, device="cpu",
@@ -103,8 +133,7 @@ def paged_equals_slot_engine(cfg, params, case: str) -> None:
     eng._alloc.audit()
     assert eng._alloc.pages_live == 0
     st = eng.stats()
-    # no leaf of a recurrent cache scales with max_len: nothing pages
-    assert st["paged"]["paged_leaves"] == []
+    assert st["paged"]["paged_leaves"] == sorted(paged_leaves)
     assert (st["paged"]["chunked"]["chunks"] > 0) == ("prefill_chunk" in kw)
     if "draft_tier" in kw:
         assert st["spec"]["acceptance_rate"] == 1.0
