@@ -29,7 +29,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  these parity calls) bit-exact, flash attention within
                  2e-6 (f32) / 2e-2 (bf16) (Whisper's encoder at (16,
                  1500, 64) non-causal, StarCoder2's and the vision model's
-                 prefills at (36 / 32, 128, 128) among its shapes); then each kernel's time per unit
+                 prefills at (36 / 32, 128, 128) among its shapes); the
+                 MoE models' GEMMs (grok-1's and llama4-maverick's
+                 attention, one expert matrix per shape, llama4's dense
+                 FFN, both LM heads, N = 202048 among them) on skinny at
+                 m = 1, 4, 5 and 32 and on plane 0 at M = 40 and 128,
+                 bit-exact; then each kernel's time per unit
                  of its main path (CUDA events) beside its plain version
                  (quantize_rows per decode step and per VGG16 forward, with
                  x.to(torch.int8) on the same inputs as a same-bytes
@@ -75,7 +80,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  twin, every death an injected one; the total-carbon
                  search over the multi-die scenarios on the card, held to
                  the CPU's (rtol 1e-6);
-  7. recurrent — mamba2-370m (8 of its 48 layers, cut so the script
+  7. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
                  stays well inside its time limit: the engines' steps are
                  host-bound and scale with depth) and then
                  recurrentgemma-9b (38 layers, 10.4B params) at full
@@ -105,12 +110,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  wrap), full width, once through the kernels and once
                  through the plain versions on the card: logits compared,
                  greedy tokens equal, the plain run launching nothing;
-  9. conditioned — whisper-medium (24 + 24 layers, 1500 frames),
-                 starcoder2-7b (32 layers, the GELU MLP) and
-                 llama-3.2-vision-11b (40 + 8 cross layers, 1600 image
+  9. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
+                 frames), starcoder2-7b (8 of its 32 layers, the GELU
+                 MLP) and llama-3.2-vision-11b (1 of its 8 superblocks,
+                 5 + 1 cross layers; all three cut so the script stays
+                 well inside its time limit; 1600 image
                  tokens, every cross-attention gate set to 1.0: it starts
                  at 0, which multiplies the image path away) at full
-                 width and depth, trunc2x2, flash, f32, random weights
+                 width, trunc2x2, flash, f32, random weights
                  from a seeded CUDA generator, prepared once, one model at
                  a time, through the slot and paged engines on the paged
                  trace, each request carrying its own seeded frames or
@@ -137,7 +144,40 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  flash's outputs): logits compared, greedy tokens equal,
                  the plain run launching nothing; the whole prefill held
                  to the chunked one under exact;
- 11. check     — a 2-layer full-width model served once through the kernels
+ 11. moe       — grok-1-314b (2 of its 64 layers: every layer MoE, 8
+                 experts, top-2) and llama4-maverick-400b-a17b (1 of its
+                 24 superblocks: a dense layer and an MoE layer with its
+                 shared expert; 32 of its 128 experts, top-1: at 128 one
+                 layer's experts hold 64.4 GB in f32, about 97 GB once
+                 prepared, more than the card; the cut moves its expert
+                 capacity in a bucket-128 prefill from 1 to 5) at full
+                 width, trunc2x2, flash, f32, random weights from a
+                 seeded CUDA generator, prepared once (every expert
+                 matrix) and shared, through the slot and paged engines
+                 on the paged trace: S4, P, PS, C4 and PC.  The rows of
+                 an MoE call share its expert capacity (the reference's
+                 GShard-style routing), so P is held to S4 (each idle
+                 lane quiet), while PS against S4, PC against C4 and C4
+                 against S4 are reported (their decode calls put other
+                 rows beside a token), as is PS's acceptance; then S4,
+                 PS and PC again on a copy of the config whose capacity
+                 drops nothing (capacity_factor = experts / top_k, the
+                 same prepared weights): PS and PC token-identical to S4
+                 with every draft accepted, no token dropped (no C4
+                 twin there: its C4 equalled S4 on every request of both
+                 models); the exact whole-vs-chunked gap is reported,
+                 and held on the no-drop copy; tokens
+                 dropped per call, launches equal to `paged_want`'s
+                 formula (an MoE layer's expert GEMMs at M = the call's
+                 capacity), ms per prefill, decode, chunk and spec step,
+                 device busy share, memory after prepare and at peak;
+ 12. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
+                 (32 experts), full width, through the kernels and through
+                 the plain versions, both on chunked attention: logit gap
+                 0, greedy tokens and every call's routing (expert
+                 indices, drop mask) equal, the plain run launching
+                 nothing;
+ 13. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -145,7 +185,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 12. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 14. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -154,19 +194,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 13. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 15. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 14. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 16. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 15. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 17. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 14's vgg_mini), each GA design within
+                 kernels on phase 16's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -176,9 +216,9 @@ The line before the card line is a JSON object with one entry per kernel
 and main-path unit (quantize_rows has two: the decode step and the VGG16
 forward; `path` names the run its launches come from,
 `paged_launches` holds each kernel's launches in run PD,
-`fleet_launches` those of the metered fleet, `recurrent_launches` and
-`conditioned_launches` those of each recurrent and conditioned model's
-runs, summed);
+`fleet_launches` those of the metered fleet, `recurrent_launches`,
+`conditioned_launches` and `moe_launches` those of each recurrent,
+conditioned and MoE model's runs, summed);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -525,6 +565,46 @@ def check_kernels(dev) -> tuple[dict, int]:
         splits, gran = qgemm.skinny_splits(k, n)
         log(f"[kernels] skinny (1-32,{k},{n}): {splits} K split(s) of "
             f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
+        del a, b, bt
+        torch.cuda.empty_cache()
+
+    # the MoE models' GEMMs, one expert matrix per (k, n), the dense and
+    # shared-expert FFNs and the LM heads (llama4-maverick's N = 202048
+    # tail among them): skinny at m = 1 (chunk steps), 4 (decode at
+    # capacity 4; an expert's capacity is 1 there), 5 (llama4's expert
+    # capacity in a bucket-128 prefill at 32 experts) and 32 (first
+    # chunks), plane 0 at M = 40 (grok's expert capacity in a bucket-128
+    # prefill) and 128 (attention, dense and shared FFN), all bit-exact
+    moe_layers, moe_heads = model_gemm_shapes(MOE_ARCHS)
+    for k, n in moe_layers + moe_heads:
+        b = rand_q(k, n)
+        bt = b.T.contiguous()
+        for m in (1, 4, 5, 32):
+            a = rand_q(m, k)
+            for name, spec in specs.items():
+                got = ops.approx_qgemm(a, b, spec, skinny=True, b_t=bt)
+                exact("approx_qgemm_skinny", got,
+                      G.approx_qgemm(a, b, spec),
+                      f"({m},{k},{n}) {name}, K-major weight")
+        if (k, n) in moe_layers:
+            for m in (40, 128):
+                a = rand_q(m, k)
+                for name, spec in specs.items():
+                    got = ops.approx_qgemm(a, b, spec, b_t=bt)
+                    exact("approx_qgemm_plane0", got,
+                          G.approx_qgemm(a, b, spec),
+                          f"({m},{k},{n}) {name}, K-major weight")
+                    ta, tb, _ = ops._spec_kernel_args(spec)
+                    exact("approx_qgemm_plane0", got,
+                          qgemm.approx_qgemm_plane0_plain(
+                              a, bt, trunc_a=ta, trunc_b=tb),
+                          f"({m},{k},{n}) {name}, K-major weight vs plain")
+        splits, gran = qgemm.skinny_splits(k, n)
+        log(f"[kernels] MoE ({k},{n}): skinny at m = 1, 4, 5, 32 "
+            f"({splits} K split(s) of {gran}-byte units)"
+            + (f", plane 0 at M = 40, 128 ({qgemm.plane0_splits(40, k, n)[0]}"
+               f", {qgemm.plane0_splits(128, k, n)[0]} K splits)"
+               if (k, n) in moe_layers else ""))
         del a, b, bt
         torch.cuda.empty_cache()
 
@@ -1065,8 +1145,22 @@ def gemm_rows(cfg, b: int, s: int, prefill: bool) -> list[int]:
     prefill its encoder's 6 per layer and its cross K/V (2 per decoder
     layer, made once) at M = b x enc_seq; the vision model's 4 per
     cross-attention block (q, o, and the image's k, v at M = b x
-    n_img_tokens, in every step)."""
+    n_img_tokens, in every step).  An MoE layer runs its 4 attention
+    GEMMs at M = b x s, then top_k x 3 x n_experts expert GEMMs (every
+    expert, whether or not a token reached it) at M = the call's capacity,
+    and the shared expert's 3 at b x s; an interleaved model's dense
+    layers run 7 (grok-1: every layer MoE; llama4-maverick: one dense and
+    one MoE layer per superblock)."""
     t = b * s
+    if cfg.is_moe:
+        from repro_torch.models import moe
+        cap = moe.capacity_of(t, cfg.n_experts, cfg.top_k,
+                              cfg.capacity_factor)
+        moe_layer = [t] * (4 + 3 * cfg.shared_expert) + \
+            [cap] * (cfg.top_k * 3 * cfg.n_experts)
+        n_moe = cfg.n_layers // cfg.moe_every
+        rows = moe_layer * n_moe + [t] * (7 * (cfg.n_layers - n_moe))
+        return rows + [b]
     if cfg.family == "ssm":
         rows = [t] * (2 * cfg.n_layers)
     elif cfg.family == "hybrid":
@@ -1712,15 +1806,39 @@ def fleet_phase(dev, cfg, card: str) -> dict:
 #: its trunc4x4 draft tier would prepare a second 17 GB int8 copy.
 RECURRENT_ARCHS = ("mamba2-370m", "recurrentgemma-9b")
 #: Their depths in the recurrent phase.  mamba2's is cut from 48 layers:
-#: at full depth the phase took 268-430 s of the script's 1200 s.  The 9B
+#: at full depth the phase took 268-430 s of the script's 1200 s, at 8
+#: layers mamba2 alone 39-44 s.  The 9B
 #: keeps its 38: at 14, its trunc2x2 top-1 margins fall below what the
 #: chunked prefill's flipped int8 codes move, and its PC parts from S4
 #: (PERF.md).
-RECURRENT_DEPTH = {"mamba2-370m": 8, "recurrentgemma-9b": 38}
+RECURRENT_DEPTH = {"mamba2-370m": 4, "recurrentgemma-9b": 38}
 #: The conditioned phase's models, in the order it serves them (the
-#: largest, about 60 GB with its prepared weights, last).
+#: largest last).
 CONDITIONED_ARCHS = ("whisper-medium", "starcoder2-7b",
                      "llama-3.2-vision-11b")
+#: Their cuts in the conditioned phase, to keep the script inside its
+#: time limit with the MoE phases: llama-3.2-vision-11b at 1 of its 8
+#: superblocks (5 self and 1 cross layer; at 8 it took 172-205 s, at 4
+#: 99-156 s), whisper-medium at 4 + 4 of its 24 + 24 layers (at full
+#: depth 127-139 s, at 6 + 6 63 s, most of it the chunked runs C4 and
+#: PC), starcoder2-7b at 8 of its 32 layers (14-22 s at 32).
+CONDITIONED_CUT = {"llama-3.2-vision-11b": dict(n_layers=5),
+                   "whisper-medium": dict(n_layers=4, n_enc_layers=4),
+                   "starcoder2-7b": dict(n_layers=8)}
+#: The MoE phase's models, in order, and their cuts: full width, grok-1
+#: at 2 of its 64 layers (every layer MoE, 8 experts, top-2),
+#: llama4-maverick at 1 of its 24 superblocks (a dense and an MoE layer,
+#: the shared expert) with 32 of its 128 experts (top-1): at 128 one MoE
+#: layer's experts hold 64.4 GB in f32, about 97 GB once prepared, more
+#: than the card.  The expert cut moves llama4's expert capacity in a
+#: bucket-128 prefill from 1 to 5; at decode it stays 1.
+MOE_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
+MOE_CUT = {"grok-1-314b": dict(n_layers=2),
+           "llama4-maverick-400b-a17b": dict(n_layers=2, n_experts=32)}
+#: The moe-check phase's cuts: one MoE layer of each kind.
+MOE_CHECK_CUT = {"grok-1-314b": dict(n_layers=1),
+                 "llama4-maverick-400b-a17b": dict(n_layers=2,
+                                                   n_experts=32)}
 
 
 def model_gemm_shapes(archs) -> tuple[list, list]:
@@ -1810,30 +1928,37 @@ def prefill_gap(dev, cfg, params, trace, count: int = 3,
     largest logit gap, the whole prefill's top-1 / top-2 margin, and
     whether the greedy tokens agree.  Under exact the gap must be within
     EXACT_PREFILL_GAP and the greedy tokens equal: the chunked path on the
-    card is held to the whole prefill where no int8 code can flip."""
+    card is held to the whole prefill where no int8 code can flip.  An MoE
+    model's capacity depends on the tokens a call routes (128 against 32
+    and 1), so its gaps are reported, and the exact gap is held on its
+    `moe.no_drop` copy, where capacity drops nothing."""
     import torch
-    from repro_torch.models import api
+    from repro_torch.models import api, moe
     from repro_torch.serving.engine import prefill_extras
 
     prompts = sorted((r for r in trace if len(r.tokens) > 32),
                      key=lambda r: len(r.tokens))[:count]
     held = []
-    for mult in (cfg.mult, "exact"):
-        spec = api.make_spec(cfg, mult=mult, device=dev)
-        p = api.prepare_params(params, cfg, spec) if spec else params
+    # (config, multiplier, whether its exact gap is held)
+    cases = [(cfg, cfg.mult, False), (cfg, "exact", not cfg.is_moe)]
+    if cfg.is_moe:
+        cases.append((moe.no_drop(cfg), "exact", True))
+    for c, mult, hold in cases:
+        spec = api.make_spec(c, mult=mult, device=dev)
+        p = api.prepare_params(params, c, spec) if spec else params
         parts = []
         for r in prompts:
             n = len(r.tokens)
             ex = prefill_extras(cfg, r.extras, dev)
             toks = torch.zeros((1, 128), dtype=torch.long, device=dev)
             toks[0, :n] = torch.tensor(r.tokens, device=dev)
-            whole, _ = api.prefill(p, toks, cfg, spec, max_len=256,
+            whole, _ = api.prefill(p, toks, c, spec, max_len=256,
                                    extras=ex, true_len=torch.tensor(
                                        [n], dtype=torch.int32, device=dev))
-            _, cache = api.prefill(p, toks[:, :32], cfg, spec, max_len=256,
+            _, cache = api.prefill(p, toks[:, :32], c, spec, max_len=256,
                                    extras=ex, true_len=torch.tensor(
                                        [32], dtype=torch.int32, device=dev))
-            chunked, _ = api.chunk_step(p, cache, toks[:, 32:n], cfg, spec,
+            chunked, _ = api.chunk_step(p, cache, toks[:, 32:n], c, spec,
                                         ex)
             top = torch.topk(whole[0], 2).values
             gap = (whole - chunked[:, -1]).abs().max().item()
@@ -1842,13 +1967,32 @@ def prefill_gap(dev, cfg, params, trace, count: int = 3,
                 f"{r.request_id} (n {n}) gap {gap:.3e}, "
                 f"margin {(top[0] - top[1]).item():.3e}, argmax "
                 f"{'equal' if argmax else 'differs'}")
-            if mult == "exact":
+            if hold:
                 held.append((r.request_id, gap, argmax))
-        log(f"[{tag}] {cfg.name} whole vs chunked prefill, {mult}: "
+        what = (f", capacity_factor {c.capacity_factor:g}"
+                if c.is_moe else "")
+        log(f"[{tag}] {cfg.name} whole vs chunked prefill, {mult}{what}: "
             + "; ".join(parts))
         del p
     assert all(g <= EXACT_PREFILL_GAP and a for _, g, a in held), \
         (cfg.name, held, EXACT_PREFILL_GAP)
+
+
+def drop_witness(cfg, routing: list, tag: str, who: str) -> None:
+    """The token slots each `moe_ffn` call of a run dropped, by the number
+    of tokens t the call routed (a bucket-128 prefill, a decode step at
+    b = capacity, ...), beside the call's expert capacity; `who` names
+    the config in the log."""
+    import numpy as np
+    by_t = {}
+    for r in routing:
+        by_t.setdefault((r.expert_idx.shape[0], r.capacity), []).append(
+            int(r.dropped))
+    log(f"[{tag}] {who} tokens dropped per call (of t x top_k token "
+        f"slots): " + "; ".join(
+            f"t {t}, capacity {cap}: {len(d)} calls, min / mean / max "
+            f"{min(d)} / {np.mean(d):.2f} / {max(d)} of {t * cfg.top_k}"
+            for (t, cap), d in sorted(by_t.items())))
 
 
 def _gb(nbytes: float) -> str:
@@ -1870,24 +2014,23 @@ def model_serving(dev, cfg, card: str, names: list[str],
                   tag: str = "recurrent") -> dict:
     """One model at full width and depth through the slot and paged
     engines on `paged_trace`'s ten requests (with their conditioning,
-    where the model takes any), the runs of `names`: S4, P, PS and PC, each
-    held to S4; where C4 runs, PC is held instead to it, the slot engine
-    admitting through the same chunked prefill (`chunked_slot_engine`),
-    and PD to C8.  Each paged run token-identical to its slot engine,
-    audit clean, no live page, every run's launches equal to
-    `paged_want`'s formula; where PC runs, the chunked prefill is held to
-    the whole one under exact (`prefill_gap`); C4's agreement with S4 is
-    reported.  A cross-attention model's gates are set to 1.0 after init
-    (they start at 0, which multiplies the image path away).  Unless PD
-    runs, the params are prepared once and every engine shares the
-    prepared tree (PD's trunc4x4 needs the raw weights).  Returns the
-    kernels' launches summed over the runs."""
+    where the model takes any), the runs of `names` held as
+    `serve_and_hold` says.  Where PC runs, the chunked prefill is held to
+    the whole one under exact (`prefill_gap`).  An MoE model's rows share
+    their call's expert capacity, so its PS and PC are reported there,
+    and S4, PS and PC run again on its `moe.no_drop` copy, from the same
+    prepared params, where no row takes another's capacity: PS (every
+    draft accepted) and PC held to S4 (a C4 twin there equalled S4 on
+    every request of both MoE models, PERF.md).  A cross-attention model's
+    gates are set to 1.0 after init (they start at 0, which multiplies the
+    image path away).  Unless PD runs, the params are prepared once and
+    every engine shares the prepared tree (PD's trunc4x4 needs the raw
+    weights).  Returns the kernels' launches summed over the runs."""
     import gc
 
     import numpy as np
     import torch
-    from repro_torch.models import api
-    from repro_torch.serving import PagedEngine
+    from repro_torch.models import api, moe
 
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1909,8 +2052,75 @@ def model_serving(dev, cfg, card: str, names: list[str],
     trace = paged_trace(cfg)
     if "PC" in names:
         prefill_gap(dev, cfg, params, trace, tag=tag)
+    res, total, s4 = serve_and_hold(dev, cfg, params, names, trace, tag,
+                                    drops=cfg.is_moe)
+    if cfg.is_moe:
+        _, more, twin = serve_and_hold(
+            dev, moe.no_drop(cfg), params,
+            [n for n in names if n in ("S4", "PS", "PC")], trace,
+            tag, drops=False)
+        del twin
+        total = {k: total[k] + more[k] for k in total}
+
+    def per(total_s, count):
+        return f"{total_s / count * 1e3:.2f} ms" if count else "none"
+
+    s4_st = res["S4"]["st"]
+    line = (f"[{tag}] {cfg.name} ms per prefill (bucket 128) "
+            f"{per(s4_st['prefill_s'], s4_st['admitted'])}, per decode "
+            f"step (S4) {per(s4_st['decode_s'], s4_st['decode_steps'])}")
+    if "PC" in res:
+        pc = res["PC"]["st"]["paged"]["chunked"]
+        long = [len(r.tokens) for r in trace if len(r.tokens) > 32]
+        line += (f", per chunk step (PC, up to 32 decode steps at m = 1) "
+                 f"{per(pc['chunk_step_s'], pc['chunks'] - len(long))}")
+    if "PS" in res:
+        ps = res["PS"]["st"]["spec"]
+        line += (f", per spec step (PS, 8 decode steps) "
+                 f"{per(res['PS']['st']['decode_s'], ps['steps'])}")
+    prof = profile_decode(s4, np.random.default_rng(7), cfg, steps=1,
+                          tag=f"{tag}-profile {cfg.name}")
+    busy = "not measured" if prof is None else (
+        f"{sum(e.self_device_time_total for e in prof[0]) / 1e3:.3f} ms "
+        f"device of {prof[1] * 1e3:.2f} ms wall, "
+        f"{sum(e.self_device_time_total for e in prof[0]) / 1e6 / prof[1]:.1%}"
+        " busy")
+    log(line + f"; one profiled decode step: {busy}; peak device memory "
+        f"{_gb(torch.cuda.max_memory_allocated())}; "
+        f"{time.perf_counter() - t0:.1f}s ({card})")
+    del s4, params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def serve_and_hold(dev, cfg, params, names: list[str], trace, tag: str,
+                   drops: bool = False) -> tuple[dict, dict, object]:
+    """The runs of `names` on `trace`, one engine at a time, from
+    `params`: S4, P, PS and PC, each held to S4; where C4 runs, PC is held
+    instead to it, the slot engine admitting through the same chunked
+    prefill (`chunked_slot_engine`), and PD to C8.  Each run's tokens in
+    the vocabulary and as many as asked, every paged run's audit clean
+    with no live page and a prefix hit, every run's launches equal to
+    `paged_want`'s formula, PS accepting every draft; C4's agreement with
+    S4 reported.  With `drops` (an MoE config whose capacity drops
+    tokens), PS against S4, PS's acceptance and PC against C4 are
+    reported instead: their decode calls put other rows beside a token,
+    and the rows of a call share its capacity.  An MoE config's S4 logs
+    the tokens each call dropped, which must be none without `drops`.
+    Returns ({run: tokens, stats, completions}, launches summed over the
+    runs, the S4 engine)."""
+    import contextlib
+    import gc
+
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.serving import PagedEngine
+
+    who = cfg.name + (f" (capacity_factor {cfg.capacity_factor:g})"
+                      if cfg.is_moe else "")
     common = dict(max_len=256, prefill_buckets=(128,), device=dev)
-    runs = paged_runs(with_pd)
+    runs = paged_runs("PD" in names)
     twin = chunked_slot_engine()
     runs["C4"] = (twin, dict(capacity=4, prefill_chunk=32))
     runs["C8"] = (twin, dict(capacity=8, prefill_chunk=32))
@@ -1922,8 +2132,13 @@ def model_serving(dev, cfg, card: str, names: list[str],
         for req in trace:
             eng.submit(req)
         t_run = time.perf_counter()
-        done, launches = counted(eng.run_until_complete)
+        with (moe.recording() if cfg.is_moe and name == "S4"
+              else contextlib.nullcontext()) as routing:
+            done, launches = counted(eng.run_until_complete)
         wall = time.perf_counter() - t_run
+        if routing is not None:
+            drop_witness(cfg, routing, tag, who)
+            assert drops or not any(int(r.dropped) for r in routing), who
         st = eng.stats()
         assert len(done) == len(trace), [c.request_id for c in done]
         for c in done:
@@ -1931,8 +2146,8 @@ def model_serving(dev, cfg, card: str, names: list[str],
                 len(c.tokens) == PAGED_NEW, c
             assert all(0 <= t < cfg.vocab for t in c.tokens), c.tokens
         want = run_want(cfg, name, kw, st, trace)
-        assert launches == want, (cfg.name, name, launches, want)
-        line = (f"[{tag}] {cfg.name} {name}: {wall:.2f}s, "
+        assert launches == want, (who, name, launches, want)
+        line = (f"[{tag}] {who} {name}: {wall:.2f}s, "
                 f"{st['decode_steps']} decode steps, prefill "
                 f"{st['prefill_s']:.3f}s")
         if cls is PagedEngine:
@@ -1955,9 +2170,11 @@ def model_serving(dev, cfg, card: str, names: list[str],
         gc.collect()
         torch.cuda.empty_cache()
 
-    diverged = []
-    for name, base in (("P", "S4"), ("PS", "S4"),
-                       ("PC", "C4" if "C4" in res else "S4"), ("PD", "C8")):
+    pairs = (("P", "S4"), ("PS", "S4"),
+             ("PC", "C4" if "C4" in res else "S4"), ("PD", "C8"))
+    coupled = ("PS", "PC") if drops else ()
+    diverged, parted = [], {}
+    for name, base in pairs:
         if name not in res:
             continue
         for rid, toks in res[name]["toks"].items():
@@ -1965,10 +2182,20 @@ def model_serving(dev, cfg, card: str, names: list[str],
             if toks != want:
                 at = next(i for i, (a, b) in enumerate(zip(toks, want))
                           if a != b)
+                if name in coupled:
+                    parted.setdefault(name, []).append(f"{rid} {at}")
+                    continue
                 diverged.append((name, rid, at))
-                log(f"[{tag}] {cfg.name} {name} {rid} diverges from "
+                log(f"[{tag}] {who} {name} {rid} diverges from "
                     f"{base} at token {at}: {toks} vs {want}")
-    assert not diverged, diverged
+    assert not diverged, (who, diverged)
+    for name, base in pairs:
+        if name in coupled and name in res:
+            log(f"[{tag}] {who} {name} against {base} (reported: the "
+                f"rows of a call share its capacity): "
+                f"{len(trace) - len(parted.get(name, []))} of {len(trace)} "
+                f"requests equal; first differing token "
+                + (", ".join(parted[name]) if name in parted else "none"))
     if "C4" in res:
         # the chunked prefill against the whole one under trunc2x2:
         # reported, not held (the model's own arithmetic parts them)
@@ -1976,51 +2203,30 @@ def model_serving(dev, cfg, card: str, names: list[str],
         for rid, toks in sorted(res["C4"]["toks"].items()):
             same = [a == b for a, b in zip(toks, res["S4"]["toks"][rid])]
             agree.append(f"{rid} {(same + [False]).index(False)}")
-        log(f"[{tag}] {cfg.name} C4 (chunked prefill) against S4 "
+        log(f"[{tag}] {who} C4 (chunked prefill) against S4 "
             f"(whole prefill), tokens equal before the first difference: "
             + ", ".join(agree))
     if "PS" in res:
+        # drafting with the serving tier itself accepts every draft, but
+        # where capacity drops tokens: a verify step feeds a frozen lane
+        # other tokens than the draft step did, and that row takes
+        # capacity
         ps = res["PS"]["st"]["spec"]
-        assert ps["acceptance_rate"] == 1.0, ps
+        if "PS" in coupled:
+            log(f"[{tag}] {who} PS acceptance (reported) "
+                f"{ps['accepted']} of {ps['proposed']} drafts, "
+                f"{ps['acceptance_rate']:.4f}")
+        else:
+            assert ps["acceptance_rate"] == 1.0, (who, ps)
     for name in ("PS", "PD"):
         for c in res.get(name, {}).get("done", []):
             assert c.spec.accepted + c.spec.corrections == len(c.tokens), c
-    held = ", ".join(f"{n} to {b}" for n, b in (
-        ("P", "S4"), ("PS", "S4"), ("PC", "C4" if "C4" in res else "S4"),
-        ("PD", "C8")) if n in res)
-    log(f"[{tag}] {cfg.name}: {held}, token-identical on all {len(trace)} "
+    held = ", ".join(f"{n} to {b}" for n, b in pairs
+                     if n in res and n not in coupled)
+    log(f"[{tag}] {who}: {held}, token-identical on all {len(trace)} "
         f"requests; distinct tokens per request in S4: "
         f"{ {r: len(set(t)) for r, t in sorted(res['S4']['toks'].items())} }")
-
-    def per(total_s, count):
-        return f"{total_s / count * 1e3:.2f} ms" if count else "none"
-
-    s4_st = res["S4"]["st"]
-    line = (f"[{tag}] {cfg.name} ms per prefill (bucket 128) "
-            f"{per(s4_st['prefill_s'], s4_st['admitted'])}, per decode "
-            f"step (S4) {per(s4_st['decode_s'], s4_st['decode_steps'])}")
-    if "PC" in res:
-        pc = res["PC"]["st"]["paged"]["chunked"]
-        long = [len(r.tokens) for r in trace if len(r.tokens) > 32]
-        line += (f", per chunk step (PC, up to 32 decode steps at m = 1) "
-                 f"{per(pc['chunk_step_s'], pc['chunks'] - len(long))}")
-    if "PS" in res:
-        line += (f", per spec step (PS, 8 decode steps) "
-                 f"{per(res['PS']['st']['decode_s'], ps['steps'])}")
-    prof = profile_decode(s4, np.random.default_rng(7), cfg, steps=1,
-                          tag=f"{tag}-profile {cfg.name}")
-    busy = "not measured" if prof is None else (
-        f"{sum(e.self_device_time_total for e in prof[0]) / 1e3:.3f} ms "
-        f"device of {prof[1] * 1e3:.2f} ms wall, "
-        f"{sum(e.self_device_time_total for e in prof[0]) / 1e6 / prof[1]:.1%}"
-        " busy")
-    log(line + f"; one profiled decode step: {busy}; peak device memory "
-        f"{_gb(torch.cuda.max_memory_allocated())}; "
-        f"{time.perf_counter() - t0:.1f}s ({card})")
-    del s4, params, res
-    gc.collect()
-    torch.cuda.empty_cache()
-    return total
+    return res, total, s4
 
 
 def recurrent_phase(dev, card: str) -> dict:
@@ -2056,31 +2262,32 @@ def kernels_vs_plain(dev, cfg, params, tokens, true_len, tag: str,
     """`cfg` served from `params` once through the kernels and once
     through the plain versions on the card: a prefill of `tokens` (rows
     of `true_len` tokens, with `extras`), then 8 greedy decode steps on
-    the kernel run's tokens.  Logits compared at every step (limit 1e-4:
-    the kernels are bit-exact with their plain versions), greedy tokens
-    equal, the kernel run's prefill launches equal to `step_launches`,
-    the plain run's none.  Returns {policy: (cfg, spec, prepared params,
-    prefill logits)}."""
+    the kernel run's tokens.  Logits equal at every step (the kernels are
+    bit-exact with their plain versions, and both runs take the same
+    attention), greedy tokens equal, an MoE model's routing (every call's
+    expert indices and drop mask) equal, the kernel run's prefill
+    launches equal to `step_launches`, the plain run's none.  Returns
+    {policy: (cfg, spec, prepared params, prefill logits)}."""
     import dataclasses
 
     import torch
-    from repro_torch.models import api
+    from repro_torch.models import api, moe
 
     b, s = tokens.shape
-    runs, first = {}, {}
+    runs, first, routing = {}, {}, {}
     for policy in ("pallas", "xla"):
         c = dataclasses.replace(cfg, kernel_policy=policy)
         spec = api.make_spec(c, device=dev)
         p = api.prepare_params(params, c, spec)
-        (logits, cache), n = counted(lambda: api.prefill(
-            p, tokens, c, spec, max_len=max_len, extras=extras,
-            true_len=true_len))
+        with moe.recording() as routing[policy]:
+            (logits, cache), n = counted(lambda: api.prefill(
+                p, tokens, c, spec, max_len=max_len, extras=extras,
+                true_len=true_len))
         want = (step_launches(cfg, b, s, True) if policy == "pallas"
                 else dict.fromkeys(n, 0))
         assert n == want, (cfg.name, policy, n, want)
         runs[policy] = [c, spec, p, cache, logits]
         first[policy] = (c, spec, p, logits)
-    tol = 1e-4
     diffs, match = [], []
     for step in range(9):
         lp, lx = runs["pallas"][4], runs["xla"][4]
@@ -2092,17 +2299,30 @@ def kernels_vs_plain(dev, cfg, params, tokens, true_len, tag: str,
         match.append((tok == lx.argmax(-1)).float().mean().item())
         if step == 8:
             break
-        for run in runs.values():
+        for policy, run in runs.items():
             c, spec, p, cache, _ = run
-            run[4], run[3] = api.decode_step(p, cache, tok[:, None], c,
-                                             spec, extras)
+            with moe.recording() as log_:
+                run[4], run[3] = api.decode_step(p, cache, tok[:, None], c,
+                                                 spec, extras)
+            routing[policy] += log_
+    routed = ""
+    if cfg.is_moe:
+        rk, rx = routing["pallas"], routing["xla"]
+        assert len(rk) == len(rx) == 9 * (cfg.n_layers // cfg.moe_every), \
+            (len(rk), len(rx))
+        for i, (a, b_) in enumerate(zip(rk, rx)):
+            assert torch.equal(a.expert_idx, b_.expert_idx) and \
+                torch.equal(a.keep, b_.keep), (cfg.name, "routing", i)
+        routed = (f"; routing equal in all {len(rk)} MoE calls (dropped "
+                  f"token slots per call "
+                  f"{[int(r.dropped) for r in rk]})")
     log(f"[{tag}] {cfg.name}, {cfg.n_layers} layers, full width, prompts "
         f"{true_len.tolist()}, kernels vs plain on the card: prefill "
         f"logits max|diff| {diffs[0]:.3e}, decode steps 1-8 max|diff| "
-        f"{max(diffs[1:]):.3e} (limit {tol:g}; |logits| <= "
+        f"{max(diffs[1:]):.3e} (limit 0; |logits| <= "
         f"{lx.abs().max().item():.3f}), greedy token match "
-        f"{sum(match) / len(match):.3f}")
-    assert max(diffs) <= tol, diffs
+        f"{sum(match) / len(match):.3f}" + routed)
+    assert max(diffs) == 0.0, diffs
     assert all(m == 1.0 for m in match), match
     return first
 
@@ -2138,10 +2358,10 @@ def recurrent_check_phase(dev) -> None:
 
 def conditioned_phase(dev, card: str) -> dict:
     """The conditioned families on the card, after the recurrent phases'
-    tensors are freed, one model at a time: whisper-medium (24 + 24
-    layers, 1500 frames), starcoder2-7b (32 layers, the GELU MLP) and
-    llama-3.2-vision-11b (40 + 8 cross layers, 1600 image tokens, every
-    gate set to 1.0), full width and depth, trunc2x2, flash, f32, through
+    tensors are freed, one model at a time: whisper-medium (cut to 4 + 4
+    layers, 1500 frames), starcoder2-7b (cut to 8 layers, the GELU MLP)
+    and llama-3.2-vision-11b (cut to 5 + 1 cross layers, 1600 image tokens,
+    every gate set to 1.0), full width, trunc2x2, flash, f32, through
     `model_serving` on `paged_trace` with its conditioning: S4, P, PS, C4 and PC, P and
     PS held to S4, PC to C4 (under trunc2x2 the chunked prefill parts from
     the whole one by int8 codes that flip, and on these random weights
@@ -2163,7 +2383,8 @@ def conditioned_phase(dev, card: str) -> dict:
     out = {}
     for arch in CONDITIONED_ARCHS:
         cfg = configs.get_config(arch, mult=MULT, kernel_policy="pallas",
-                                 attn_impl="flash", dtype="float32")
+                                 attn_impl="flash", dtype="float32",
+                                 **CONDITIONED_CUT.get(arch, {}))
         names = (["S4", "P"] if arch == "starcoder2-7b"
                  else ["S4", "P", "PS", "C4", "PC"])
         out[arch] = model_serving(dev, cfg, card, names, tag="conditioned")
@@ -2217,6 +2438,76 @@ def conditioned_check_phase(dev) -> None:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[conditioned-check] {time.perf_counter() - t_phase:.1f}s")
+
+
+def moe_phase(dev, card: str) -> dict:
+    """The MoE family on the card, after the conditioned phases' tensors
+    are freed, one model at a time (`MOE_ARCHS`, cut as `MOE_CUT` says):
+    grok-1 (2 layers, 8 experts, top-2) and llama4-maverick (a dense and
+    an MoE layer with its shared expert, 32 experts, top-1) at full
+    width, trunc2x2, flash, f32, random weights from a seeded CUDA
+    generator, prepared once (the expert stacks per expert matrix) and
+    shared, through `model_serving` on `paged_trace`: S4, P, PS, C4 and
+    PC.  P is held to S4 (a prefix hit reuses K/V that a prefill of the
+    same bucket computed, and every idle lane is quiet); PS against S4
+    and PC against C4 are reported, as C4 against S4 is: their decode
+    calls put other rows beside a token, and the rows of a call share
+    its expert capacity.  On the `moe.no_drop` copy, from the same
+    prepared weights, S4, PS and PC run again, PS and PC held to S4; the
+    exact whole-vs-chunked gap is held there too.  Returns
+    {arch: launches per kernel}."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] device memory held before the phase: "
+        f"{_gb(torch.cuda.memory_allocated())}")
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = configs.get_config(arch, mult=MULT, kernel_policy="pallas",
+                                 attn_impl="flash", dtype="float32",
+                                 **MOE_CUT[arch])
+        out[arch] = model_serving(dev, cfg, card,
+                                  ["S4", "P", "PS", "C4", "PC"], tag="moe")
+    log(f"[moe] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def moe_check_phase(dev) -> None:
+    """grok-1 at 1 layer and llama4-maverick at 1 superblock (32
+    experts), full width, through `kernels_vs_plain` on four prompts of
+    128, 77, 40 and 101 tokens, both runs on the chunked attention (as
+    `conditioned_check_phase`: flash's rounding would move int8 codes):
+    the logit gap must be 0, the greedy tokens and every call's routing
+    (expert indices, drop mask) equal, the plain run launching
+    nothing."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    for arch in MOE_ARCHS:
+        cfg = configs.get_config(arch, mult=MULT, dtype="float32",
+                                 attn_impl="chunked", **MOE_CHECK_CUT[arch])
+        params = api.init_params(cfg, seed=1, device=dev)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 128))).to(
+            dev)
+        true_len = torch.tensor([128, 77, 40, 101], dtype=torch.int32,
+                                device=dev)
+        runs = kernels_vs_plain(dev, cfg, params, tokens, true_len,
+                                "moe-check", max_len=160)
+        del runs, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[moe-check] {time.perf_counter() - t_phase:.1f}s")
 
 
 def attention_witness(runs: dict, tokens, true_len, ex: dict) -> None:
@@ -2915,6 +3206,9 @@ def main() -> int:
     conditioned_launches = conditioned_phase(dev, card)
     conditioned_check_phase(dev)
     log(f"[conditioned] {time.perf_counter() - t_start:.1f}s")
+    moe_launches = moe_phase(dev, card)
+    moe_check_phase(dev)
+    log(f"[moe] {time.perf_counter() - t_start:.1f}s")
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -2935,6 +3229,8 @@ def main() -> int:
             arch: n[row["name"]] for arch, n in recurrent_launches.items()}
         row["conditioned_launches"] = {
             arch: n[row["name"]] for arch, n in conditioned_launches.items()}
+        row["moe_launches"] = {
+            arch: n[row["name"]] for arch, n in moe_launches.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

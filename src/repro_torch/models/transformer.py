@@ -9,8 +9,14 @@ weight (k, n) — so the two packages compute the same function on the same
 numbers; the layer scans become Python loops.  For the vision variant the
 unit is a superblock of `cross_every` self-attention layers followed by
 one gated cross-attention layer: "layers" is stacked (n_super,
-cross_every, ...) and "cross" (n_super, ...).  All projections route
-through the approximate-GEMM layer (`spec`).  MoE configs raise.
+cross_every, ...) and "cross" (n_super, ...).  The MoE configs route
+their FFN through `models/moe.py`: in every layer (grok-1: "layers"
+stacked (n_layers, ...) with the router and the expert stacks we_*
+(n_layers, e, k, n)), or in the last layer of each superblock of
+`moe_every` (llama4-maverick: "layers" stacked (n_super, moe_every - 1,
+...) dense, "moe" (n_super, ...) with a shared expert ws_*), the cache
+then (n_super, moe_every, b, max_len, kv, hd).  All projections route
+through the approximate-GEMM layer (`spec`).
 """
 
 from __future__ import annotations
@@ -22,28 +28,31 @@ import torch
 from repro_torch.approx import layers as AL
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
+from repro_torch.models.moe import moe_ffn
 
 Params = dict[str, Any]
 
 #: Param leaves consumed exclusively through AL.gemm/AL.dense with the
 #: model's MultSpec — eligible for the serving weight-plane cache
-#: (api.prepare_params).  The embedding is excluded (lookup / tied head).
+#: (api.prepare_params).  The embedding is excluded (lookup / tied head),
+#: and so is the MoE router (exact f32 control logic).  The expert stacks
+#: we_* are prepared per expert matrix, where the reference quantizes
+#: them on every call: the same int8 codes and scales, so the same bits.
 PREPARED_GEMM_WEIGHTS = frozenset({
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
     "ws_gate", "ws_up", "ws_down", "lm_head",
     "xwq", "xwk", "xwv", "xwo",
+    "we_gate", "we_up", "we_down",
 })
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet")
-
-
-def _layer_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+def _layer_param_shapes(cfg: ModelConfig, moe: bool | None = None
+                        ) -> dict[str, tuple]:
+    """moe=None: follow cfg.is_moe for every layer; True/False pin the
+    layer kind (for interleaved dense/MoE stacks)."""
     d, hd = cfg.d_model, cfg.hd
     h, kv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    moe = cfg.is_moe if moe is None else moe
     shapes = {
         "ln1": (d,), "ln2": (d,),
         "wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
@@ -51,11 +60,19 @@ def _layer_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
     }
     if cfg.qkv_bias:
         shapes |= {"bq": (h * hd,), "bk": (kv * hd,), "bv": (kv * hd,)}
-    if cfg.mlp_style == "swiglu":
-        shapes |= {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    if moe:
+        e = cfg.n_experts
+        shapes |= {"router": (d, e), "we_gate": (e, d, f),
+                   "we_up": (e, d, f), "we_down": (e, f, d)}
+        if cfg.shared_expert:
+            shapes |= {"ws_gate": (d, f), "ws_up": (d, f), "ws_down": (f, d)}
     else:
-        shapes |= {"w_up": (d, f), "w_down": (f, d),
-                   "mb_up": (f,), "mb_down": (d,)}
+        fd = (cfg.d_ff_dense or f) if cfg.is_moe else f
+        if cfg.mlp_style == "swiglu":
+            shapes |= {"w_gate": (d, fd), "w_up": (d, fd), "w_down": (fd, d)}
+        else:
+            shapes |= {"w_up": (d, fd), "w_down": (fd, d),
+                       "mb_up": (fd,), "mb_down": (d,)}
     return shapes
 
 
@@ -67,11 +84,20 @@ def _cross_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
             "xwo": (h * hd, d), "xgate": (1,)}
 
 
+def _interleaved(cfg: ModelConfig) -> bool:
+    """Dense and MoE layers interleaved: superblocks of moe_every - 1
+    dense layers and one MoE layer."""
+    return cfg.is_moe and cfg.moe_every > 1
+
+
 def _lead(cfg: ModelConfig) -> tuple[int, ...]:
-    """The layer stack's leading axes: (n_layers,), or (n_super,
-    cross_every) for a cross-attention model."""
+    """The cache's (and, but for an interleaved MoE model, the layer
+    stack's) leading axes: (n_layers,), (n_super, cross_every) for a
+    cross-attention model, (n_super, moe_every) for an interleaved one."""
     if cfg.cross_every:
         return (cfg.n_layers // cfg.cross_every, cfg.cross_every)
+    if _interleaved(cfg):
+        return (cfg.n_layers // cfg.moe_every, cfg.moe_every)
     return (cfg.n_layers,)
 
 
@@ -80,8 +106,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random params with the reference's distributions (normal x
     fan_in^-0.5 for GEMM weights, x 0.02 for the embedding and head, zeros
     for norms, biases and the cross-attention gates), drawn from
-    `generator` on `device`."""
-    _check_ported(cfg)
+    `generator` on `device`.  The draw order (the layer stack, then the
+    cross-attention stack or the interleaved MoE stack, the embedding and
+    the head; within a stack, its leaves by name) fixes the weights a
+    seed gives."""
     dtype = getattr(torch, cfg.dtype)
 
     def normal(shape, scale):
@@ -98,9 +126,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 out[name] = normal(full, shp[-2] ** -0.5)
         return out
 
-    # the draw order (layers, cross, embedding, head) fixes the weights a
-    # seed gives
-    p: Params = {"layers": stack(_layer_param_shapes(cfg), _lead(cfg))}
+    if _interleaved(cfg):
+        n_super, m = _lead(cfg)
+        p: Params = {
+            "layers": stack(_layer_param_shapes(cfg, moe=False),
+                            (n_super, m - 1)),
+            "moe": stack(_layer_param_shapes(cfg, moe=True), (n_super,))}
+    else:
+        p = {"layers": stack(_layer_param_shapes(cfg), _lead(cfg))}
     if cfg.cross_every:
         p["cross"] = stack(_cross_param_shapes(cfg), _lead(cfg)[:1])
     p["embed"] = normal((cfg.vocab, cfg.d_model), 0.02)
@@ -129,6 +162,20 @@ def _qkv(h, lp, cfg: ModelConfig, spec, positions):
 
 
 def _ffn(h, lp, cfg: ModelConfig, spec):
+    """The block's FFN: an MoE layer's routed experts over the flattened
+    (b * s) rows, plus its shared expert where the config has one; else
+    SwiGLU or the GELU MLP.  (The MoE load-balance term is a training
+    loss: serving drops it.)"""
+    if "router" in lp:
+        b, s, d = h.shape
+        out, _ = moe_ffn(h.reshape(b * s, d), lp["router"], lp["we_gate"],
+                         lp["we_up"], lp["we_down"], cfg.top_k,
+                         cfg.capacity_factor, spec)
+        out = out.reshape(b, s, d)
+        if cfg.shared_expert:
+            out = out + C.swiglu(h, lp["ws_gate"], lp["ws_up"],
+                                 lp["ws_down"], spec)
+        return out
     if "w_gate" in lp:
         return C.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], spec)
     return C.gelu_mlp(h, lp["w_up"], lp["mb_up"], lp["w_down"],
@@ -166,7 +213,15 @@ def _image(img_embeds, cfg: ModelConfig, b: int, like: torch.Tensor):
 
 def _blocks(params: Params, cfg: ModelConfig):
     """Every self-attention block in order, as (its cache index, its
-    params, the superblock's cross params after it or None)."""
+    params, the superblock's cross params after it or None): an
+    interleaved MoE superblock's dense layers, then its MoE layer."""
+    if _interleaved(cfg):
+        n_super, m = _lead(cfg)
+        for i in range(n_super):
+            for j in range(m - 1):
+                yield (i, j), C.block_params(params["layers"], i, j), None
+            yield (i, m - 1), C.block_params(params["moe"], i), None
+        return
     if not cfg.cross_every:
         for i in range(cfg.n_layers):
             yield (i,), C.block_params(params["layers"], i), None
@@ -184,7 +239,6 @@ def _blocks(params: Params, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device, dtype=None) -> dict:
-    _check_ported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (*_lead(cfg), batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {
@@ -217,7 +271,6 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
     (continuous batching).  The K/V buffers are updated in place; the
     returned dict shares them and carries length + 1.  A cross-attention
     model attends to `img_embeds` (b, n_img, d), zeros when None."""
-    _check_ported(cfg)
     b = tokens.shape[0]
     h = AL.embed(tokens, params["embed"])
     length = C.cache_lengths(cache, b)
@@ -242,7 +295,6 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     `true_len` (b,) marks right-padded prompts: logits come from position
     true_len - 1 and the cache length is per-row.  A cross-attention
     model attends to `img_embeds` (b, n_img, d), zeros when None."""
-    _check_ported(cfg)
     b, s = tokens.shape
     max_len = max_len or s
     h = AL.embed(tokens, params["embed"])

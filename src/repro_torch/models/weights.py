@@ -34,8 +34,8 @@ def _convert(tree, dev: torch.device, dtype: torch.dtype | None):
 def from_reference(params_np: dict, cfg: ModelConfig,
                    device: str | torch.device | None = None) -> dict:
     """The reference's param tree (numpy leaves, nested dicts such as the
-    hybrid's rec / attn / rec_tail) -> the port's, each leaf at the
-    reference leaf's own dtype."""
+    hybrid's rec / attn / rec_tail or an interleaved MoE model's moe) ->
+    the port's, each leaf at the reference leaf's own dtype."""
     api.family_module(cfg)      # raises for a family that is not ported
     return _convert(params_np, resolve_device(device), None)
 

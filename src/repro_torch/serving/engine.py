@@ -98,8 +98,13 @@ class Engine:
     """Slot-based continuous-batching engine.
 
     Args:
-      cfg: model config (the `lm`, `ssm`, `hybrid` or `encdec` family;
-        not MoE).
+      cfg: model config (the `lm` family, MoE included, `ssm`, `hybrid`
+        or `encdec`).  An MoE layer routes every row of a decode call
+        under one expert capacity, so an idle lane's row takes capacity
+        as a live one does: for an MoE config each idle lane is reset to
+        token 0 at length 0 before every decode step
+        (`_quiet_idle_lanes`), which makes its row the same in every
+        engine whatever the lane held before.
       params: model params; initialized from `seed` when None.
       capacity: decode-arena slots (max concurrent requests).
       max_len: arena sequence horizon; prompt_len + max_new_tokens - 1
@@ -188,6 +193,11 @@ class Engine:
         embeddings (capacity, n_img_tokens, d) in the model's dtype."""
         capacity, cfg = self.capacity, self.cfg
         self._tok = torch.zeros((capacity, 1), dtype=torch.int64,
+                                device=self.device)
+        # lanes that emit no token at the next decode step (free, or
+        # prefilling in the paged engine); set as a lane joins decode and
+        # leaves it, read by `_quiet_idle_lanes`
+        self._idle = torch.ones((capacity,), dtype=torch.bool,
                                 device=self.device)
         self._temps = [0.0] * capacity
         self._topks = [0] * capacity
@@ -333,6 +343,7 @@ class Engine:
         slot = _Slot(request, n, self._tick, ready_wall, self._admitted)
         slot.first_wall = time.perf_counter()
         self._slots[slot_id] = slot
+        self._idle[slot_id] = False
         self._emit(slot_id, first_tok)
 
     def _note_prefill(self, request_id: str, dt: float) -> None:
@@ -384,6 +395,7 @@ class Engine:
             tier_tokens=dict(slot.tier_tokens)))
         self._slots[slot_id] = None
         self._gens[slot_id] = None
+        self._idle[slot_id] = True
         self._free.append(slot_id)
 
     def _shed(self, request: Request) -> None:
@@ -482,11 +494,27 @@ class Engine:
         """The slots that emit this step: every occupied one."""
         return [i for i, s in enumerate(self._slots) if s is not None]
 
+    def _quiet_idle_lanes(self, lanes: list[int]) -> None:
+        """MoE configs only: every lane not in `lanes` (the idle mask
+        `_idle`, kept on the device) takes token 0 at length 0, so its
+        attention sees only the K/V row it writes this step and its row
+        is a function of the model alone — the same in the slot and the
+        paged engine, whose idle lanes otherwise hold different stale
+        state (a freed slot's K/V here, the trash page there).  In a model
+        whose rows do not share a capacity an idle row changes no live
+        one, and nothing is reset."""
+        if not self.cfg.is_moe or len(lanes) == self.capacity:
+            return
+        self._tok = self._tok.masked_fill(self._idle[:, None], 0)
+        cache = self._arena.cache
+        cache["length"] = cache["length"].masked_fill(self._idle, 0)
+
     def _decode_step(self) -> None:
         """One decode step of the whole arena; the decode lanes emit."""
         lanes = self._decode_lanes()
         if not lanes:
             return
+        self._quiet_idle_lanes(lanes)
         t0 = time.perf_counter()
         tok_host = self._decode()
         self._note_decode(lanes, time.perf_counter() - t0)

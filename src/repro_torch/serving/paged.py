@@ -340,6 +340,7 @@ class PagedEngine(Engine):
                               speculating=self.draft_tier is not None)
             self._slots[slot_id] = slot
         slot.prefilling = False
+        self._idle[slot_id] = False
         slot.first_wall = time.perf_counter()
         slot.first_tick = self._tick
         if slot.spec_counts is not None:
@@ -457,6 +458,7 @@ class PagedEngine(Engine):
         if self.draft_tier is None:
             super()._decode_step()
         elif lanes := self._decode_lanes():
+            self._quiet_idle_lanes(lanes)
             self._spec_step(lanes)
 
     def _decode(self) -> np.ndarray:

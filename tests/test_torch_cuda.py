@@ -657,3 +657,101 @@ def test_cuda_recurrent_paged_engine_token_identical(cuda_dev, arch, over):
     assert qgemm.approx_qgemm_skinny.launches > 0
     eng._alloc.audit()
     assert eng._alloc.pages_live == 0
+
+
+_MOE = [("grok-1-314b", dict(n_layers=1)),
+        ("llama4-maverick-400b-a17b", dict(n_layers=2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", _MOE)
+def test_cuda_moe_layer_kernels_match_plain(cuda_dev, arch, over):
+    """One MoE layer on the card (reduced grok-1 at 1 layer; reduced
+    llama4-maverick as its superblock of a dense and an MoE layer with the
+    shared expert): 24-token prompts and six decode steps, once through
+    the kernels and once through the plain versions.  The kernels are
+    bit-exact with their plain versions and the router runs the same f32
+    ops on both sides, so the logits are equal, and so is every call's
+    routing (expert indices, drop mask); the plain run launches no
+    kernel."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import qgemm
+    from repro_torch.models import api, moe
+    cfg = configs.reduced(configs.get_config(arch), mult="trunc2x2", **over)
+    params = api.init_params(cfg, 0, cuda_dev)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 24))).to(cuda_dev)
+    true_len = torch.tensor([24, 15, 9], dtype=torch.int32, device=cuda_dev)
+    runs = {}
+    for policy in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, kernel_policy=policy)
+        spec = api.make_spec(c, device=cuda_dev)
+        p = api.prepare_params(params, c, spec)
+        qgemm.approx_qgemm_skinny.launches = 0
+        with moe.recording() as routing:
+            logits, cache = api.prefill(p, toks, c, spec, true_len=true_len,
+                                        max_len=32)
+            out = [logits]
+            for _ in range(6):
+                tok = (runs["pallas"][0][len(out) - 1] if runs else
+                       out[-1]).argmax(-1)[:, None]
+                logits, cache = api.decode_step(p, cache, tok, c, spec)
+                out.append(logits[:, -1])
+        assert (qgemm.approx_qgemm_skinny.launches > 0) == (
+            policy == "pallas")
+        runs[policy] = (out, routing)
+    (kernel, rk), (plain, rp) = runs["pallas"], runs["xla"]
+    for a, b in zip(kernel, plain):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert len(rk) == len(rp) == 7
+    for a, b in zip(rk, rp):
+        assert torch.equal(a.expert_idx, b.expert_idx)
+        assert torch.equal(a.keep, b.keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", _MOE)
+def test_cuda_moe_paged_engine_token_identical(cuda_dev, arch, over):
+    """The reduced MoE models through the kernels on the card: the paged
+    engine emits the slot engine's tokens; chunked and speculative too
+    on the copy of the config whose capacity drops nothing (on the real
+    config their decode calls put other rows beside a token, and the
+    rows of a call share its expert capacity:
+    tests/test_torch_moe_engine.py)."""
+    from repro_torch import configs
+    from repro_torch.kernels import qgemm
+    from repro_torch.models import api, moe
+    from repro_torch.serving import (
+        Engine, PagedEngine, Request, SamplingParams)
+    real = configs.reduced(configs.get_config(arch), mult="trunc2x2",
+                           kernel_policy="pallas", **over)
+    rng = np.random.default_rng(1)
+    trace = []
+    for i in range(6):
+        sp = SamplingParams(max_new_tokens=int(rng.integers(3, 7))) \
+            if i % 3 else SamplingParams(temperature=0.8, top_k=8,
+                                         max_new_tokens=4, seed=50 + i)
+        trace.append(Request(f"r{i}", rng.integers(
+            1, real.vocab, int(rng.integers(4, 28))).tolist(), sp,
+            arrival=float(i // 2)))
+
+    def serve(eng):
+        for req in trace:
+            eng.submit(req)
+        return {c.request_id: (c.tokens, c.finish_reason)
+                for c in eng.run_until_complete()}
+
+    for cfg, kw in ((real, {}), (moe.no_drop(real), dict(
+            prefill_chunk=8, draft_tier="trunc2x2", spec_k=3))):
+        params = api.init_params(cfg, 0, cuda_dev)
+        base = serve(Engine(cfg, params, capacity=3, max_len=64,
+                            device=cuda_dev))
+        qgemm.approx_qgemm_skinny.launches = 0
+        eng = PagedEngine(cfg, params, capacity=3, max_len=64, page_size=8,
+                          device=cuda_dev, **kw)
+        assert serve(eng) == base
+        assert qgemm.approx_qgemm_skinny.launches > 0
+        eng._alloc.audit()
+        assert eng._alloc.pages_live == 0

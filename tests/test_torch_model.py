@@ -166,16 +166,17 @@ def test_cache_helpers():
 
 
 def test_unported_families_raise():
-    """The MoE layers (grok-1, llama4-maverick) are not ported yet; every
-    other family is (encdec: tests/test_torch_encdec.py, the vision cross
-    attention: tests/test_torch_vision.py, ssm and hybrid:
-    tests/test_torch_ssm.py, tests/test_torch_hybrid.py)."""
-    for arch in ("grok-1-314b", "llama4-maverick-400b-a17b"):
+    """Only a family the port does not know raises: every config of the
+    repo initialises and builds its cache, the MoE ones (grok-1,
+    llama4-maverick: tests/test_torch_moe.py) included."""
+    import dataclasses
+    cfg = configs.reduced(configs.get_config("tinyllama-1.1b"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        api.init_params(dataclasses.replace(cfg, family="vlm"),
+                        device="cpu")
+    for arch in configs.ARCH_IDS:
         cfg = configs.reduced(configs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="MoE"):
-            api.init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="MoE"):
-            api.init_cache(cfg, 1, 8, device="cpu")
-    for arch in ("whisper-medium", "llama-3.2-vision-11b", "starcoder2-7b"):
-        cfg = configs.reduced(configs.get_config(arch))
-        assert set(api.init_cache(cfg, 1, 8, device="cpu")) >= {"k", "v"}
+        params = api.init_params(cfg, device="cpu")
+        assert api.param_count(params) > 0, arch
+        cache = api.init_cache(cfg, 1, 8, device="cpu")
+        assert "length" in cache and len(cache) > 1, arch
