@@ -46,7 +46,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the step, the fused kernel's per VGG16 conv shape and at
                  the TinyLlama
                  prefill shapes under pareto:0.01, and plane 0's time over
-                 VGG16's 13 conv GEMMs under trunc2x2;
+                 VGG16's 13 conv GEMMs under trunc2x2; and, bit-exact,
+                 training's GEMMs on row-major weights (plane 0 at M =
+                 1024, the fused kernel at M = 512; TinyLlama's layers and
+                 head) and quantize_rows at those rows;
   4. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
@@ -177,7 +180,27 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  0, greedy tokens and every call's routing (expert
                  indices, drop mask) equal, the plain run launching
                  nothing;
- 13. check     — a 2-layer full-width model served once through the kernels
+ 13. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
+                 random f32 weights from a seeded CUDA generator) trained
+                 under trunc2x2 through the kernels, chunked attention
+                 (the flash kernel has no backward) and remat: 6 AdamW
+                 steps (f32 moments) at batch 8 x seq 128 through
+                 `launch.train.train`, every kernel's launch counter read
+                 around the run and around one more step (quantize_rows =
+                 plane 0 = (7 L + 1) + 7 L = 309 per step, the others 0),
+                 losses and gradient norms finite, s/step, peak memory, a
+                 profiled step's device busy share and the forward's
+                 per-call weight quantize + K-major copy; then the CLI
+                 (`launch.train.main`) for 2 steps at the config's bf16;
+ 14. train-check — the same model at 2 layers: one train step through
+                 the kernels and one through the plain versions from the
+                 same state, under trunc2x2 and pareto:0.01 (fused):
+                 loss, gradient norm and every updated param equal (gap
+                 0); a checkpoint round trip (npz + manifest, restored
+                 bit-equal into a fresh trainer, steps 3-4 resumed within
+                 1e-5 of an uninterrupted run); an int8-moment and an
+                 Adafactor step finite;
+ 15. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -185,7 +208,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 14. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 16. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -194,19 +217,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 15. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 17. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 16. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 18. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 17. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 19. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 16's vgg_mini), each GA design within
+                 kernels on phase 18's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -218,7 +241,8 @@ forward; `path` names the run its launches come from,
 `paged_launches` holds each kernel's launches in run PD,
 `fleet_launches` those of the metered fleet, `recurrent_launches`,
 `conditioned_launches` and `moe_launches` those of each recurrent,
-conditioned and MoE model's runs, summed);
+conditioned and MoE model's runs, summed; `train_launches` those of the
+train phase's 6 steps);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -399,7 +423,8 @@ def check_quantize(dev, gen) -> None:
     for m, k in [(401408, 27), (401408, 576), (100352, 1152), (25088, 2304),
                  (6272, 4608), (1568, 4608), (8, 25088), (100352, 147),
                  (128, 2048),
-                 (128, 5632), (4, 2048), (4, 5632), (1, 2048), (33, 257),
+                 (128, 5632), (4, 2048), (4, 5632), (1, 2048), (1024, 2048),
+                 (1024, 5632), (512, 2048), (512, 5632), (33, 257),
                  (3, 7), (3, 40000), (3, 40001)]:
         x = torch.randn((m, k), generator=gen, device=dev) * 3
         p = held(x, "random")
@@ -634,6 +659,30 @@ def check_kernels(dev) -> tuple[dict, int]:
 
     _, n = counted(parity)
     stacked_launches = n["approx_qgemm_stacked"]
+
+    # training: TinyLlama's GEMMs (the head included) at the train phase's
+    # M = 8 x 128 rows on plane 0, and at the train-check's 4 x 128 on the
+    # fused kernel under pareto:0.01, on row-major weights transposed per
+    # call, as the training forward hands them (its weights change every
+    # step, so nothing is prepared)
+    for k, n in [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+                 (2048, 32000)]:
+        b = rand_q(k, n)
+        a = rand_q(1024, k)
+        for name, spec in specs.items():
+            exact("approx_qgemm_plane0", ops.approx_qgemm(a, b, spec),
+                  G.approx_qgemm(a, b, spec),
+                  f"(1024,{k},{n}) {name}, row-major weight")
+        a = rand_q(512, k)
+        spec = lowrank[5]
+        got = ops.approx_qgemm(a, b, spec)
+        exact("approx_qgemm_fused", got, qgemm.approx_qgemm_fused_plain(
+            a, b.T, spec.fu_q, spec.fv_q, ops.plane_scales(spec, 5, dev),
+            k_valid=k), f"(512,{k},{n}) pareto:0.01, row-major weight")
+        torch.testing.assert_close(got, G.approx_qgemm(a, b, spec),
+                                   rtol=1e-6, atol=1.0)
+        del a, b, got
+    torch.cuda.empty_cache()
     spec = lowrank[2]
     a, b = rand_q(128, 128), rand_q(128, 128)
     ap = torch.cat([a, torch.zeros_like(a)], 1)
@@ -2510,6 +2559,310 @@ def moe_check_phase(dev) -> None:
     log(f"[moe-check] {time.perf_counter() - t_phase:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+#: The train phase: full-width TinyLlama, 6 AdamW steps at batch 8 x seq
+#: 128 through `launch.train.train`, then 2 CLI steps at the config's bf16.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 8, 128
+#: The train-check phase's model depth and batch (4 x 128 = 512 rows).
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH = 2, 4
+def train_want(cfg, steps: int) -> dict:
+    """Kernel launches of `steps` train steps of a dense lm under a trunc
+    multiplier at M = batch x seq > 32 rows: each approximate GEMM runs
+    plane 0 once and, on f32 activations, `quantize_rows` once (bf16
+    activations keep the plain quantizer); the forward runs 7 GEMMs per
+    layer and the head, and remat's backward reruns each layer's 7:
+    (7 L + 1) + 7 L [remat] per step, 309 for L = 22."""
+    per = (7 * cfg.n_layers + 1 + 7 * cfg.n_layers * cfg.remat) * steps
+    want = dict.fromkeys(counters(), 0)
+    want["approx_qgemm_plane0"] = per
+    want["quantize_rows"] = per if cfg.dtype == "float32" else 0
+    return want
+
+
+def _finite(values) -> bool:
+    import math
+    return all(math.isfinite(v) for v in values)
+
+
+def step_breakdown(fn) -> tuple[float, dict, list, tuple] | None:
+    """One profiled call of `fn` (after a warm-up call): its device ms,
+    summed by kind (the int8 plane-0 GEMMs, `quantize_rows`, other GEMMs
+    - cuBLAS's f32 products of the straight-through backward and the
+    attention's -, everything else), the 6 costliest device rows as
+    (name, ms, calls), and (device ms, regions) of the kernels launched
+    under `gemm.WEIGHT_PREP` (the forward's per-call weight quantize and
+    K-major copy, remat's recompute included, two regions per GEMM;
+    counted in the kinds too); None when the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from repro_torch.approx import gemm
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_events(prof.key_averages())
+    kinds = dict.fromkeys(("plane0", "quantize_rows", "other GEMMs",
+                           "the rest"), 0.0)
+    for e in rows:
+        name = e.key.lower()
+        kind = ("plane0" if "plane0" in name else
+                "quantize_rows" if "quantize" in name else
+                "other GEMMs" if "gemm" in name or "xmma" in name else
+                "the rest")
+        kinds[kind] += e.self_device_time_total / 1e3
+    total = sum(kinds.values())
+    if total <= 0:
+        return None
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    prep = [e for e in prof.key_averages() if e.key == gemm.WEIGHT_PREP
+            and e.device_type == DeviceType.CPU]
+    return total, kinds, [(e.key[:70], e.self_device_time_total / 1e3,
+                           e.count) for e in top], (
+        sum(e.device_time_total for e in prep) / 1e3,
+        sum(e.count for e in prep))
+
+
+def train_phase(dev, card: str) -> dict:
+    """Full-width TinyLlama-1.1B (22 layers, d 2048, vocab 32000) trained
+    on the card: f32, trunc2x2, the kernels (`pallas`), chunked attention
+    (flash has no backward), remat as the config has it.  6 AdamW steps
+    (f32 moments) at batch 8 x seq 128 through `launch.train.train`, the
+    launch counters read around the run and around one more step (each
+    equal to `train_want`), losses and gradient norms finite, s/step,
+    peak memory, one profiled step's device busy share and the forward's
+    per-call weight prep (read from that step's trace); then the CLI
+    (`launch.train.main`) for 2 steps at the config's bf16.  Returns the
+    6-step run's launches."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.approx import gemm
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
+                             kernel_policy="pallas", attn_impl="chunked",
+                             dtype="float32")
+    assert cfg.remat and cfg.n_layers == 22
+    # the CLI's options for a 6-step run
+    options = ts.StepOptions(lr=3e-4, total_steps=TRAIN_STEPS,
+                             warmup_steps=max(10, TRAIN_STEPS // 20))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run, launches = counted(lambda: launch.train(
+        cfg, options, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        device=dev, log_every=1))
+    want = train_want(cfg, TRAIN_STEPS)
+    assert launches == want, (launches, want)
+    assert _finite(run["losses"]) and _finite(run["gnorms"]), run
+    peak = torch.cuda.max_memory_allocated()
+    step_s = run["step_s"]
+    log(f"[train] {cfg.name}: {cfg.param_count():,} params, f32, "
+        f"{TRAIN_STEPS} AdamW steps at {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+        f"{[round(x, 4) for x in run['losses']]}, gnorms "
+        f"{[round(x, 3) for x in run['gnorms']]}; s/step "
+        f"{[round(x, 3) for x in step_s]} (first includes warm-up), "
+        f"median of steps 2-{TRAIN_STEPS} "
+        f"{sorted(step_s[1:])[len(step_s[1:]) // 2]:.3f} s; peak memory "
+        f"{_gb(peak)}; launches {launches}")
+
+    # one more step through the same step function: its launches, then a
+    # profiled step's device busy share against the host-timed median
+    _, step_fn = ts.make_train_fns(cfg, options, dev)
+    batch = ts.batch_to(synthetic.batch_for(cfg, "train", TRAIN_BATCH,
+                                            TRAIN_SEQ, TRAIN_STEPS, 0), dev)
+    box = {"state": run.pop("state")}
+
+    def one():
+        box["state"], m = step_fn(box["state"], batch)
+        return m
+
+    m, n = counted(one)
+    assert n == train_want(cfg, 1), n
+    assert _finite([m["loss"].item(), m["gnorm"].item()]), m
+    t0 = time.perf_counter()
+    one()["loss"].item()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = step_breakdown(one)
+    if prof is None:
+        busy = "device time not measured (the profiler saw no device time)"
+    else:
+        total, kinds, top, (prep, regions) = prof
+        busy = (f"device {total:.1f} ms per profiled step, busy share "
+                f"{total / wall_ms:.3f}; by kind "
+                + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
+                + " ms; costliest: " + "; ".join(
+                    f"{name} {ms:.1f} ms x{calls}" for name, ms, calls in top)
+                + "; per-call weight quantize + K-major copy ("
+                + (f"{prep:.2f} ms" if prep > 0 else "not measured")
+                + f" over {regions} {gemm.WEIGHT_PREP} regions)")
+    log(f"[train] one step: launches {n} (per step: quantize_rows = plane "
+        f"0 = (7 L + 1) + 7 L = {7 * 22 + 1 + 7 * 22}); wall {wall_ms:.1f} "
+        f"ms; {busy} on {card}")
+    del box, batch, run
+    torch.cuda.empty_cache()
+
+    # the CLI as a user runs it: the config's bf16, the card by default
+    argv = ["--arch", "tinyllama-1.1b", "--mult", MULT, "--kernel-policy",
+            "pallas", "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--log-every", "1"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc, n = counted(lambda: launch.main(argv))
+    cli_s = time.perf_counter() - t0
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"[train] cli: {line}")
+    bf16 = configs.get_config("tinyllama-1.1b", mult=MULT,
+                              kernel_policy="pallas")
+    assert rc == 0 and bf16.dtype == "bfloat16"
+    assert n == train_want(bf16, 2), (n, train_want(bf16, 2))
+    losses = [float(x) for x in re.findall(r"loss\s+(\S+) gnorm", text)]
+    gn = [float(x) for x in re.findall(r"gnorm\s+(\S+) \(", text)]
+    assert len(losses) == 2 and _finite(losses + gn), text
+    assert "done: loss" in text, text
+    log(f"[train] cli: python -m repro_torch.launch.train {' '.join(argv)}: "
+        f"{cli_s:.1f}s, launches {n}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _param_gaps(a: dict, b: dict) -> dict:
+    """{leaf name: max |a - b|} over two params trees."""
+    from repro_torch.train import checkpoint as ckpt
+    bb = dict(ckpt._named_leaves(b))
+    return {name: (t.float() - bb[name].float()).abs().max().item()
+            for name, t in ckpt._named_leaves(a)}
+
+
+def train_check_phase(dev) -> None:
+    """Training at 2 layers, full width, f32, seeded weights and batch (4
+    x 128): one train step through the kernels and one through the plain
+    versions from the same state, under trunc2x2 (plane 0) and pareto:0.01
+    (the fused kernel): loss, gradient norm and every updated param equal
+    (gap 0: the forward's GEMMs are bit-exact and the backward is the
+    same ops).  A checkpoint round trip: save after step 2, restore into
+    a fresh trainer's state (every tensor bit-equal), steps 3-4 against
+    an uninterrupted 4-step run (every tensor bit-equal: the step is
+    deterministic on the card, the embedding's backward included, whose
+    CUDA index accumulation sorts the indices and uses no atomics).  One
+    int8-moment step and one Adafactor step, finite."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
+                             kernel_policy="pallas", attn_impl="chunked",
+                             dtype="float32", n_layers=TRAIN_CHECK_LAYERS)
+    opts = ts.StepOptions(lr=1e-3, total_steps=10, warmup_steps=2)
+    batches = [ts.batch_to(synthetic.batch_for(
+        cfg, "train", TRAIN_CHECK_BATCH, TRAIN_SEQ, i, 1), dev)
+        for i in range(4)]
+    for mult in (MULT, CNN_MULT):
+        res = {}
+        for policy in ("pallas", "xla"):
+            c = dataclasses.replace(cfg, mult=mult, kernel_policy=policy)
+            init, step = ts.make_train_fns(c, opts, dev)
+            (st, m), n = counted(lambda: step(init(1), batches[0]))
+            tiled = "approx_qgemm_fused" if mult == CNN_MULT \
+                else "approx_qgemm_plane0"
+            want = dict.fromkeys(n, 0)
+            if policy == "pallas":
+                want[tiled] = want["quantize_rows"] = \
+                    train_want(c, 1)["approx_qgemm_plane0"]
+            assert n == want, (mult, policy, n, want)
+            res[policy] = (st["params"], m)
+        (pk, mk), (px, mx) = res["pallas"], res["xla"]
+        gaps = _param_gaps(pk, px)
+        dl = abs(mk["loss"].item() - mx["loss"].item())
+        dg = abs(mk["gnorm"].item() - mx["gnorm"].item())
+        worst = max(gaps, key=gaps.get)
+        embed = gaps["['embed']"]
+        log(f"[train-check] {mult}, {TRAIN_CHECK_LAYERS} layers, full "
+            f"width, one step kernels vs plain: loss {mk['loss'].item():.6f}"
+            f" gap {dl:.3e}, gnorm {mk['gnorm'].item():.4f} gap {dg:.3e}, "
+            f"largest param gap {gaps[worst]:.3e} ({worst}; limit 0), "
+            f"embed {embed:.3e}")
+        assert dl == 0.0 and dg == 0.0 and gaps[worst] == 0.0, (dl, dg, gaps)
+        del res, pk, px
+
+    # checkpoint round trip, resumed against uninterrupted
+    init, step = ts.make_train_fns(cfg, opts, dev)
+    whole, losses = init(1), []
+    for b in batches:
+        whole, m = step(whole, b)
+        losses.append(m["loss"].item())
+    part = init(1)
+    for b in batches[:2]:
+        part, _ = step(part, b)
+    where = ROOT / "build" / "train_check_ckpt"
+    shutil.rmtree(where, ignore_errors=True)
+    mgr = ckpt.CheckpointManager(where)
+    t0 = time.perf_counter()
+    mgr.save(part, 2)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored, at = mgr.restore(init(2))
+    load_s = time.perf_counter() - t0
+    assert at == 2
+    saved = dict(ckpt._named_leaves(part))
+    for name, t in ckpt._named_leaves(restored):
+        assert t.dtype == saved[name].dtype and torch.equal(t, saved[name]), \
+            name
+    resumed = []
+    for b in batches[2:]:
+        restored, m = step(restored, b)
+        resumed.append(m["loss"].item())
+    gap = {name: (t.float() - w.float()).abs().max().item()
+           for (name, t), (_, w) in zip(ckpt._named_leaves(restored),
+                                        ckpt._named_leaves(whole))}
+    worst = max(gap, key=gap.get)
+    log(f"[train-check] checkpoint: {len(saved)} leaves, "
+        f"{_gb(sum(t.numel() * t.element_size() for t in saved.values()))}"
+        f", saved in {save_s:.1f}s, restored bit-equal in {load_s:.1f}s; "
+        f"steps 3-4 resumed {resumed} vs uninterrupted {losses[2:]}, "
+        f"largest gap {gap[worst]:.3e} ({worst}; limit 0)")
+    assert resumed == losses[2:], (resumed, losses[2:])
+    for (name, t), (_, w) in zip(ckpt._named_leaves(restored),
+                                 ckpt._named_leaves(whole)):
+        assert t.dtype == w.dtype and torch.equal(t, w), (name, gap[name])
+    shutil.rmtree(where, ignore_errors=True)
+    del whole, part, restored, saved
+
+    for kw in ({"moment_dtype": "int8"}, {"optimizer": "adafactor"}):
+        init, step = ts.make_train_fns(
+            cfg, dataclasses.replace(opts, **kw), dev)
+        st, m = step(init(1), batches[0])
+        vals = [m["loss"].item(), m["gnorm"].item()]
+        assert _finite(vals) and all(
+            torch.isfinite(t).all() for t in
+            (st["params"]["embed"], st["params"]["layers"]["wq"])), kw
+        log(f"[train-check] {kw}: one step, loss {vals[0]:.6f}, gnorm "
+            f"{vals[1]:.4f}, finite")
+    torch.cuda.empty_cache()
+    log(f"[train-check] {time.perf_counter() - t_phase:.1f}s")
+
+
 def attention_witness(runs: dict, tokens, true_len, ex: dict) -> None:
     """Flash against the plain chunked attention at the first attention
     of a conditioned model that `conditioned_check_phase` runs on chunked
@@ -2525,6 +2878,7 @@ def attention_witness(runs: dict, tokens, true_len, ex: dict) -> None:
     from repro_torch.approx import layers as AL
     from repro_torch.kernels import quantize as qz
     from repro_torch.models import api
+    from repro_torch.models import attention as A
     from repro_torch.models import common as C
     from repro_torch.models import encdec
     from repro_torch.models import transformer as T
@@ -2555,8 +2909,8 @@ def attention_witness(runs: dict, tokens, true_len, ex: dict) -> None:
             q, k, v = T._qkv(x, lp, c, spec, positions)
             causal, bias = True, None
         outs = {"flash": C.flash_attention(q, k, v, causal),
-                "chunked": C.chunked_attention(q, k, v, c.attn_chunk,
-                                               causal)}
+                "chunked": A.blockwise_attention(q, k, v, c.attn_chunk,
+                                                 causal)}
         outs = {name: o.reshape(b, s, -1) for name, o in outs.items()}
         for name, o in outs.items():
             got = AL.dense(o, lp["wo"], lp.get(bias), spec)
@@ -2664,6 +3018,7 @@ def flash_witness(runs: dict, tokens, true_len) -> None:
     from repro_torch.approx import layers as AL
     from repro_torch.kernels import quantize as qz
     from repro_torch.models import api
+    from repro_torch.models import attention as A
     from repro_torch.models import common as C
     from repro_torch.models import transformer as T
 
@@ -2677,7 +3032,8 @@ def flash_witness(runs: dict, tokens, true_len) -> None:
         positions = torch.arange(s, device=tokens.device)[None, :]
         q, k, v = T._qkv(x, lp, c, spec, positions)
         inputs = {"flash": C.flash_attention(q, k, v, True),
-                  "chunked": C.chunked_attention(q, k, v, c.attn_chunk, True)}
+                  "chunked": A.blockwise_attention(q, k, v, c.attn_chunk,
+                                                   True)}
         inputs = {name: o.reshape(b, s, -1) for name, o in inputs.items()}
         for name, o in inputs.items():
             got = AL.dense(o, lp["wo"], None, spec)
@@ -3209,6 +3565,9 @@ def main() -> int:
     moe_launches = moe_phase(dev, card)
     moe_check_phase(dev)
     log(f"[moe] {time.perf_counter() - t_start:.1f}s")
+    train_launches = train_phase(dev, card)
+    train_check_phase(dev)
+    log(f"[train] {time.perf_counter() - t_start:.1f}s")
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -3231,6 +3590,7 @@ def main() -> int:
             arch: n[row["name"]] for arch, n in conditioned_launches.items()}
         row["moe_launches"] = {
             arch: n[row["name"]] for arch, n in moe_launches.items()}
+        row["train_launches"] = train_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

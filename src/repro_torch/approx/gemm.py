@@ -282,12 +282,18 @@ def _gemm_plan(spec: MultSpec, m: int, k: int, n: int, device):
                                      device=device, rank=rank)
 
 
+#: Profiler label of the per-call weight prep in training's forward: the
+#: int8 quantize of a raw float weight and its K-major copy for the
+#: kernels (a prepared weight keeps both, so serving runs neither).
+WEIGHT_PREP = "approx.weight_prep"
+
+
 def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                     spec: MultSpec, plain,
                     wq_t: torch.Tensor | None = None) -> torch.Tensor:
     """Shared forward: quantize rows, run the planned GEMM, dequantize.
     `plain(xq)` is the plain-path GEMM for this weight; `wq_t` its K-major
-    copy, where one is kept."""
+    copy, where one is kept (else made here for the kernels)."""
     from repro_torch.kernels import ops as kops
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -295,6 +301,9 @@ def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     x2 = x.reshape(-1, k)
     plan = _gemm_plan(spec, x2.shape[0], k, n, x.device)
     xq, sx = _quantize_activations(x2, spec, plan.use_pallas)
+    if plan.use_pallas and plan.path == "fused" and wq_t is None:
+        with torch.profiler.record_function(WEIGHT_PREP):
+            wq_t = wq.T.contiguous()
     if plan.use_pallas:
         acc = kops.approx_qgemm_planned(xq, wq, spec, plan, wq_t)
     else:
@@ -310,7 +319,8 @@ class _ApproxMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, spec):
         ctx.save_for_backward(x, w)
-        wq, sw = quant.quantize(w, axis=1)    # (k, n) -> per-n scales (1, n)
+        with torch.profiler.record_function(WEIGHT_PREP):
+            wq, sw = quant.quantize(w, axis=1)    # (k, n) -> (1, n) scales
         return _approx_forward(x, wq, sw, spec,
                                lambda xq: approx_qgemm(xq, wq, spec))
 

@@ -43,6 +43,20 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+def fake_quant(x: torch.Tensor, axis: int | None = None) -> torch.Tensor:
+    """Quantize-dequantize (QAT-style error injection without approx)."""
+    q, s = quantize(x, axis)
+    return dequantize(q, s)
+
+
+# --- int8 weight storage for serving -----------------------------------------
+# A quantized weight is a {"q": int8, "s": f32} dict leaf, dequantized at
+# use (`approx/layers._as_weight`), as in the JAX package.
+
+#: weights consumed outside the GEMM layers (lookups, slices, conv taps)
+_QSKIP = ("embed", "dec_pos", "conv_w")
+
+
 def leaf_name(path) -> str:
     """Innermost dict key of a key path (a tuple of keys, outermost first;
     "" if none) — the param-leaf name used by the serving weight caches."""
@@ -50,6 +64,28 @@ def leaf_name(path) -> str:
         if isinstance(part, str):
             return part
     return ""
+
+
+def quantize_param_tree(params: dict, min_size: int = 1 << 16) -> dict:
+    """Per-output-channel int8 quantization of every large >= 2-D float
+    weight whose last two dims are both at least 512 (true GEMM matrices,
+    not stacked vectors), as {"q", "s"} leaves.  Scales are per (stack
+    dims x output channel): only the contraction dim (-2) is reduced, so
+    layer-stacked weights stay sliceable.  Lookups, slices and conv taps
+    (`_QSKIP`) stay float."""
+    def q(path, leaf):
+        if isinstance(leaf, dict):
+            return {k: q((*path, k), v) for k, v in leaf.items()}
+        if leaf_name(path) in _QSKIP or not torch.is_tensor(leaf) or \
+                leaf.ndim < 2 or leaf.numel() < min_size or \
+                not leaf.is_floating_point():
+            return leaf
+        if leaf.shape[-1] < 512 or leaf.shape[-2] < 512:
+            return leaf
+        keep = tuple(i for i in range(leaf.ndim) if i != leaf.ndim - 2)
+        qv, s = quantize(leaf, axis=keep)
+        return {"q": qv, "s": s}
+    return q((), params)
 
 
 def is_qweight(w) -> bool:

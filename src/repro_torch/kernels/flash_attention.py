@@ -9,6 +9,7 @@ The CUDA kernel fixes its own tiles (one warp per block, 8 query rows in
 f32 and 16 in bf16, 32 kv rows per step).  In f32 it runs register-tiled
 FP32 FMAs and agrees with the plain version within f32 rounding (2e-6);
 in bf16 it runs tensor-core products with f32 accumulation (2e-2).
+Neither has a backward: the wrapper refuses inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -62,7 +63,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     bkv: int | None = None) -> torch.Tensor:
     """q (bh, sq, d), k/v (bh, skv, d) -> (bh, sq, d).  On CUDA: f32 or
     bf16, d in {32, 64, 128, 256}; `bq`/`bkv` shape only the plain
-    version's blocks."""
+    version's blocks.  The kernel has no backward, as the reference's has
+    none: inputs that need a gradient raise, on every device, rather than
+    get a result that carries none."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward: train with "
+            "attn_impl='chunked' (the blockwise attention's custom "
+            "backward), or call it under torch.no_grad()")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      bq=bq or DEFAULT_BQ,

@@ -131,9 +131,6 @@ def main(argv=None) -> int:
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
 
-    guard = PreemptionGuard()
-    guard.install()
-
     cfg = configs.apply_overrides(configs.get_config(args.arch),
                                   reduced=args.reduced)
     regions = tuple(args.regions.split(","))
@@ -151,10 +148,11 @@ def main(argv=None) -> int:
         fleet.replicas[0].inject_fault(at_step=args.kill)
 
     comps = []
-    while fleet.busy() and not guard.preempted:
-        fleet.step()
-    if not guard.preempted:
-        comps = fleet.run_until_complete()
+    with PreemptionGuard() as guard:
+        while fleet.busy() and not guard.preempted:
+            fleet.step()
+        if not guard.preempted:
+            comps = fleet.run_until_complete()
 
     s = fleet.stats()
     print(f"[fleet] {len(regions)} replicas on "

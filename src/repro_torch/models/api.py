@@ -1,6 +1,7 @@
 """Unified model API for the `lm`, `ssm`, `hybrid` and `encdec` families:
-spec resolution, init, the serving weight-plane cache, and the prefill /
-decode / chunk steps the serving engines drive.  Same signatures as the
+spec resolution, init, the training forward and loss, the serving
+weight-plane cache, and the prefill / decode / chunk steps the serving
+engines drive.  Same signatures as the
 JAX package's `repro.models.api`, plus an explicit `device` where
 something is created.  `extras` carries a request's conditioning, as the
 family's own functions name it: "frames" (b, enc_seq, d) for `encdec`,
@@ -16,6 +17,7 @@ import torch
 from repro_torch.approx import gemm as gemm_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import common as C
 from repro_torch.models import encdec, mamba2, rglru, transformer
 
 Params = dict[str, Any]
@@ -95,6 +97,40 @@ def prepare_params(params: Params, cfg: ModelConfig,
         return gemm_mod.prepare_weight(leaf, spec)
 
     return {k: prep(k, v) for k, v in params.items()}
+
+
+def forward(params: Params, batch: dict, cfg: ModelConfig, spec=None
+            ) -> tuple[torch.Tensor, Any]:
+    """batch: {"tokens": (b, s)} (+ "frames" for encdec, "img" for a
+    cross-attention lm) -> (logits (b, s, v), aux loss).  Differentiable:
+    training takes raw float params, never `prepare_params`' output."""
+    kwargs = {}
+    if cfg.family == "encdec":
+        kwargs["frames"] = batch.get("frames")
+    if cfg.cross_every:
+        kwargs["img_embeds"] = batch.get("img")
+    return family_module(cfg).forward(params, batch["tokens"], cfg, spec,
+                                      **kwargs)
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig, spec=None
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy (teacher-forced for encdec) plus 0.01 x
+    the MoE load-balance term -> (total, {"ce", "aux"}).  Labels default
+    to the tokens shifted left (0 at the end), the mask to ones with the
+    last position off."""
+    logits, aux = forward(params, batch, cfg, spec)
+    tokens = batch["tokens"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask[:, -1] = 0.0
+    ce = C.softmax_xent(logits, labels, mask)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

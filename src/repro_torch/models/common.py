@@ -16,9 +16,11 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.approx import gemm as gemm_mod
 from repro_torch.approx import layers as AL
+from repro_torch.models import attention as A
 
 MultSpec = gemm_mod.MultSpec
 Params = dict[str, Any]
@@ -27,13 +29,33 @@ Params = dict[str, Any]
 def block_params(tree: Params, *index: int) -> Params:
     """One block's params out of a layer-stacked tree: each leaf indexed
     by `index` along its leading stack axes (a `PreparedWeight` through
-    `.layer`)."""
+    `.layer`, an int8 {"q", "s"} leaf member by member)."""
     out = {}
     for k, v in tree.items():
         for i in index:
-            v = v.layer(i) if gemm_mod.is_prepared(v) else v[i]
+            if gemm_mod.is_prepared(v):
+                v = v.layer(i)
+            elif isinstance(v, dict):
+                v = {kk: vv[i] for kk, vv in v.items()}
+            else:
+                v = v[i]
         out[k] = v
     return out
+
+
+def unstack(tree: Params, depth: int) -> Params:
+    """A layer-stacked tree with each leaf split into nested lists of its
+    per-block views (`torch.unbind` over the `depth` leading axes), which
+    `block_params` indexes as it indexes the stacks.  Under autograd a
+    block's gradient then lands in one stack per leaf: indexing the stack
+    itself makes each block's backward fill a zero tensor of the whole
+    stack.  Prepared and int8 {"q", "s"} leaves, which take no gradient,
+    stay whole."""
+    def split(x, n):
+        if n == 0 or gemm_mod.is_prepared(x) or not torch.is_tensor(x):
+            return x
+        return [split(t, n - 1) for t in torch.unbind(x)]
+    return {k: split(v, depth) for k, v in tree.items()}
 
 
 # --- norms ------------------------------------------------------------------
@@ -116,57 +138,6 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, s, h, d).to(q.dtype)
 
 
-def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      chunk: int = 512, causal: bool = True) -> torch.Tensor:
-    """Online-softmax attention forward, O(chunk * s) live memory — the
-    plain twin of the flash kernel (the JAX package's blockwise attention;
-    its custom backward comes with training).  q (b, sq, h, d); k, v
-    (b, skv, kvh, d): a non-causal call may attend across lengths
-    (cross-attention), as the reference's blockwise forward does."""
-    b, s_orig, h, d = q.shape
-    kvh, skv = k.shape[2], k.shape[1]
-    c = min(chunk, s_orig)
-    pad = (-s_orig) % c
-    if pad:
-        q = F.pad(q, (0, 0, 0, 0, 0, pad))
-    kpad = (-skv) % c
-    if kpad:
-        k = F.pad(k, (0, 0, 0, 0, 0, kpad))
-        v = F.pad(v, (0, 0, 0, 0, 0, kpad))
-    s = s_orig + pad
-    qg, g = _gqa_shape(q, kvh)
-    scale = d ** -0.5
-    n, nk = s // c, (skv + kpad) // c
-    kc = k.reshape(b, nk, c, kvh, d).float()
-    vc = v.reshape(b, nk, c, kvh, d).float()
-    blocks = []
-    for iq in range(n):
-        qs = qg[:, iq * c:(iq + 1) * c].float() * scale     # (b,c,kv,g,d)
-        m_p = torch.full((b, kvh, g, c), -1e30, device=q.device)
-        l_p = torch.zeros((b, kvh, g, c), device=q.device)
-        acc = torch.zeros((b, kvh, g, c, d), device=q.device)
-        qi = iq * c + torch.arange(c, device=q.device)
-        for ik in range(nk):
-            ki = ik * c + torch.arange(c, device=q.device)
-            sc = torch.einsum("bqkgd,bmkd->bkgqm", qs, kc[:, ik])
-            if causal:
-                mask = qi[:, None] >= ki[None, :]
-            else:
-                mask = (ki[None, :] < skv).expand(c, c)
-            sc = torch.where(mask, sc, torch.full_like(sc, -1e30))
-            m_n = torch.maximum(m_p, sc.amax(dim=-1))
-            p = torch.exp(sc - m_n[..., None])
-            alpha = torch.exp(m_p - m_n)
-            l_p = alpha * l_p + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqm,bmkd->bkgqd", p, vc[:, ik])
-            m_p = m_n
-        out = acc / torch.clamp(l_p, min=1e-30)[..., None]  # (b,kv,g,c,d)
-        blocks.append(out.permute(0, 3, 1, 2, 4))           # (b,c,kv,g,d)
-    out = torch.cat(blocks, dim=1).reshape(b, s, h, d)
-    return out[:, :s_orig].to(q.dtype)
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """(b, s, h, d) attention through the flash kernel: KV heads repeated to
@@ -186,23 +157,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(q, k, v, impl: str = "chunked", chunk: int = 512,
               causal: bool = True, window: int = 0,
               policy: str | None = None) -> torch.Tensor:
-    """Dispatch.  A `window` takes the windowed blockwise forward
+    """Dispatch.  A `window` takes the windowed blockwise attention
     (models/attention.py), whatever `impl` says, as the JAX package routes
     it: its flash kernel has no window.  Otherwise "flash" takes the
     kernel when the dispatch policy says so for this device
-    (kernels/dispatch.py) and the plain chunked forward otherwise;
-    "chunked" is the plain online-softmax forward; "naive" materializes
-    the scores."""
+    (kernels/dispatch.py) and the blockwise attention otherwise; the
+    kernel has no backward and refuses inputs that need a gradient.
+    "chunked" is the blockwise attention (online-softmax forward, custom
+    backward); "naive" materializes the scores."""
     if window:
-        from repro_torch.models.attention import blockwise_attention
-        return blockwise_attention(q, k, v, chunk, True, window)
+        return A.blockwise_attention(q, k, v, chunk, True, window)
     if impl == "naive":
         return naive_attention(q, k, v, causal)
     if impl == "flash":
         from repro_torch.kernels import dispatch
         if dispatch.use_pallas_attention(policy, q.device):
             return flash_attention(q, k, v, causal)
-    return chunked_attention(q, k, v, chunk, causal)
+    return A.blockwise_attention(q, k, v, chunk, causal)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -329,3 +300,34 @@ def gelu_mlp(x: torch.Tensor, w_up, b_up, w_down, b_down,
              spec: MultSpec | None) -> torch.Tensor:
     h = AL.dense(x, w_up, b_up, spec)
     return AL.dense(gelu(h), w_down, b_down, spec)
+
+
+# --- losses -------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32.  logits (..., v), labels (...);
+    with a mask, the masked mean over max(mask.sum(), 1)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def maybe_remat(fn, enable: bool):
+    """`fn` rematerialised in the backward when `enable`: nothing inside it
+    is saved (the reference's `nothing_saveable` policy), only its inputs,
+    and the backward reruns it whole.  Without grad the call is plain."""
+    if not enable:
+        return fn
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return remat

@@ -8,8 +8,8 @@ embeddings (b, enc_seq, d), which the encoder consumes directly.  Kept:
 LayerNorm with a bias, biased attention projections (q, v, out; no k
 bias), the GELU MLP with biases, sinusoidal encoder positions, learned
 decoder positions and the head tied to the token embedding.  The layer
-scans become Python loops over the stacked params.  The training forward
-comes with training.
+scans become Python loops over the stacked params.  `forward` is the
+teacher-forced training pass.
 """
 
 from __future__ import annotations
@@ -147,9 +147,23 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     """frames (b, enc_seq, d) — precomputed frame embeddings (stub)."""
     h = frames + C.sinusoid_positions(frames.shape[1], cfg.d_model,
                                       frames.device).to(frames.dtype)
+    layers = C.unstack(params["enc_layers"], 1)
+    blk = C.maybe_remat(lambda hh, lp: _enc_block(hh, lp, cfg, spec),
+                        cfg.remat)
     for i in range(cfg.n_enc_layers):
-        h = _enc_block(h, C.block_params(params["enc_layers"], i), cfg, spec)
+        h = blk(h, C.block_params(layers, i))
     return C.layernorm(h, params["enc_norm"], params["enc_normb"])
+
+
+def _dec_block(h, enc_out, lp, cfg: ModelConfig, spec):
+    """The decoder block over a full sequence (training): causal
+    self-attention, cross-attention to `enc_out`, the GELU MLP."""
+    x = C.layernorm(h, lp["ln1"], lp["ln1b"])
+    h = h + _mha(x, x, lp, cfg, spec, causal=True)
+    x = C.layernorm(h, lp["xln"], lp["xlnb"])
+    h = h + _mha(x, enc_out, lp, cfg, spec, prefix="x", causal=False)
+    x = C.layernorm(h, lp["ln2"], lp["ln2b"])
+    return h + _gelu_mlp(x, lp, spec)
 
 
 def _frames(frames, cfg: ModelConfig, b: int, device) -> torch.Tensor:
@@ -163,6 +177,24 @@ def _frames(frames, cfg: ModelConfig, b: int, device) -> torch.Tensor:
 
 def _head(h, params: Params, spec):
     return AL.gemm(h, params["embed"].T, spec)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            spec=None, frames: torch.Tensor | None = None, **_) -> tuple:
+    """The teacher-forced decoder over (b, s) tokens given encoder
+    `frames` (zeros when None) -> (logits (b, s, v), 0.0); under
+    `cfg.remat` every encoder and decoder block reruns in the backward."""
+    b, s = tokens.shape
+    enc_out = encode(params, _frames(frames, cfg, b, tokens.device), cfg,
+                     spec)
+    h = AL.embed(tokens, params["embed"]) + params["dec_pos"][:s][None]
+    layers = C.unstack(params["dec_layers"], 1)
+    blk = C.maybe_remat(
+        lambda hh, lp, eo: _dec_block(hh, eo, lp, cfg, spec), cfg.remat)
+    for i in range(cfg.n_layers):
+        h = blk(h, C.block_params(layers, i), enc_out)
+    h = C.layernorm(h, params["final_norm"], params["final_normb"])
+    return _head(h, params, spec), 0.0
 
 
 # --- serving -------------------------------------------------------------------

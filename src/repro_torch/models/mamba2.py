@@ -190,6 +190,20 @@ def block(hstate, lp, cfg: ModelConfig, spec, init_state=None,
     return hstate + out, final_state, conv_tail
 
 
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            spec=None, **_) -> tuple:
+    """tokens (b, s) -> (logits (b, s, v), 0.0): the chunked form over the
+    whole sequence, each block rerun in the backward under `cfg.remat`."""
+    h = AL.embed(tokens, params["embed"])
+    layers = C.unstack(params["layers"], 1)
+    blk = C.maybe_remat(lambda hh, lp: block(hh, lp, cfg, spec)[0],
+                        cfg.remat)
+    for i in range(cfg.n_layers):
+        h = blk(h, C.block_params(layers, i))
+    h = C.rmsnorm(h, params["final_norm"])
+    return AL.gemm(h, params["lm_head"], spec), 0.0
+
+
 # --- serving ----------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -224,6 +224,44 @@ def _qkv(x, ap, cfg: ModelConfig, spec, positions):
             C.apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def _attention_block(hstate, ap, cfg: ModelConfig, spec, positions):
+    """The local-attention block over a full sequence -> (h, k, v)."""
+    b, s, _ = hstate.shape
+    q, k, v = _qkv(C.rmsnorm(hstate, ap["ln"]), ap, cfg, spec, positions)
+    attn = blockwise_attention(q, k, v, cfg.attn_chunk, True, cfg.window)
+    hstate = hstate + AL.gemm(attn.reshape(b, s, -1), ap["wo"], spec)
+    return hstate + _geglu(C.rmsnorm(hstate, ap["mln"]), ap, spec), k, v
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            spec=None, **_) -> tuple:
+    """tokens (b, s) -> (logits (b, s, v), 0.0).  Under `cfg.remat` each
+    superblock's recurrent and attention blocks rerun in the backward;
+    the tail's recurrent blocks do not, as in the reference."""
+    b, s = tokens.shape
+    n_super, tail = _pattern(cfg)
+    h = AL.embed(tokens, params["embed"])
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    rec = C.maybe_remat(
+        lambda hh, rp: _recurrent_block(hh, rp, cfg, spec)[0], cfg.remat)
+    att = C.maybe_remat(
+        lambda hh, ap: _attention_block(hh, ap, cfg, spec, positions)[0],
+        cfg.remat)
+    if n_super:
+        recs = C.unstack(params["rec"], 2)
+        attns = C.unstack(params["attn"], 1)
+    for i in range(n_super):
+        for j in range(2):
+            h = rec(h, C.block_params(recs, i, j))
+        h = att(h, C.block_params(attns, i))
+    if tail:
+        tails = C.unstack(params["rec_tail"], 1)
+    for i in range(tail):
+        h = _recurrent_block(h, C.block_params(tails, i), cfg, spec)[0]
+    h = C.rmsnorm(h, params["final_norm"])
+    return AL.gemm(h, params["lm_head"], spec), 0.0
+
+
 # --- serving -------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -357,12 +395,8 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             lru2.append(last_)
         rc.append(torch.stack(conv2))
         rl.append(torch.stack(lru2))
-        ap = C.block_params(params["attn"], i)
-        x = C.rmsnorm(h, ap["ln"])
-        q, k, v = _qkv(x, ap, cfg, spec, positions)
-        attn = blockwise_attention(q, k, v, cfg.attn_chunk, True, win)
-        h = h + AL.gemm(attn.reshape(b, s, -1), ap["wo"], spec)
-        h = h + _geglu(C.rmsnorm(h, ap["mln"]), ap, spec)
+        h, k, v = _attention_block(h, C.block_params(params["attn"], i),
+                                   cfg, spec, positions)
         ck.append(ring(k))
         cv.append(ring(v))
     cache = init_cache(cfg, b, s, dev) if not n_super else {

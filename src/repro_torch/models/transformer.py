@@ -1,7 +1,7 @@
 """Decoder-only transformer LM: the dense path (tinyllama and the other
 dense `lm` configs, SwiGLU or GELU MLP) and the vision-cross-attention
-variant (llama-3.2-vision): init, prefill with right-padded prompts, and
-per-row-length decode against a KV cache.
+variant (llama-3.2-vision): init, the training forward, prefill with
+right-padded prompts, and per-row-length decode against a KV cache.
 
 Parameters keep the JAX package's layer-stacked layout — {"embed",
 "final_norm", "layers": {name: (L, ...)}, "lm_head"} with every GEMM
@@ -162,24 +162,43 @@ def _qkv(h, lp, cfg: ModelConfig, spec, positions):
 
 
 def _ffn(h, lp, cfg: ModelConfig, spec):
-    """The block's FFN: an MoE layer's routed experts over the flattened
-    (b * s) rows, plus its shared expert where the config has one; else
-    SwiGLU or the GELU MLP.  (The MoE load-balance term is a training
-    loss: serving drops it.)"""
+    """The block's FFN -> (out, aux): an MoE layer's routed experts over
+    the flattened (b * s) rows, plus its shared expert where the config
+    has one, with the router's load-balance term as aux (a training loss:
+    `forward` sums it over the blocks, serving drops it); else SwiGLU or
+    the GELU MLP, with aux 0."""
     if "router" in lp:
         b, s, d = h.shape
-        out, _ = moe_ffn(h.reshape(b * s, d), lp["router"], lp["we_gate"],
-                         lp["we_up"], lp["we_down"], cfg.top_k,
-                         cfg.capacity_factor, spec)
+        out, aux = moe_ffn(h.reshape(b * s, d), lp["router"], lp["we_gate"],
+                           lp["we_up"], lp["we_down"], cfg.top_k,
+                           cfg.capacity_factor, spec)
         out = out.reshape(b, s, d)
         if cfg.shared_expert:
             out = out + C.swiglu(h, lp["ws_gate"], lp["ws_up"],
                                  lp["ws_down"], spec)
-        return out
+        return out, aux
     if "w_gate" in lp:
-        return C.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], spec)
+        return C.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"],
+                        spec), 0.0
     return C.gelu_mlp(h, lp["w_up"], lp["mb_up"], lp["w_down"],
-                      lp["mb_down"], spec)
+                      lp["mb_down"], spec), 0.0
+
+
+def _self_attention(h, lp, cfg: ModelConfig, spec, positions):
+    """The pre-norm causal self-attention and its residual -> (h, k, v)."""
+    b, s, _ = h.shape
+    x = C.rmsnorm(h, lp["ln1"])
+    q, k, v = _qkv(x, lp, cfg, spec, positions)
+    attn = C.attention(q, k, v, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+                       policy=spec.policy if spec is not None else None)
+    return h + AL.dense(attn.reshape(b, s, -1), lp["wo"], None, spec), k, v
+
+
+def decoder_block(h, lp, cfg: ModelConfig, spec, positions):
+    """The standard pre-norm block over a full sequence -> (h, aux)."""
+    h, _, _ = _self_attention(h, lp, cfg, spec, positions)
+    ff, aux = _ffn(C.rmsnorm(h, lp["ln2"]), lp, cfg, spec)
+    return h + ff, aux
 
 
 def cross_block(h, xp, img, cfg: ModelConfig, spec):
@@ -211,6 +230,18 @@ def _image(img_embeds, cfg: ModelConfig, b: int, like: torch.Tensor):
                        device=like.device)
 
 
+def _unstacked(params: Params, cfg: ModelConfig) -> Params:
+    """`params` with every layer stack split into per-block views
+    (`C.unstack`), for `forward`'s backward."""
+    out = dict(params)
+    out["layers"] = C.unstack(params["layers"],
+                              2 if _interleaved(cfg) else len(_lead(cfg)))
+    for name in ("moe", "cross"):
+        if name in params:
+            out[name] = C.unstack(params[name], 1)
+    return out
+
+
 def _blocks(params: Params, cfg: ModelConfig):
     """Every self-attention block in order, as (its cache index, its
     params, the superblock's cross params after it or None): an
@@ -231,6 +262,35 @@ def _blocks(params: Params, cfg: ModelConfig):
             last = j == cfg.cross_every - 1
             yield ((i, j), C.block_params(params["layers"], i, j),
                    C.block_params(params["cross"], i) if last else None)
+
+
+# --------------------------------------------------------------------------
+# forward (training)
+# --------------------------------------------------------------------------
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            spec=None, img_embeds: torch.Tensor | None = None) -> tuple:
+    """tokens (b, s) -> (logits (b, s, v), aux): aux sums the MoE layers'
+    load-balance terms, once per block (0.0 for a dense model).  Under
+    `cfg.remat` each block, and each cross-attention layer, reruns whole
+    in the backward.  A cross-attention model attends to `img_embeds`
+    (b, n_img, d), zeros when None."""
+    b, s = tokens.shape
+    h = AL.embed(tokens, params["embed"])
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    img = _image(img_embeds, cfg, b, h) if cfg.cross_every else None
+    block = C.maybe_remat(
+        lambda hh, lp: decoder_block(hh, lp, cfg, spec, positions), cfg.remat)
+    cross = C.maybe_remat(
+        lambda hh, xp: cross_block(hh, xp, img, cfg, spec), cfg.remat)
+    aux = 0.0
+    for _, lp, xp in _blocks(_unstacked(params, cfg), cfg):
+        h, ai = block(h, lp)
+        aux = aux + ai
+        if xp is not None:
+            h = cross(h, xp)
+    h = C.rmsnorm(h, params["final_norm"])
+    return AL.gemm(h, _head(params, cfg), spec), aux
 
 
 # --------------------------------------------------------------------------
@@ -259,7 +319,7 @@ def _decode_block(h, lp, ck, cv, lengths, cfg: ModelConfig, spec):
     attn = C.decode_attention(q, ck, cv, lengths + 1)
     h = h + AL.dense(attn.reshape(b, 1, -1), lp["wo"], None, spec)
     x = C.rmsnorm(h, lp["ln2"])
-    return h + _ffn(x, lp, cfg, spec)
+    return h + _ffn(x, lp, cfg, spec)[0]
 
 
 def decode_step(params: Params, cache: dict, tokens: torch.Tensor,
@@ -299,17 +359,11 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     max_len = max_len or s
     h = AL.embed(tokens, params["embed"])
     positions = torch.arange(s, device=tokens.device)[None, :]
-    policy = spec.policy if spec is not None else None
     cache = init_cache(cfg, b, max_len, tokens.device)
     img = _image(img_embeds, cfg, b, h) if cfg.cross_every else None
     for idx, lp, xp in _blocks(params, cfg):
-        x = C.rmsnorm(h, lp["ln1"])
-        q, k, v = _qkv(x, lp, cfg, spec, positions)
-        attn = C.attention(q, k, v, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-                           policy=policy)
-        h = h + AL.dense(attn.reshape(b, s, -1), lp["wo"], None, spec)
-        x = C.rmsnorm(h, lp["ln2"])
-        h = h + _ffn(x, lp, cfg, spec)
+        h, k, v = _self_attention(h, lp, cfg, spec, positions)
+        h = h + _ffn(C.rmsnorm(h, lp["ln2"]), lp, cfg, spec)[0]
         cache["k"][idx][:, :s] = k
         cache["v"][idx][:, :s] = v
         if xp is not None:

@@ -1,3 +1,4 @@
-"""Training-side utilities of the port.  Only `fault` (preemption guard,
-straggler watchdog, restart supervisor) is ported so far; the fleet's
-replicas use its watchdog."""
+"""Training of the port: the optimizers (`optimizer`), the train step
+(`train_step`), checkpoints (`checkpoint`) and fault tolerance (`fault`:
+preemption guard, straggler watchdog, restart supervisor; the fleet's
+replicas use its watchdog)."""

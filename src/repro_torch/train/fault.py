@@ -23,11 +23,17 @@ from typing import Callable
 
 class PreemptionGuard:
     """SIGTERM/SIGINT -> set a flag; the step loop checkpoints and exits
-    cleanly at the next step boundary (standard TPU-preemption protocol)."""
+    cleanly at the next step boundary (standard TPU-preemption protocol).
+
+    Used as a context manager, the guard holds SIGTERM only inside its
+    block and puts the previous handler back on the way out, so a caller
+    that runs the loop in its own process (a test, a smoke script) keeps
+    its SIGTERM behaviour afterwards."""
 
     def __init__(self) -> None:
         self._requested = False
         self._installed = False
+        self._previous = None
 
     def install(self) -> None:
         if self._installed:
@@ -36,8 +42,22 @@ class PreemptionGuard:
         def handler(signum, frame):
             self._requested = True
 
-        signal.signal(signal.SIGTERM, handler)
+        self._previous = signal.signal(signal.SIGTERM, handler)
         self._installed = True
+
+    def uninstall(self) -> None:
+        """Put back the SIGTERM handler that `install` replaced."""
+        if not self._installed:
+            return
+        signal.signal(signal.SIGTERM, self._previous)
+        self._installed = False
+
+    def __enter__(self) -> "PreemptionGuard":
+        self.install()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.uninstall()
 
     def request(self) -> None:  # for tests / manual triggering
         self._requested = True

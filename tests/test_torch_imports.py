@@ -46,6 +46,9 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert f"repro_torch.fleet.{name}" in res["modules"]
     assert "repro_torch.train.fault" in res["modules"]
     assert "repro_torch.launch.fleet" in res["modules"]
+    for name in ("train", "train.optimizer", "train.train_step",
+                 "train.checkpoint", "launch.train"):
+        assert f"repro_torch.{name}" in res["modules"]
     assert res["bad"] == []
 
 
@@ -58,7 +61,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.models import api
     from repro_torch.fleet.replica import Replica
     from repro_torch.launch.fleet import build_fleet
+    from repro_torch.launch.train import main as train_main
     from repro_torch.serving import Engine, PagedEngine
+    from repro_torch.train import train_step as ts
     cfg = configs.reduced(configs.get_config("tinyllama-1.1b"),
                           mult="trunc2x2")
     for call in (lambda: api.init_params(cfg),
@@ -69,6 +74,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                  lambda: Engine(cfg),
                  lambda: PagedEngine(cfg, prefill_chunk=8,
                                      draft_tier="trunc4x4"),
+                 lambda: ts.make_train_fns(cfg, ts.StepOptions()),
+                 lambda: train_main(["--reduced", "--steps", "1"]),
                  lambda: resolve_device("cuda")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
