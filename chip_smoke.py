@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each of which must pass (the script exits non-zero otherwise):
+Phases, each of which must pass (the script exits non-zero otherwise).
+Every phase but autotune runs with $REPRO_TUNING_CACHE pointed at a file
+that does not exist, so each GEMM takes its static plan whatever tuning
+cache the checkout holds; the script checks at its end that no plan
+outside autotune came from a cache.
 
   1. probe     — the card's name and power limit (nvidia-smi);
   2. build     — nvcc builds the kernel library from csrc/ (timed);
@@ -50,11 +54,26 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  training's GEMMs on row-major weights (plane 0 at M =
                  1024, the fused kernel at M = 512; TinyLlama's layers and
                  head) and quantize_rows at those rows;
-  4. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
+  4. autotune  — the measured tuning cache behind `choose_gemm_path`,
+                 in a cache file of the phase's own: every bucket of
+                 TinyLlama-1.1B's decode (m = 4), prefill (M = 128) and
+                 2-layer-check prefill (M = 512) GEMMs under trunc2x2,
+                 VGG16's conv and FC GEMMs under pareto:0.01, tuned on
+                 the card (every split count of plane 0 and skinny, both
+                 tile widths of fused and stacked, the plain path as a
+                 yardstick; CUDA graphs of runs over cold weights),
+                 one line per bucket: static, candidates, winner, plain,
+                 bound and share; then, under policy auto, the 2-layer
+                 check (trunc2x2, flash) and a VGG16 forward held bit for
+                 bit to their untuned runs, every tuned bucket's plan
+                 reading source "tuned"; calibrate_gemm on a tuned plan;
+                 the full-width decode step's device ms by kind, static
+                 against tuned;
+  5. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
                  tokens, every kernel's launch counter read around the run;
-  5. paged     — the same model through the paged engine on a ten-request
+  6. paged     — the same model through the paged engine on a ten-request
                  trace (the six prompts above, two seeded sampled requests,
                  two sharing a 64-token prefix), each run token-identical
                  to a slot engine of its capacity: P (paged, capacity 4,
@@ -69,7 +88,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  gather and scatter on the profiler.  A run that leaves its
                  slot engine fails the phase.  PD runs metered: its
                  per-request Joules must sum to the meter's total;
-  6. fleet     — the carbon-aware fleet on the same model: a metered
+  7. fleet     — the carbon-aware fleet on the same model: a metered
                  two-replica fleet (us-west and eu-west on the diurnal
                  trace, capacity 2, trunc2x2, 12 Poisson requests of 104
                  tokens x 16, replica 0 killed at its step 5), Joules
@@ -83,7 +102,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  twin, every death an injected one; the total-carbon
                  search over the multi-die scenarios on the card, held to
                  the CPU's (rtol 1e-6);
-  7. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
+  8. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
                  stays well inside its time limit: the engines' steps are
                  host-bound and scale with depth) and then
                  recurrentgemma-9b (38 layers, 10.4B params) at full
@@ -107,13 +126,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  per hybrid step, no flash); ms per prefill, decode step,
                  chunk step and spec step, one profiled decode step's
                  device busy share, and the peak device memory;
-  8. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
+  9. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
                  crosses two 256-token chunks) and the hybrid at 4 layers
                  (window cut to 64 under 128-token prompts: the rings
                  wrap), full width, once through the kernels and once
                  through the plain versions on the card: logits compared,
                  greedy tokens equal, the plain run launching nothing;
-  9. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
+ 10. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
                  frames), starcoder2-7b (8 of its 32 layers, the GELU
                  MLP) and llama-3.2-vision-11b (1 of its 8 superblocks,
                  5 + 1 cross layers; all three cut so the script stays
@@ -138,7 +157,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  step and spec step, one profiled decode step's device
                  busy share, device memory after prepare and at peak, and
                  each model's seconds;
- 10. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
+ 11. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
                  layers in one superblock) at full width, once through the
                  kernels and once through the plain versions on the card,
                  both on the chunked attention (flash's rounding moves
@@ -147,7 +166,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  flash's outputs): logits compared, greedy tokens equal,
                  the plain run launching nothing; the whole prefill held
                  to the chunked one under exact;
- 11. moe       — grok-1-314b (2 of its 64 layers: every layer MoE, 8
+ 12. moe       — grok-1-314b (2 of its 64 layers: every layer MoE, 8
                  experts, top-2) and llama4-maverick-400b-a17b (1 of its
                  24 superblocks: a dense layer and an MoE layer with its
                  shared expert; 32 of its 128 experts, top-1: at 128 one
@@ -174,13 +193,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  formula (an MoE layer's expert GEMMs at M = the call's
                  capacity), ms per prefill, decode, chunk and spec step,
                  device busy share, memory after prepare and at peak;
- 12. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
+ 13. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
                  (32 experts), full width, through the kernels and through
                  the plain versions, both on chunked attention: logit gap
                  0, greedy tokens and every call's routing (expert
                  indices, drop mask) equal, the plain run launching
                  nothing;
- 13. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
+ 14. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
                  random f32 weights from a seeded CUDA generator) trained
                  under trunc2x2 through the kernels, chunked attention
                  (the flash kernel has no backward) and remat: 6 AdamW
@@ -192,7 +211,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  profiled step's device busy share and the forward's
                  per-call weight quantize + K-major copy; then the CLI
                  (`launch.train.main`) for 2 steps at the config's bf16;
- 14. train-check — the same model at 2 layers: one train step through
+ 15. train-check — the same model at 2 layers: one train step through
                  the kernels and one through the plain versions from the
                  same state, under trunc2x2 and pareto:0.01 (fused):
                  loss, gradient norm and every updated param equal (gap
@@ -200,7 +219,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  bit-equal into a fresh trainer, steps 3-4 resumed within
                  1e-5 of an uninterrupted run); an int8-moment and an
                  Adafactor step finite;
- 15. check     — a 2-layer full-width model served once through the kernels
+ 16. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -208,7 +227,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 16. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 17. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -217,19 +236,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 17. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 18. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 18. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 19. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 19. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 20. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 18's vgg_mini), each GA design within
+                 kernels on phase 19's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -242,7 +261,8 @@ forward; `path` names the run its launches come from,
 `fleet_launches` those of the metered fleet, `recurrent_launches`,
 `conditioned_launches` and `moe_launches` those of each recurrent,
 conditioned and MoE model's runs, summed; `train_launches` those of the
-train phase's 6 steps);
+train phase's 6 steps; `autotune_launches` those of the autotune phase's
+runs under its tuned cache);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -258,12 +278,6 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, int8 tensor-core ops/s,
-# f32 (non-tensor-core) flop/s.
-PEAK_BYTES = 3.35e12
-PEAK_INT8 = 1979e12
-PEAK_F32 = 67e12
-
 MULT = "trunc2x2"
 #: The CNN path's multiplier: the rank-5 gate-pruned Pareto multiplier.
 CNN_MULT = "pareto:0.01"
@@ -276,9 +290,44 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def bound_ms(kernel: str, shapes) -> tuple[float, str]:
+    """The card's least milliseconds for `kernel`'s calls at `shapes`, and
+    whether bytes or operations bound them: the port's roofline
+    (`roofline.analysis.kernel_bound`, H100 SXM data-sheet peaks)."""
+    from repro_torch.roofline import analysis as rfa
+    sec, by = rfa.kernel_bound(kernel, shapes)
+    return sec * 1e3, by
+
+
+def pin_no_tuning_cache() -> str:
+    """Point $REPRO_TUNING_CACHE at a file under build/ that does not
+    exist, for every phase but autotune (which sets its own and puts this
+    back): a tuning cache left in the checkout must not move the static
+    plans that the readings and launch formulas assume."""
+    import os
+    (ROOT / "build").mkdir(exist_ok=True)
+    path = ROOT / "build" / f"no-tuning-cache-{os.getpid()}.json"
+    assert not path.exists(), path
+    os.environ["REPRO_TUNING_CACHE"] = str(path)
+    return str(path)
+
+
+def assert_untuned(path: str) -> None:
+    """No phase outside autotune read a tuned plan: the pinned cache is
+    still absent and no memoized plan came from a cache."""
+    from repro_torch.kernels import dispatch
+    assert not pathlib.Path(path).exists(), path
+    tuned = [k for k, p in dispatch._plans.items() if p.source == "tuned"]
+    assert not tuned, tuned
+    log(f"[done] no phase outside autotune read a tuning cache ({path} "
+        f"absent; {len(dispatch._plans)} plans memoized, none tuned)")
+
+
+def sms() -> int:
+    """The card's SM count, which the kernels' launch plans read."""
+    import torch
+    from repro_torch import device as D
+    return D.sm_count(torch.device("cuda", 0))
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -408,7 +457,8 @@ def check_quantize(dev, gen) -> None:
 
     def held(x, what):
         m, k = x.shape
-        plan = qz.launch_plan(m, k, x.stride(0), x.data_ptr())
+        plan = qz.launch_plan(m, k, x.stride(0), x.data_ptr(),
+                               sm_count=sms())
         for trunc in (0, 2):
             q1, s1 = qz.quantize_rows(x, trunc=trunc)
             q0, s0 = qz.quantize_rows_plain(x, trunc)
@@ -524,7 +574,7 @@ def check_kernels(dev) -> tuple[dict, int]:
                   qgemm.approx_qgemm_plane0_plain(a, bt, trunc_a=ta,
                                                   trunc_b=tb),
                   f"({m},{k},{n}) {name}, K-major weight vs plain")
-        splits, k_chunk = qgemm.plane0_splits(m, k, n)
+        splits, k_chunk = qgemm.plane0_splits(m, k, n, sm_count=sms())
         tm, _, tn = qk.PLANE0_TILE
         log(f"[kernels] plane0 ({m},{k},{n}): {splits} K split(s) of "
             f"{k_chunk}, {(m // tm) * (n // tn) * splits} blocks")
@@ -565,7 +615,7 @@ def check_kernels(dev) -> tuple[dict, int]:
                   f"({m},{k},{n}) rank {rank}, route vs wrapper")
             ref = G.approx_qgemm(a, b, spec)
             torch.testing.assert_close(got, ref, rtol=1e-6, atol=1.0)
-        splits, gran = qgemm.skinny_splits(k, n)
+        splits, gran = qgemm.skinny_splits(k, n, sm_count=sms())
         log(f"[kernels] skinny ({m},{k},{n}): {splits} K split(s) of "
             f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
         del a, b, bt
@@ -587,7 +637,7 @@ def check_kernels(dev) -> tuple[dict, int]:
                 exact("approx_qgemm_skinny", got,
                       G.approx_qgemm(a, b, spec),
                       f"({m},{k},{n}) {name}, K-major weight")
-        splits, gran = qgemm.skinny_splits(k, n)
+        splits, gran = qgemm.skinny_splits(k, n, sm_count=sms())
         log(f"[kernels] skinny (1-32,{k},{n}): {splits} K split(s) of "
             f"{gran}-byte units, {-(-n // qk.SKINNY_BM) * splits} blocks")
         del a, b, bt
@@ -624,11 +674,13 @@ def check_kernels(dev) -> tuple[dict, int]:
                           qgemm.approx_qgemm_plane0_plain(
                               a, bt, trunc_a=ta, trunc_b=tb),
                           f"({m},{k},{n}) {name}, K-major weight vs plain")
-        splits, gran = qgemm.skinny_splits(k, n)
+        splits, gran = qgemm.skinny_splits(k, n, sm_count=sms())
         log(f"[kernels] MoE ({k},{n}): skinny at m = 1, 4, 5, 32 "
             f"({splits} K split(s) of {gran}-byte units)"
-            + (f", plane 0 at M = 40, 128 ({qgemm.plane0_splits(40, k, n)[0]}"
-               f", {qgemm.plane0_splits(128, k, n)[0]} K splits)"
+            + (f", plane 0 at M = 40, 128 ("
+               f"{qgemm.plane0_splits(40, k, n, sm_count=sms())[0]}, "
+               f"{qgemm.plane0_splits(128, k, n, sm_count=sms())[0]} K "
+               f"splits)"
                if (k, n) in moe_layers else ""))
         del a, b, bt
         torch.cuda.empty_cache()
@@ -749,8 +801,8 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     out = []
 
     def row(name, route, source, replaces, unit, calls, kernel, plain,
-            library, nbytes, ops_, peak, path="serve"):
-        b, by = bound_ms(nbytes, ops_, peak)
+            library, shapes, path="serve"):
+        b, by = bound_ms(name, shapes)
         lib_ms = lib_dms = None
         if library is not None:
             try:  # a yardstick only: the port never calls it
@@ -792,10 +844,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             k_valid=a.shape[1]) for a, _, wt in dec],
         lambda: [torch._int_mm(acts[(32, w.shape[0])], kmajor[id(w)])
                  for _, w, _ in dec],
-        sum(a.numel() + w.numel() + a.shape[0] * w.shape[1] * 4
-            for a, w, _ in dec),
-        sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w, _ in dec),
-        PEAK_INT8)
+        [(a.shape[0], *w.shape) for a, w, _ in dec])
     # where skinny's time goes: device time per call of each decode shape,
     # inside the step (the weights stream from HBM, as in serving)
     per_call = kernel_times(decode_step, "skinny_kernel")
@@ -809,8 +858,9 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
             f"step ({sum(per_call) / 1e3:.4f} ms over its {len(per_call)} "
             f"calls): " + "; ".join(
                 f"({m},{k},{n}) x{len(t)}: {sum(t) / len(t):.2f} us (bound "
-                f"{(m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e6:.2f} us, "
-                f"{qgemm.skinny_splits(k, n)[0]} split(s))"
+                f"{bound_ms('approx_qgemm_skinny', [(m, k, n)])[0] * 1e3:.2f}"
+                f" us, "
+                f"{qgemm.skinny_splits(k, n, sm_count=sms())[0]} split(s))"
                 for (m, k, n), t in shapes.items()))
 
     # plane0: the GEMMs of one admitted request's prefill (m = bucket), on
@@ -825,10 +875,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
                                                  trunc_b=2)
                  for a, _, wt in pre],
         lambda: [torch._int_mm(a, kmajor[id(w)]) for a, w, _ in pre],
-        sum(a.numel() + w.numel() + a.shape[0] * w.shape[1] * 4
-            for a, w, _ in pre),
-        sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w, _ in pre),
-        PEAK_INT8)
+        [(a.shape[0], *w.shape) for a, w, _ in pre])
     # where plane 0's time goes: device time per call at each prefill shape
     shapes = {}
     for a, w, wt in pre:
@@ -840,7 +887,8 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
                                  for _ in range(count)])
         us = f"{dms / count * 1e3:.2f} us" if dms else "not measured"
         parts.append(f"({m},{k},{n}) x{count}: {us}, "
-                     f"{qgemm.plane0_splits(m, k, n)[0]} split(s)")
+                     f"{qgemm.plane0_splits(m, k, n, sm_count=sms())[0]} "
+                     f"split(s)")
     log("[time] approx_qgemm_plane0 device time per call: "
         + "; ".join(parts))
     # the earlier yardstick, on row-major weights, read once beside it
@@ -860,8 +908,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         "src/repro/kernels/quantize.py:44", "decode step (m=4)", len(xs),
         lambda: [qz.quantize_rows(x, trunc=2) for x in xs],
         lambda: [qz.quantize_rows_plain(x, 2) for x in xs],
-        None, sum(x.numel() * 5 + x.shape[0] * 4 for x in xs),
-        sum(x.numel() * 4 for x in xs), PEAK_F32)
+        None, [tuple(x.shape) for x in xs])
     # quantize_rows: the 16 GEMM inputs of one VGG16 forward (batch 8), as
     # pareto:0.01 quantizes them (no mask); beside it a same-bytes
     # yardstick, x.to(torch.int8) (reads 4 bytes and writes 1 per element,
@@ -872,8 +919,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         "VGG16 forward, batch 8 (16 GEMM inputs)", len(xs),
         lambda: [qz.quantize_rows(x) for x in xs],
         lambda: [qz.quantize_rows_plain(x) for x in xs],
-        None, sum(x.numel() * 5 + x.shape[0] * 4 for x in xs),
-        sum(x.numel() * 4 for x in xs), PEAK_F32, path="cnn")
+        None, [tuple(x.shape) for x in xs], path="cnn")
 
     def to_int8():
         return [x.to(torch.int8) for x in xs]
@@ -886,7 +932,6 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     bh, hd = cfg.n_heads, cfg.hd
     qkv = [tuple(torch.randn((bh, bucket, hd), generator=gen, device=dev)
                  for _ in range(3)) for _ in range(cfg.n_layers)]
-    pairs = bucket * (bucket + 1) // 2
 
     def sdpa():  # one named backend, the same kernel in every run
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
@@ -901,9 +946,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         len(qkv),
         lambda: [fk.flash_attention(q, k, v_) for q, k, v_ in qkv],
         lambda: [fk.flash_attention_plain(q, k, v_) for q, k, v_ in qkv],
-        sdpa,
-        len(qkv) * 4 * bh * bucket * hd * 4,
-        len(qkv) * bh * pairs * 4 * hd, PEAK_F32)
+        sdpa, [(bh, bucket, bucket, hd)] * len(qkv))
     del weights, head, kmajor, acts, dec, pre, xs, qkv
     torch.cuda.empty_cache()
 
@@ -938,10 +981,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         lambda: [qgemm.approx_qgemm_fused_plain(
             a, w.T, lspec.fu_q, lspec.fv_q, scales, k_valid=a.shape[1])
             for a, w in convs],
-        int_mm_planes,
-        sum(m * k + k * n + 4 * m * n for m, k, n in mkn),
-        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8,
-        path="cnn")
+        int_mm_planes, [(m, k, n, planes) for m, k, n in mkn], path="cnn")
     # the earlier yardstick, on row-major weights, read once beside it
     row_major = cuda_ms(lambda: [torch._int_mm(a, w) for a, w in padded8
                                  for _ in range(planes)])
@@ -954,8 +994,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     parts = []
     for (m, k, n), (a, w) in zip(mkn, convs):
         dms = device_ms(lambda: ops.approx_qgemm(a, w, lspec))
-        b, _ = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n * planes,
-                        PEAK_INT8)
+        b, _ = bound_ms("approx_qgemm_fused", [(m, k, n, planes)])
         us = f"{dms * 1e3:.1f} us" if dms else "not measured"
         parts.append(f"({m},{k},{n}): {us} (bound {b * 1e3:.1f} us, "
                      f"tile {qk.fused_tile(n)[2]})")
@@ -969,8 +1008,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
         wt = torch.randint(-128, 128, (n, k), generator=gen, device=dev,
                            dtype=torch.int8)
         dms = device_ms(lambda: ops.approx_qgemm(a, wt.T, lspec, b_t=wt))
-        b, by = bound_ms(m * k + k * n + 4 * m * n, 2 * m * k * n * planes,
-                         PEAK_INT8)
+        b, by = bound_ms("approx_qgemm_fused", [(m, k, n, planes)])
         us = f"{dms * 1e3:.1f} us" if dms else "not measured"
         parts.append(f"({m},{k},{n}): {us} (bound {b * 1e3:.1f} us by "
                      f"{by})")
@@ -991,9 +1029,7 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
                  for a_s, b_s, s_ in stacks],
         lambda: [qgemm.approx_qgemm_stacked_plain(a_s, b_s, s_)
                  for a_s, b_s, s_ in stacks],
-        int_mm_planes,
-        sum(planes * (m * k + k * n) + 4 * m * n for m, k, n in mkn),
-        sum(2 * m * k * n * planes for m, k, n in mkn), PEAK_INT8,
+        int_mm_planes, [(m, k, n, planes) for m, k, n in mkn],
         path="parity")
     del stacks, padded8, kmajor8
     torch.cuda.empty_cache()
@@ -1008,12 +1044,12 @@ def time_kernels(dev, cfg, errs: dict) -> list[dict]:
     def vgg_plane0():
         return [ops.approx_qgemm(a, wt.T, spec, b_t=wt) for a, wt in convs]
 
-    b, by = bound_ms(sum(m * k + k * n + 4 * m * n for m, k, n in mkn),
-                     sum(2 * m * k * n for m, k, n in mkn), PEAK_INT8)
+    b, by = bound_ms("approx_qgemm_plane0", mkn)
     log(f"[time] approx_qgemm_plane0 at large M, VGG16 forward's 13 conv "
         f"GEMMs (batch 8) under {MULT}: {cuda_ms(vgg_plane0, reps=3):.4f} "
         f"ms (device {device_ms(vgg_plane0)}, bound {b:.4f} by {by}); "
-        f"splits {sorted({qgemm.plane0_splits(*s)[0] for s in mkn})}")
+        f"splits "
+        f"{sorted({qgemm.plane0_splits(*s, sm_count=sms())[0] for s in mkn})}")
     del convs
     torch.cuda.empty_cache()
     return out
@@ -1037,6 +1073,239 @@ def vgg16_convs(batch: int = 8, image: int = 224) -> list[tuple]:
         shapes.append((batch * hw * hw, 9 * c_in, v))
         c_in = v
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# autotune: the measured tuning cache behind choose_gemm_path
+# ---------------------------------------------------------------------------
+
+#: VGG16's three FC GEMMs at batch 8, as (K, N).
+VGG16_FCS = [(25088, 4096), (4096, 4096), (4096, 1000)]
+
+
+def tuning_cells(cfg) -> list[tuple]:
+    """(what, m, k, n, mult) of one GEMM per bucket the autotune phase
+    tunes, the first of each bucket: TinyLlama-1.1B's layers (q/o, k/v,
+    gate/up, down) at decode (m = 4; the head shares gate/up's bucket), at
+    one request's prefill (M = 128) and at the 2-layer check's prefill (4
+    rows x 128 tokens); VGG16's conv GEMMs and FC GEMMs (m = 8) under the
+    CNN multiplier."""
+    from repro_torch.kernels import autotune
+    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.hd
+    layer = [(d, d), (d, kvd), (d, f), (f, d)]
+    cells = [(what, m, k, n, MULT) for what, m in
+             (("decode", 4), ("prefill", 128), ("check prefill", 4 * 128))
+             for k, n in layer]
+    cells.append(("head", 4, d, cfg.vocab, MULT))
+    cells += [("vgg16 conv", m, k, n, CNN_MULT)
+              for m, k, n in vgg16_convs()]
+    cells += [("vgg16 fc", 8, k, n, CNN_MULT) for k, n in VGG16_FCS]
+    seen, out = set(), []
+    for cell in cells:
+        key = (autotune.shape_bucket(*cell[1:4]), cell[4])
+        if key not in seen:
+            seen.add(key)
+            out.append(cell)
+    return out
+
+
+def _winner_kernel(plan) -> str:
+    if plan.path == "stacked":
+        return "approx_qgemm_stacked"
+    if plan.skinny:
+        return "approx_qgemm_skinny"
+    return "approx_qgemm_plane0" if plan.splits is not None \
+        else "approx_qgemm_fused"
+
+
+def _plan_sources(dev, tuned: set) -> dict:
+    """The sources of the memoized GEMM plans on `dev`; every plan of a
+    tuned (bucket, mode, rank) must read "tuned"."""
+    from repro_torch.kernels import autotune, dispatch
+    sources = {}
+    for (_, m, k, n, mode, rank, d), plan in dispatch._plans.items():
+        if d != dev:
+            continue
+        sources[plan.source] = sources.get(plan.source, 0) + 1
+        if (autotune.shape_bucket(m, k, n), mode, rank) in tuned:
+            assert plan.source == "tuned", ((m, k, n, mode, rank), plan)
+    return sources
+
+
+def _device_ms_by_kind(kernels, steps: int) -> dict:
+    """Device ms per step of a profiled decode's rows, by kernel kind."""
+    kinds = {"skinny": "skinny", "quantize": "quantize_rows",
+             "plane0": "plane0", "flash": "flash", "lowrank": "fused"}
+    out = {}
+    for e in kernels:
+        kind = next((v for k, v in kinds.items() if k in e.key), "other")
+        out[kind] = out.get(kind, 0.0) + e.self_device_time_total / 1e3 / steps
+    return {k: round(v, 4) for k, v in sorted(out.items())}
+
+
+def autotune_phase(dev, cfg_full, card: str) -> dict:
+    """Tune every bucket of `tuning_cells` on the card into a cache of the
+    phase's own ($REPRO_TUNING_CACHE, restored after to the absent file
+    every other phase reads), one line per bucket; then, under policy auto, hold the
+    2-layer TinyLlama check (trunc2x2, flash: prefill and 8 decode steps)
+    and one VGG16 forward (batch 8, pareto:0.01) under the tuned cache bit
+    for bit to their runs without it, every plan of a tuned bucket
+    reading source "tuned"; anchor calibrate_gemm on a tuned plan; and
+    report the full-width decode step's device time by kind, static
+    against tuned.  Returns the launches of the runs under the tuned
+    cache (not the tuner's own timing calls)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.approx import gemm as G
+    from repro_torch.core import calibrate as cal
+    from repro_torch.kernels import autotune, dispatch
+    from repro_torch.models import api, cnn
+    from repro_torch.roofline import analysis as rfa
+    from repro_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    var = "REPRO_TUNING_CACHE"
+    saved = os.environ.get(var)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tuning-", dir=str(ROOT / "build"))
+    tuned_path = os.path.join(tmp, "TUNING_gemm_torch.json")
+    untuned_path = os.path.join(tmp, "absent.json")
+    launches = {name: 0 for name in counters()}
+
+    def add(n):
+        for name, v in n.items():
+            launches[name] += v
+
+    try:
+        os.environ[var] = tuned_path
+        specs = {MULT: G.spec_from_name(MULT).to(dev),
+                 CNN_MULT: _cnn_spec(dev, "auto")}
+        log(f"[autotune] card {autotune.card_of(dev).key}, cache {tuned_path}"
+            f" (kernel library {autotune.kernel_version()})")
+        tuned = set()
+        for what, m, k, n, mult in tuning_cells(cfg_full):
+            spec = specs[mult]
+            rank = spec.rank if spec.mode == "lowrank" else 0
+            plan = autotune.tune_gemm(m, k, n, spec, device=dev)
+            tuned.add((autotune.shape_bucket(m, k, n), spec.mode, rank))
+            win = plan.us[plan.path]
+            bound, by = rfa.kernel_bound(_winner_kernel(plan),
+                                         [(m, k, n, rank + 1)])
+            cands = ", ".join(f"{lbl} {us:.2f}"
+                              for lbl, us in plan.candidates.items())
+            log(f"[autotune] {what} ({m},{k},{n}) {mult} "
+                f"{autotune.shape_bucket(m, k, n)}: static {plan.static} "
+                f"{plan.candidates[plan.static]:.2f} us; candidates "
+                f"{cands} us; winner {plan.label} {win:.2f} us "
+                f"({plan.candidates[plan.static] / win:.3f}x "
+                f"static); plain {plan.us['xla']:.2f} us; bound "
+                f"{bound * 1e6:.2f} us by {by}, winner at "
+                f"{bound * 1e6 / win:.1%} of it")
+        log(f"[autotune] tuned {len(tuned)} buckets in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        # the 2-layer check: prefill and 8 greedy decode steps, under
+        # policy auto, without and with the tuned cache
+        cfg = dataclasses.replace(cfg_full, n_layers=2, mult=MULT,
+                                  attn_impl="flash", kernel_policy="auto")
+        params = api.init_params(cfg, seed=1, device=dev)
+        rng = np.random.default_rng(1)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                               (4, 128))).to(dev)
+        true_len = torch.tensor([128, 77, 40, 101], dtype=torch.int32,
+                                device=dev)
+        spec = api.make_spec(cfg, device=dev)
+        p = api.prepare_params(params, cfg, spec)
+
+        def check_run():
+            logits, cache = api.prefill(p, tokens, cfg, spec, max_len=160,
+                                        true_len=true_len)
+            out = [logits]
+            for _ in range(8):
+                tok = out[-1].reshape(4, -1).argmax(-1)
+                logits, cache = api.decode_step(p, cache, tok[:, None], cfg,
+                                                spec)
+                out.append(logits)
+            return out
+
+        def vgg_run():
+            return cnn.vgg_forward(vgg, x, "vgg16", spec=specs[CNN_MULT])
+
+        x = torch.randn((8, 224, 224, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2))
+        vgg = vgg16_params(dev, 0, x)[0]
+        runs = {}
+        for label, path in (("untuned", untuned_path), ("tuned", tuned_path)):
+            os.environ[var] = path
+            with torch.no_grad():
+                out, n_check = counted(check_run)
+                fwd, n_vgg = counted(vgg_run)
+            sources = _plan_sources(dev, tuned if label == "tuned" else set())
+            if label == "untuned":
+                assert set(sources) == {"default"}, sources
+                assert all(pl.path == "fused" and pl.splits is None
+                           for pl in dispatch._plans.values()), "not static"
+            else:
+                add(n_check)
+                add(n_vgg)
+            runs[label] = (out, fwd)
+            log(f"[autotune] {label}: plan sources {sources}; check "
+                f"launches { {k: v for k, v in n_check.items() if v} }; "
+                f"VGG16 launches { {k: v for k, v in n_vgg.items() if v} }")
+        for a, b in zip(runs["untuned"][0], runs["tuned"][0]):
+            assert torch.isfinite(a).all() and torch.equal(a, b), \
+                (a - b).abs().max().item()
+        assert torch.equal(runs["untuned"][1], runs["tuned"][1]), \
+            (runs["untuned"][1] - runs["tuned"][1]).abs().max().item()
+        log("[autotune] under the tuned cache the 2-layer check (prefill + "
+            "8 decode steps, 9 logits tensors) and the VGG16 forward equal "
+            "their untuned runs bit for bit")
+        del params, p, vgg, x, runs
+        torch.cuda.empty_cache()
+
+        # the delay anchor on a tuned plan: the q/o projection's prefill
+        m, k, n = next(cell[1:4] for cell in tuning_cells(cfg_full)
+                       if cell[0] == "prefill")
+        c, n_cal = counted(lambda: cal.calibrate_gemm(
+            m=m, k=k, n=n, mult_name=MULT, policy="auto", device=dev))
+        add(n_cal)
+        assert c.meta["dispatch"]["source"] == "tuned", c.meta["dispatch"]
+        log(f"[autotune] calibrate_gemm ({m},{k},{n}) {MULT}: plan "
+            f"{c.meta['dispatch']}, {c.meta['us_per_call']:.1f} us/call")
+
+        # the full-width decode step, static against tuned
+        cfg = dataclasses.replace(cfg_full, kernel_policy="auto")
+        params = api.init_params(cfg, seed=0, device=dev)
+        eng = Engine(cfg, params, capacity=4, max_len=256,
+                     prefill_buckets=(128,), device=dev)
+        kinds = {}
+        for label, path in (("static", untuned_path), ("tuned", tuned_path)):
+            os.environ[var] = path
+            res, n = counted(lambda: profile_decode(
+                eng, np.random.default_rng(5), cfg, tag=f"autotune {label}"))
+            if label == "tuned":
+                add(n)
+            kinds[label] = None if res is None else \
+                _device_ms_by_kind(res[0], 4)
+        log(f"[autotune] full-width decode step (capacity 4), device ms per "
+            f"step by kind: static {kinds['static']}, tuned "
+            f"{kinds['tuned']} ({card})")
+        del eng, params
+        torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[autotune] launches under the tuned cache {launches}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1337,6 +1606,7 @@ def paged_phase(dev, cfg, card: str) -> dict:
     import numpy as np
     import torch
     from repro_torch.models import api
+    from repro_torch.roofline import analysis as rfa
     from repro_torch.serving import PagedEngine
 
     t_phase = time.perf_counter()
@@ -1498,7 +1768,7 @@ def paged_phase(dev, cfg, card: str) -> dict:
             f"{sum(e[0] for e in extra) / 1e3 / steps:.4f} ms device time "
             f"in {sum(e[1] for e in extra) / steps:.1f} extra launches per "
             f"decode step (the view's byte bound "
-            f"{view_bytes / PEAK_BYTES * 1e3:.4f} ms for "
+            f"{view_bytes / rfa.H100_SXM.hbm_bytes_per_s * 1e3:.4f} ms for "
             f"{view_bytes / 1e6:.1f} MB); device busy per step P "
             f"{busy['P']:.3f} ms, S4 "
             f"{busy['S4']:.3f} ms; wall per step P "
@@ -1519,7 +1789,8 @@ def profile_decode(eng, rng, cfg, steps: int = 4,
     import torch
     from repro_torch.serving import Request, SamplingParams
     for i in range(eng.capacity):
-        eng.submit(Request(f"p{i}", rng.integers(0, cfg.vocab, 64).tolist(),
+        eng.submit(Request(f"{tag} p{i}",
+                           rng.integers(0, cfg.vocab, 64).tolist(),
                            SamplingParams(max_new_tokens=steps + 2),
                            arrival=eng.tick))
     eng.step()                      # admissions + first decode
@@ -3220,9 +3491,9 @@ def quantize_per_shape(fwd) -> None:
         return
     parts = []
     for (m, k), t in zip(rows, us):
-        p = qz.launch_plan(m, k)
+        p = qz.launch_plan(m, k, sm_count=sms())
         parts.append(f"({m},{k}) {t:.1f} us (bound "
-                     f"{(5 * m * k + 4 * m) / PEAK_BYTES * 1e6:.1f}; "
+                     f"{bound_ms('quantize_rows', [(m, k)])[0] * 1e3:.1f}; "
                      f"{'16-byte' if p.vec else 'scalar'}, lanes {p.lanes} "
                      f"x {p.vecs})")
     log(f"[cnn] quantize_rows device time per call in the forward "
@@ -3261,7 +3532,8 @@ def fc_skinny(params, spec, dev) -> None:
         parts.append(f"(8,{k},{n}): kernel {sum(kern):.1f} us, other "
                      f"{sum(every) - sum(kern):.1f} us (the transpose alone "
                      f"{copy * 1e3 if copy else float('nan'):.1f} us; bound "
-                     f"{(8 * k + k * n + 32 * n) / PEAK_BYTES * 1e6:.1f} us)")
+                     f"{bound_ms('approx_qgemm_skinny', [(8, k, n, 6)])[0] * 1e3:.1f}"
+                     " us)")
     log(f"[cnn] FC GEMMs on the skinny kernel under {CNN_MULT}, device time "
         f"per call: " + "; ".join(parts) + f"; all three: kernel "
         f"{total[0] / 1e3:.4f} ms, transposes and scales {total[1] / 1e3:.4f} "
@@ -3543,6 +3815,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    untuned = pin_no_tuning_cache()
     name, card = probe()
     build_phase()
     cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
@@ -3551,6 +3824,8 @@ def main() -> int:
     errs, stacked_launches = check_kernels(dev)
     table = time_kernels(dev, cfg, errs)
     log(f"[kernels] {time.perf_counter() - t_start:.1f}s")
+    autotune_launches = autotune_phase(dev, cfg, card)
+    log(f"[autotune] {time.perf_counter() - t_start:.1f}s")
     # each kernel's launches come from the main path that runs it
     launches = serve_phase(dev, cfg)
     paged_launches = paged_phase(dev, cfg, card)
@@ -3591,6 +3866,8 @@ def main() -> int:
         row["moe_launches"] = {
             arch: n[row["name"]] for arch, n in moe_launches.items()}
         row["train_launches"] = train_launches[row["name"]]
+        row["autotune_launches"] = autotune_launches[row["name"]]
+    assert_untuned(untuned)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": table}))
     print(card)

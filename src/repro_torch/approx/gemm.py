@@ -279,7 +279,8 @@ def _gemm_plan(spec: MultSpec, m: int, k: int, n: int, device):
     from repro_torch.kernels import dispatch
     rank = spec.rank if spec.mode == "lowrank" else 0
     return dispatch.choose_gemm_path(spec.policy, m=m, k=k, n=n,
-                                     device=device, rank=rank)
+                                     device=device, mode=spec.mode,
+                                     rank=rank)
 
 
 #: Profiler label of the per-call weight prep in training's forward: the

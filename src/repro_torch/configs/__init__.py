@@ -7,7 +7,8 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduced  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    SHAPES, ModelConfig, ShapeSpec, reduced)
 
 ARCH_IDS = [
     "tinyllama-1.1b",

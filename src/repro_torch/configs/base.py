@@ -1,4 +1,4 @@
-"""Config schema: model architecture and run options."""
+"""Config schema: model architecture, input shapes and run options."""
 
 from __future__ import annotations
 
@@ -112,6 +112,23 @@ class ModelConfig:
                              + (3 * d * f if self.shared_expert else 0))
         mlp_total += n_dense * 3 * d * fd
         return self.n_layers * (att + 2 * d) + mlp_total + 2 * self.vocab * d
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (input-shape) cell of the evaluation matrix."""
+    name: str                   # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                   # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

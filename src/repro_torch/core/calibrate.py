@@ -144,7 +144,7 @@ def calibrate_serving(arch: str = "tinyllama-1.1b", *, requests: int = 3,
             f"serving over {n_devices} devices (mesh "
             f"{mesh_spec or dict(axes)!r}) needs tensor-parallel serving on "
             "torch.distributed, which the port does not have yet (ROADMAP "
-            "Queue 1, item 9)")
+            "Queue 1, item 2: sharding)")
     dev = resolve_device(device)
     eng = Engine(cfg, capacity=capacity, max_len=max_len, seed=seed,
                  device=dev)
@@ -210,8 +210,9 @@ def calibrate_gemm(m: int = 128, k: int = 160, n: int = 128, *,
     plane-0 or fused kernel above, the plain PyTorch path for a CPU
     tensor under the default policy — on a weight kept K-major once, as a
     prepared serving weight is.  The chosen plan is recorded in
-    `meta["dispatch"]`, the device in `meta["backend"]`; the time is the
-    median of `reps` calls, each between two synchronizations."""
+    `meta["dispatch"]` with its source ("tuned", "policy" or
+    "default"), the device in `meta["backend"]`; the time is the median
+    of `reps` calls, each between two synchronizations."""
     import numpy as np
 
     from repro_torch.approx import gemm as G
@@ -227,7 +228,7 @@ def calibrate_gemm(m: int = 128, k: int = 160, n: int = 128, *,
     spec = G.from_multiplier(mm.get_multiplier(mult_name)).to(dev)
     rank = spec.rank if spec.mode == "lowrank" else 0
     plan = dispatch.choose_gemm_path(policy or spec.policy, m=m, k=k, n=n,
-                                     device=dev, rank=rank)
+                                     device=dev, mode=spec.mode, rank=rank)
     if plan.use_pallas:
         b_t = b.T.contiguous()
 
@@ -261,7 +262,7 @@ def calibrate_gemm(m: int = 128, k: int = 160, n: int = 128, *,
         anchor=f"nvdla_default(2048, {node_nm}nm)",
         meta={"shape": {"m": m, "k": k, "n": n}, "mult": mult_name,
               "reps": reps, "us_per_call": sec * 1e6,
-              "dispatch": dataclasses.asdict(plan),
+              "dispatch": plan.as_dict(),
               "backend": _backend(dev)})
 
 

@@ -7,6 +7,8 @@ own, so a run that asked for the card and did not get it fails loudly.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -25,3 +27,30 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _props(index: int | None) -> tuple[str, int]:
+    """(name, SM count) of the CUDA device `index` (None: the current)."""
+    p = torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index)
+    return p.name, p.multi_processor_count
+
+
+def _index(device) -> int | None:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"{dev} is not a CUDA device")
+    return dev.index
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device, read from the card
+    once per device index: the kernels' launch plans split work until
+    their grids cover them."""
+    return _props(_index(device))[1]
+
+
+def device_name(device) -> str:
+    """`torch.cuda.get_device_name` of a CUDA device, read once per index."""
+    return _props(_index(device))[0]

@@ -85,7 +85,8 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
                  spec: gemm_mod.MultSpec, *, bm: int | None = None,
                  bk: int | None = None, bn: int | None = None,
                  fused: bool = True, skinny: bool = False,
-                 b_t: torch.Tensor | None = None) -> torch.Tensor:
+                 b_t: torch.Tensor | None = None,
+                 splits: int | None = None) -> torch.Tensor:
     """int8 (m, k) x int8 (k, n) -> f32 (m, n) through the kernels.
 
     `fused=True` (default) hands the raw operands to the kernels, which
@@ -96,7 +97,9 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
     weight K-major: `b_t` (n, k), equal to `b_q.T`, when the caller keeps
     one (a prepared weight), else `b_q` is transposed here.
     `fused=False` runs the stacked twin on `build_stacks`' pre-mapped
-    planes."""
+    planes.  A plan's knobs pass through: `splits` (K splits of the
+    plane-0 and skinny kernels) and `bn` (the low-rank kernels' tile
+    width, to which N pads); None keeps each kernel's own choice."""
     m, k = a_q.shape
     k2, n = b_q.shape
     assert k == k2, (a_q.shape, b_q.shape)
@@ -112,14 +115,14 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
         out = qgemm.approx_qgemm_skinny(
             ap, btp, fu, fv,
             plane_scales(spec, rank, a_q.device) if rank else None,
-            trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
+            trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k, splits=splits)
         return out[:, :n]
     if not fused:
         bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel="stacked")
         a_s, b_s, s = build_stacks(a_q, b_q, spec)
         a_s = _aligned(_pad_to(_pad_to(a_s, 1, bm), 2, bk))
         b_s = _aligned(_pad_to(_pad_to(b_s, 1, bk), 2, bn))
-        return qgemm.approx_qgemm_stacked(a_s, b_s, s)[:m, :n]
+        return qgemm.approx_qgemm_stacked(a_s, b_s, s, bn=bn)[:m, :n]
     kernel = "fused" if rank else "plane0"
     bm, bk, bn = qk.choose_blocks(m, k, n, bm, bk, bn, kernel=kernel)
     ap = _aligned(_pad_to(_pad_to(a_q, 0, bm), 1, bk))
@@ -128,10 +131,10 @@ def approx_qgemm(a_q: torch.Tensor, b_q: torch.Tensor,
         fu, fv = _tables(spec, rank, a_q.device)
         out = qgemm.approx_qgemm_fused(
             ap, btp, fu, fv, plane_scales(spec, rank, a_q.device),
-            trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k)
+            trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k, bn=bn)
     else:
         out = qgemm.approx_qgemm_plane0(ap, btp, trunc_a=trunc_a,
-                                        trunc_b=trunc_b)
+                                        trunc_b=trunc_b, splits=splits)
     return out[:m, :n]
 
 
@@ -153,12 +156,13 @@ def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
     kernels."""
     assert plan.path in ("fused", "stacked"), plan
     if plan.path == "stacked":
-        return approx_qgemm(a_q, b_q, spec, fused=False)
+        return approx_qgemm(a_q, b_q, spec, bm=plan.bm, bk=plan.bk,
+                            bn=plan.bn, fused=False)
     if plan.skinny:
         return approx_qgemm(a_q, b_q, spec, bk=plan.bk, bn=plan.bn,
-                            skinny=True, b_t=b_t)
+                            skinny=True, b_t=b_t, splits=plan.splits)
     return approx_qgemm(a_q, b_q, spec, bm=plan.bm, bk=plan.bk, bn=plan.bn,
-                        b_t=b_t)
+                        b_t=b_t, splits=plan.splits)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

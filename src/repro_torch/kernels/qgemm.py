@@ -4,19 +4,24 @@ csrc/qgemm.cu and their plain PyTorch versions.
 `approx_qgemm_plane0` — exact / truncation multipliers, any M: one masked
 int8 product accumulated in int32, f32 out.  It takes the weight K-major,
 as (N, K): both MMA operands are then K-major and tiles copy to shared
-memory without a transpose.  `plane0_splits` chooses its split of K.
+memory without a transpose.  `plane0_splits` chooses its split of K from
+the card's SM count, or a plan asks for one (`plane0_split_plan`).
 
 `approx_qgemm_fused` — low-rank multipliers, any M: plane 0 plus R
 table-mapped correction planes (tables (R, 256) int8 indexed by
 `q & 0xFF`, mapped A zeroed past `k_valid`), each plane an int32 sum,
 flushed in plane order as `acc = acc + s_r * acc_r` in f32.  It takes
-the weight K-major too, and picks its tile's width from N
+the weight K-major too, and its tile's width from a plan, else from N
 (`qk.fused_tile`).
 
 `approx_qgemm_skinny` — the same planes for decode-shaped GEMMs
 (m <= SKINNY_MAX_M), on the weight K-major too.  `skinny_splits` is its
-split of K; its int32 workspace and per-tile counters belong to the
-device (`_skinny_scratch`), so a call allocates only its output.
+split of K (or a plan's, `skinny_gran`); its int32 workspace and per-tile
+counters belong to the device (`_skinny_scratch`), so a call allocates
+only its output.
+
+Every split and tile width sums the same exact int32 planes and flushes
+them in the same order, so a plan's knobs move time, never bits.
 
 `approx_qgemm_stacked` — the fused kernel's parity twin: a plain int8
 GEMM per plane over operand stacks that `ops.build_stacks` pre-maps, with
@@ -34,12 +39,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.approx.gemm import _table_map, _trunc_mask, qgemm_int32
+from repro_torch.device import sm_count as device_sm_count
 from repro_torch.kernels import approx_qgemm as qk
 from repro_torch.kernels import build
-
-#: The card's SM count: the skinny and plane-0 kernels split K until their
-#: grids cover every SM.
-_SM_COUNT = 132
 
 
 def lowrank_b_planes_plain(b_t: torch.Tensor, fv_q: torch.Tensor, *,
@@ -98,28 +100,45 @@ def approx_qgemm_plane0_plain(a_q: torch.Tensor, b_t: torch.Tensor, *,
                        _trunc_mask(b_t, trunc_b).T).to(torch.float32)
 
 
-def plane0_splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, k_chunk) of the plane-0 kernel's K for an (m, k, n) GEMM:
-    split z sums K rows [z * k_chunk, (z + 1) * k_chunk), k_chunk a
-    multiple of the K tile.  A grid of at most half the SMs splits K until
-    it covers every SM; a larger grid would only gain a second wave."""
-    tm, tk, tn = qk.PLANE0_TILE
-    blocks = -(-m // tm) * -(-n // tn)
+def plane0_split_plan(k: int, splits: int) -> tuple[int, int]:
+    """(splits, k_chunk) of the plane-0 kernel's K when at least `splits`
+    splits are asked for: k_chunk is whole K tiles, the largest that makes
+    that many, so split z sums K rows [z * k_chunk, (z + 1) * k_chunk).
+    The count it returns asks for itself again.  Raises when K has fewer
+    tiles than `splits`."""
+    tk = qk.PLANE0_TILE[1]
     k_tiles = -(-k // tk)
-    if 2 * blocks > _SM_COUNT:
-        return 1, k_tiles * tk
-    want = -(-_SM_COUNT // blocks)
-    chunk = -(-k_tiles // want)
-    while chunk > 1 and -(-k_tiles // chunk) < want:
+    if not 1 <= splits <= k_tiles:
+        raise ValueError(f"plane 0: {splits} K splits of {k_tiles} K tiles")
+    chunk = -(-k_tiles // splits)
+    while chunk > 1 and -(-k_tiles // chunk) < splits:
         chunk -= 1
     return -(-k_tiles // chunk), chunk * tk
 
 
+def plane0_splits(m: int, k: int, n: int, *,
+                  sm_count: int) -> tuple[int, int]:
+    """(splits, k_chunk) of the plane-0 kernel's K for an (m, k, n) GEMM on
+    a card of `sm_count` SMs (`plane0_split_plan`).  A grid of at most
+    half the SMs splits K until it covers every SM; a larger grid would
+    only gain a second wave."""
+    tm, tk, tn = qk.PLANE0_TILE
+    blocks = -(-m // tm) * -(-n // tn)
+    k_tiles = -(-k // tk)
+    if 2 * blocks > sm_count:
+        return 1, k_tiles * tk
+    return plane0_split_plan(k, min(-(-sm_count // blocks), k_tiles))
+
+
 def approx_qgemm_plane0(a_q: torch.Tensor, b_t: torch.Tensor, *,
-                        trunc_a: int = 0, trunc_b: int = 0) -> torch.Tensor:
+                        trunc_a: int = 0, trunc_b: int = 0,
+                        splits: int | None = None) -> torch.Tensor:
     """a_q (M, K) x b_t (N, K) int8, the weight K-major -> f32 (M, N),
     truncation masks in the kernel.  On CUDA: (M, K, N) multiples of
-    `qk.PLANE0_TILE`."""
+    `qk.PLANE0_TILE`.  `splits` asks for a split of K
+    (`plane0_split_plan`); None takes `plane0_splits`' for the card."""
+    planned = None if splits is None else \
+        plane0_split_plan(a_q.shape[1], splits)
     if a_q.device.type == "cpu":
         return approx_qgemm_plane0_plain(a_q, b_t, trunc_a=trunc_a,
                                          trunc_b=trunc_b)
@@ -134,7 +153,8 @@ def approx_qgemm_plane0(a_q: torch.Tensor, b_t: torch.Tensor, *,
         raise ValueError(f"approx_qgemm_plane0: ({m}, {k}, {n}) is not "
                          f"padded to {qk.PLANE0_TILE} multiples")
     _check_cuda("approx_qgemm_plane0", a_q, b_t)
-    splits, k_chunk = plane0_splits(m, k, n)
+    splits, k_chunk = planned or plane0_splits(
+        m, k, n, sm_count=device_sm_count(a_q.device))
     out = torch.empty((m, n), dtype=torch.float32, device=a_q.device)
     ws = torch.empty((splits, m, n), dtype=torch.int32,
                      device=a_q.device) if splits > 1 else None
@@ -152,19 +172,29 @@ def approx_qgemm_plane0(a_q: torch.Tensor, b_t: torch.Tensor, *,
 approx_qgemm_plane0.launches = 0
 
 
-def skinny_splits(k: int, n: int) -> tuple[int, int]:
-    """(splits, gran) of the skinny kernel's K for a (K, N) weight: split z
-    sums the K units [z U / S, (z + 1) U / S) of `gran` bytes (U the units
-    of K), so none is empty while S <= U.  S is the least that brings the
-    grid of ceil(N / 64) tiles to every SM and keeps each split within
-    SKINNY_MAX_BOXES 128-byte boxes of K; units are whole boxes where K
-    has enough of them, else 32 bytes (one MMA step)."""
+def skinny_splits(k: int, n: int, *, sm_count: int) -> tuple[int, int]:
+    """(splits, gran) of the skinny kernel's K for a (K, N) weight on a
+    card of `sm_count` SMs: split z sums the K units [z U / S, (z + 1) U /
+    S) of `gran` bytes (U the units of K), so none is empty while S <= U.
+    S is the least that brings the grid of ceil(N / 64) tiles to every SM
+    and keeps each split within SKINNY_MAX_BOXES 128-byte boxes of K;
+    units are whole boxes where K has enough of them, else 32 bytes (one
+    MMA step)."""
     tiles = -(-n // qk.SKINNY_BM)
     boxes = -(-k // qk.SKINNY_BOX)
-    want = max(-(-_SM_COUNT // tiles), -(-boxes // qk.SKINNY_MAX_BOXES))
+    want = max(-(-sm_count // tiles), -(-boxes // qk.SKINNY_MAX_BOXES))
     if want <= boxes:
         return want, qk.SKINNY_BOX
     return min(want, -(-k // 32)), 32
+
+
+def skinny_gran(k: int, splits: int) -> int:
+    """The unit of K (bytes) of a skinny call that asks for `splits`
+    splits, as `skinny_splits` picks it: whole 128-byte boxes where K has
+    that many, else 32 bytes.  Raises when K has fewer 32-byte units."""
+    if not 1 <= splits <= -(-k // 32):
+        raise ValueError(f"skinny: {splits} K splits of K = {k}")
+    return qk.SKINNY_BOX if splits <= -(-k // qk.SKINNY_BOX) else 32
 
 
 #: Per device: the skinny kernel's int32 split workspace and its per-tile
@@ -198,11 +228,14 @@ def approx_qgemm_skinny(a_q: torch.Tensor, b_t: torch.Tensor,
                         fu_q: torch.Tensor, fv_q: torch.Tensor,
                         scales: torch.Tensor | None = None, *,
                         trunc_a: int = 0, trunc_b: int = 0,
-                        k_valid: int) -> torch.Tensor:
+                        k_valid: int, splits: int | None = None
+                        ) -> torch.Tensor:
     """a_q (m <= 32, K) x b_t (N, K) int8, the weight K-major, fu_q/fv_q
     (R, 256) int8 tables (R may be 0), scales (R+1,) f32 (None at rank 0)
     -> (m, N) f32.  On CUDA: K a multiple of `qk.SKINNY_TILE`'s; m and N
-    are consumed unpadded."""
+    are consumed unpadded.  `splits` asks for a split of K (its unit by
+    `skinny_gran`); None takes `skinny_splits`' for the card."""
+    gran = None if splits is None else skinny_gran(a_q.shape[-1], splits)
     if a_q.device.type == "cpu":
         return approx_qgemm_skinny_plain(a_q, b_t, fu_q, fv_q, scales,
                                          trunc_a=trunc_a, trunc_b=trunc_b,
@@ -239,7 +272,9 @@ def approx_qgemm_skinny(a_q: torch.Tensor, b_t: torch.Tensor,
         fu_q, fv_q = fu_q.contiguous(), fv_q.contiguous()
         tensors += [fu_q, fv_q]
     _check_cuda(name, *tensors)
-    splits, gran = skinny_splits(k, n)
+    if splits is None:
+        splits, gran = skinny_splits(k, n,
+                                     sm_count=device_sm_count(a_q.device))
     tiles = -(-n // qk.SKINNY_BM)
     rows = 8 if m <= 8 else qk.SKINNY_MAX_M     # activation rows in the MMA
     counters, ws = _skinny_scratch(
@@ -292,20 +327,33 @@ def approx_qgemm_fused_plain(a_q: torch.Tensor, b_t: torch.Tensor,
                         trunc_a=trunc_a, trunc_b=trunc_b, k_valid=k_valid)
 
 
+def _tile_width(name: str, n: int, bn: int | None) -> int:
+    """The low-rank kernels' tile width for N columns: `bn` (64 or 128)
+    where a plan asks for one, else `qk.fused_tile(n)`'s."""
+    if bn is None:
+        return qk.fused_tile(n)[2]
+    if bn not in (qk.FUSED_TILE_NARROW[2], qk.FUSED_TILE[2]) or n % bn:
+        raise ValueError(f"{name}: tile width {bn} for N = {n} (64 or "
+                         "128, dividing N)")
+    return bn
+
+
 def approx_qgemm_fused(a_q: torch.Tensor, b_t: torch.Tensor,
                        fu_q: torch.Tensor, fv_q: torch.Tensor,
                        scales: torch.Tensor, *, trunc_a: int = 0,
-                       trunc_b: int = 0, k_valid: int) -> torch.Tensor:
+                       trunc_b: int = 0, k_valid: int,
+                       bn: int | None = None) -> torch.Tensor:
     """a_q (M, K) x b_t (N, K) raw int8, the weight K-major, fu_q/fv_q
     (R, 256) int8 tables (R <= 8), scales (R+1,) f32 -> (M, N) f32.
     `k_valid` is the true K before padding.  On CUDA: M and K multiples
-    of `qk.FUSED_TILE`'s, N of the width of `qk.fused_tile(N)`, whose
-    variant the kernel runs."""
+    of `qk.FUSED_TILE`'s, N of the tile width the kernel runs: `bn` (64
+    or 128), None for `qk.fused_tile(N)`'s."""
+    name = "approx_qgemm_fused"
+    bn = _tile_width(name, b_t.shape[0], bn)
     if a_q.device.type == "cpu":
         return approx_qgemm_fused_plain(a_q, b_t, fu_q, fv_q, scales,
                                         trunc_a=trunc_a, trunc_b=trunc_b,
                                         k_valid=k_valid)
-    name = "approx_qgemm_fused"
     if a_q.ndim != 2 or b_t.ndim != 2 or a_q.dtype != torch.int8 or \
             b_t.dtype != torch.int8 or a_q.shape[1] != b_t.shape[1]:
         raise ValueError(f"{name}: bad operands {a_q.dtype} "
@@ -313,7 +361,7 @@ def approx_qgemm_fused(a_q: torch.Tensor, b_t: torch.Tensor,
                          f"{tuple(b_t.shape)} (K-major)")
     m, k = a_q.shape
     n = b_t.shape[0]
-    tm, tk, bn = qk.fused_tile(n)
+    tm, tk = qk.FUSED_TILE[:2]
     if m % tm or k % tk or n % bn or not (m and k and n):
         raise ValueError(f"{name}: ({m}, {k}, {n}) is not padded to "
                          f"{(tm, tk, bn)} multiples")
@@ -364,16 +412,18 @@ def approx_qgemm_stacked_plain(a_stack: torch.Tensor, b_stack: torch.Tensor,
 
 
 def approx_qgemm_stacked(a_stack: torch.Tensor, b_stack: torch.Tensor,
-                         scales: torch.Tensor) -> torch.Tensor:
+                         scales: torch.Tensor, *,
+                         bn: int | None = None) -> torch.Tensor:
     """a_stack (P, M, K) x b_stack (P, K, N) int8 pre-mapped planes
     (P <= MAX_RANK + 1), scales (P,) f32 -> (M, N) f32.  On CUDA: padded
-    as the fused kernel's operands; the kernel takes the weight stack
-    K-major, so it is transposed here."""
+    as the fused kernel's operands, N to the tile width `bn` (None for
+    `qk.fused_tile(N)`'s); the kernel takes the weight stack K-major, so
+    it is transposed here."""
+    name = "approx_qgemm_stacked"
+    bn = _tile_width(name, b_stack.shape[-1], bn)
     if a_stack.device.type == "cpu":
         return approx_qgemm_stacked_plain(a_stack, b_stack, scales)
-    name = "approx_qgemm_stacked"
     m, k, n = _check_tiled(name, a_stack, b_stack, qk.FUSED_TILE_NARROW, 3)
-    bn = qk.fused_tile(n)[2]
     planes = a_stack.shape[0]
     scales = scales.reshape(-1).to(torch.float32).contiguous()
     if not 0 < planes <= qk.MAX_RANK + 1 or scales.shape[0] != planes:

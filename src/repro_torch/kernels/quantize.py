@@ -10,10 +10,11 @@ through the absmax and the floor, and a NaN quotient casts to code 0: a
 row holding a NaN gets scale NaN and codes 0, a row holding +-inf scale
 inf and codes 0.
 
-`launch_plan(m, k, ld, base)` is the kernel's launch plan: how many lanes
-(threads) share a row, how many units (a 16-byte float4, or 4 scalars)
-each lane holds in registers, and which variant runs (16-byte loads, or
-scalar loads where K, the row stride or the base is not 16-byte aligned).
+`launch_plan(m, k, ld, base, sm_count=)` is the kernel's launch plan on a
+card of `sm_count` SMs: how many lanes (threads) share a row, how many
+units (a 16-byte float4, or 4 scalars) each lane holds in registers, and
+which variant runs (16-byte loads, or scalar loads where K, the row
+stride or the base is not 16-byte aligned).
 """
 
 from __future__ import annotations
@@ -24,9 +25,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.approx.quant import INT8_MAX, INV_INT8_MAX
+from repro_torch.device import sm_count as device_sm_count
 from repro_torch.kernels import approx_qgemm as qk
 from repro_torch.kernels import build
-from repro_torch.kernels.qgemm import _SM_COUNT
 
 #: The register template's largest unit count a lane holds, by variant:
 #: 8 float4s (32 floats) with 16-byte loads, 5 units (20 scalars) with
@@ -51,7 +52,7 @@ class QuantPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan(m: int, k: int, vec: bool) -> QuantPlan:
+def _plan(m: int, k: int, vec: bool, sm_count: int) -> QuantPlan:
     units, max_vecs = -(-k // 4), MAX_VECS[vec]
     if units > MAX_LANES * max_vecs:
         # beyond the register template (K > 32768, or 20480 with scalar
@@ -64,20 +65,22 @@ def _plan(m: int, k: int, vec: bool) -> QuantPlan:
     # the card in one wave, so that each lane's chain of loads and divides
     # stays short
     while (lanes < SPREAD_LANES and -(-units // lanes) > 1
-           and 2 * lanes * m <= _SM_COUNT * _THREADS_PER_SM):
+           and 2 * lanes * m <= sm_count * _THREADS_PER_SM):
         lanes *= 2
     threads = max(BLOCK_THREADS, lanes)
     return QuantPlan(vec, lanes, -(-units // lanes), threads,
                      -(-m // (threads // lanes)))
 
 
-def launch_plan(m: int, k: int, ld: int | None = None,
-                base: int = 0) -> QuantPlan:
+def launch_plan(m: int, k: int, ld: int | None = None, base: int = 0, *,
+                sm_count: int) -> QuantPlan:
     """The kernel's plan for m rows of k f32 with row stride `ld`
-    (elements, default k) starting at byte address `base`.  The 16-byte
-    variant needs k, ld and base 16-byte aligned."""
+    (elements, default k) starting at byte address `base`, on a card of
+    `sm_count` SMs.  The 16-byte variant needs k, ld and base 16-byte
+    aligned."""
     ld = k if ld is None else ld
-    return _plan(m, k, k % 4 == 0 and ld % 4 == 0 and base % 16 == 0)
+    return _plan(m, k, k % 4 == 0 and ld % 4 == 0 and base % 16 == 0,
+                 sm_count)
 
 
 def quantize_rows_plain(x: torch.Tensor, trunc: int = 0
@@ -108,7 +111,8 @@ def quantize_rows(x: torch.Tensor, *, trunc: int = 0
     if k > 1 and x.stride(1) != 1:
         x = x.contiguous()                 # the kernel reads unit-stride rows
     ld = x.stride(0) if m > 1 else k
-    plan = launch_plan(m, k, ld, x.data_ptr())
+    plan = launch_plan(m, k, ld, x.data_ptr(),
+                       sm_count=device_sm_count(x.device))
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     lib = build.load()

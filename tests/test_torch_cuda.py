@@ -78,8 +78,10 @@ def test_cuda_quantize_rows_every_plan_class(cuda_dev, m, k, trunc):
 def test_cuda_quantize_rows_reads_row_slices_in_place(cuda_dev, trunc):
     big = torch.randn((9, 2056), device=cuda_dev)
     off, on = big[1:, 1:2049], big[1:, 8:2056]
-    assert not qz.launch_plan(8, 2048, off.stride(0), off.data_ptr()).vec
-    assert qz.launch_plan(8, 2048, on.stride(0), on.data_ptr()).vec
+    assert not qz.launch_plan(8, 2048, off.stride(0), off.data_ptr(),
+                              sm_count=132).vec
+    assert qz.launch_plan(8, 2048, on.stride(0), on.data_ptr(),
+                          sm_count=132).vec
     for x in (off, on):
         _quantize_held(x, trunc)
 
@@ -817,3 +819,68 @@ def test_cuda_train_step_kernels_match_plain(cuda_dev, mult):
     for name, p in sp["params"]["layers"].items():
         assert torch.equal(p, sx["params"]["layers"][name]), name
     assert torch.equal(sp["params"]["lm_head"], sx["params"]["lm_head"])
+
+
+# --- the autotuner's candidates on the card -----------------------------------
+
+def _tuning_spec(mult, dev):
+    spec = G.spec_from_name(mult).to(dev)
+    rank = spec.rank if spec.mode == "lowrank" else 0
+    return spec, rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mult,mkn", [
+    ("trunc2x2", (4, 2048, 2048)), ("trunc2x2", (4, 2048, 256)),
+    ("pareto:0.01", (8, 4096, 1000)), ("trunc2x2", (128, 2048, 256)),
+    ("trunc2x2", (128, 5632, 2048)), ("trunc2x2", (512, 2048, 2048)),
+    ("pareto:0.01", (300, 576, 64)), ("pareto:0.01", (256, 1152, 192))])
+def test_cuda_every_tuning_candidate_is_bitexact(cuda_dev, mult, mkn):
+    """Every plan the tuner may time (each split count of plane 0 and
+    skinny, each tile width of fused and stacked) sums the same exact
+    int32 planes and flushes them in the same order: bit-equal to the
+    plain version."""
+    from repro_torch.kernels import autotune
+    spec, rank = _tuning_spec(mult, cuda_dev)
+    m, k, n = mkn
+    gen = torch.Generator(device=cuda_dev).manual_seed(7)
+    a = torch.randint(-128, 128, (m, k), generator=gen, device=cuda_dev,
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=gen, device=cuda_dev,
+                      dtype=torch.int8)
+    bt = b.T.contiguous()
+    want = G.approx_qgemm(a, b, spec)
+    sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+    cands = autotune.candidate_plans(m, k, n, rank + 1, sm_count=sms)
+    for c in [*cands, *autotune.STACKED_CANDIDATES]:
+        if c.path == "stacked":
+            got = ops.approx_qgemm(a, b, spec, fused=False, bn=c.bn)
+        else:
+            got = ops.approx_qgemm(
+                a, b, spec, b_t=bt, skinny=c.skinny, splits=c.splits,
+                bn=c.bn if rank and not c.skinny else None)
+        assert torch.equal(got, want), c.label
+
+
+@pytest.mark.cuda
+def test_cuda_tune_gemm_fills_the_cache_dispatch_reads(cuda_dev, tmp_path,
+                                                       monkeypatch):
+    """The tuner measures on the card (positive times for every timed
+    plan and the plain path), persists the winner under the card's key,
+    and "auto" dispatch then runs it, bit-equal to the plain path."""
+    from repro_torch.kernels import autotune, dispatch
+    monkeypatch.setenv("REPRO_TUNING_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.delenv("REPRO_KERNEL_POLICY", raising=False)
+    spec, _ = _tuning_spec("trunc2x2", cuda_dev)
+    plan = autotune.tune_gemm(4, 2048, 2048, spec, device=cuda_dev, reps=3)
+    assert plan.path in autotune.KERNEL_PATHS
+    assert all(us > 0 for us in plan.candidates.values())
+    assert plan.us["xla"] > 0 and plan.static in plan.candidates
+    got = dispatch.choose_gemm_path("auto", m=4, k=2048, n=2048,
+                                    device=cuda_dev, mode=spec.mode)
+    assert got.source == "tuned" and got.path == plan.path
+    x = torch.randn((4, 2048), device=cuda_dev)
+    w = torch.randn((2048, 2048), device=cuda_dev)
+    tuned = L.dense(x, w, None, spec.with_policy("auto"))
+    plain = L.dense(x, w, None, spec.with_policy("xla"))
+    assert torch.equal(tuned, plain)

@@ -241,6 +241,10 @@ def test_policy_resolution(monkeypatch):
 
 def test_gemm_plan_by_policy_and_device(monkeypatch):
     monkeypatch.delenv("REPRO_KERNEL_POLICY", raising=False)
+    # "auto" on a CUDA tensor looks the tuning cache up under the card's
+    # name and SM count: stand in an H100's
+    from repro_torch import device as D
+    monkeypatch.setattr(D, "_props", lambda index: ("NVIDIA H100", 132))
     plan = dispatch.choose_gemm_path("pallas", m=4, k=2048, n=5632,
                                      device="cpu")
     assert plan.use_pallas and plan.skinny and plan.bm == 4

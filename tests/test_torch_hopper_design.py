@@ -58,7 +58,7 @@ def _t(x):
 def test_plane0_splits_cover_k_in_whole_tiles(shape):
     m, k, n = shape
     tk = qk.PLANE0_TILE[1]
-    splits, k_chunk = qgemm.plane0_splits(m, k, n)
+    splits, k_chunk = qgemm.plane0_splits(m, k, n, sm_count=SM_COUNT)
     k_pad = -(-k // tk) * tk
     assert splits >= 1 and k_chunk % tk == 0 and k_chunk >= tk
     chunks = [min(k_chunk, k_pad - z * k_chunk) for z in range(splits)]
@@ -70,7 +70,7 @@ def test_plane0_splits_cover_k_in_whole_tiles(shape):
 def test_plane0_splits_fill_the_card_at_prefill(shape):
     m, k, n = shape
     tm, _, tn = qk.PLANE0_TILE
-    splits, _ = qgemm.plane0_splits(m, k, n)
+    splits, _ = qgemm.plane0_splits(m, k, n, sm_count=SM_COUNT)
     assert (m // tm) * (n // tn) * splits >= SM_COUNT
 
 
@@ -79,7 +79,7 @@ def test_plane0_splits_fill_the_card_at_prefill(shape):
                                    (25088, 1152, 256), (100352, 1152, 128),
                                    (401408, 27, 64), (401408, 576, 64)])
 def test_plane0_splits_none_at_large_m(shape):
-    assert qgemm.plane0_splits(*shape) == (
+    assert qgemm.plane0_splits(*shape, sm_count=SM_COUNT) == (
         1, -(-shape[1] // qk.PLANE0_TILE[1]) * qk.PLANE0_TILE[1])
 
 
@@ -312,7 +312,7 @@ def test_skinny_splits_cover_k_without_an_empty_split(kn):
     """Split z sums the K units [z U / S, (z + 1) U / S): every unit once,
     none empty, none longer than SKINNY_MAX_BOXES boxes."""
     k, n = kn
-    splits, gran = qgemm.skinny_splits(k, n)
+    splits, gran = qgemm.skinny_splits(k, n, sm_count=SM_COUNT)
     assert gran in (32, qk.SKINNY_BOX) and 1 <= splits
     units = -(-k // gran)
     bounds = [z * units // splits * gran for z in range(splits + 1)]
@@ -324,7 +324,7 @@ def test_skinny_splits_cover_k_without_an_empty_split(kn):
 @pytest.mark.parametrize("kn", DECODE)
 def test_skinny_splits_fill_the_card_at_decode(kn):
     k, n = kn
-    splits, _ = qgemm.skinny_splits(k, n)
+    splits, _ = qgemm.skinny_splits(k, n, sm_count=SM_COUNT)
     assert -(-n // qk.SKINNY_BM) * splits >= SM_COUNT
 
 

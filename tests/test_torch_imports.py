@@ -36,6 +36,8 @@ def test_no_module_imports_jax_or_the_jax_package():
     for name in ("paged", "paging", "arena"):
         assert f"repro_torch.serving.{name}" in res["modules"]
     assert "repro_torch.kernels.qgemm" in res["modules"]
+    for name in ("kernels.autotune", "roofline.analysis"):
+        assert f"repro_torch.{name}" in res["modules"]
     for name in ("mamba2", "rglru", "attention", "moe"):
         assert f"repro_torch.models.{name}" in res["modules"]
     for name in ("workloads", "accelerator", "carbon", "dataflow", "target",

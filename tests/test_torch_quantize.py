@@ -136,7 +136,7 @@ def _loads_per_element(plan: qz.QuantPlan, k: int) -> np.ndarray:
 
 @pytest.mark.parametrize("m,k", MAIN_PATHS + ODD)
 def test_launch_plan_covers_every_element_once(m, k):
-    plan = qz.launch_plan(m, k)
+    plan = qz.launch_plan(m, k, sm_count=132)
     assert plan.vec == (k % 4 == 0)
     assert qz.MIN_LANES <= plan.lanes <= qz.MAX_LANES
     assert plan.lanes & (plan.lanes - 1) == 0
@@ -156,10 +156,11 @@ def test_launch_plan_covers_every_element_once(m, k):
 def test_launch_plan_at_the_main_paths_classes():
     """No main-path shape needs the two-pass loop; short rows share a
     warp, and the decode rows and VGG16's FC 1 take one block per row."""
-    assert all(qz.launch_plan(m, k).vecs > 0 for m, k in MAIN_PATHS)
-    assert qz.launch_plan(401408, 27).lanes < 32
+    assert all(qz.launch_plan(m, k, sm_count=132).vecs > 0
+               for m, k in MAIN_PATHS)
+    assert qz.launch_plan(401408, 27, sm_count=132).lanes < 32
     for m, k in [(4, 2048), (4, 5632), (1, 2048), (8, 25088)]:
-        plan = qz.launch_plan(m, k)
+        plan = qz.launch_plan(m, k, sm_count=132)
         assert plan.lanes == plan.threads and plan.blocks == m, plan
 
 
@@ -174,6 +175,7 @@ def test_launch_plan_at_the_main_paths_classes():
 ])
 def test_launch_plan_routes_unaligned_rows_to_scalar_loads(m, k, ld, base,
                                                            vec):
-    plan = qz.launch_plan(m, k, ld, base)
+    plan = qz.launch_plan(m, k, ld, base, sm_count=132)
     assert plan.vec is vec
-    assert plan[1:] == qz.launch_plan(m, k)[1:]     # same lanes and blocks
+    # same lanes and blocks
+    assert plan[1:] == qz.launch_plan(m, k, sm_count=132)[1:]
