@@ -88,7 +88,26 @@ outside autotune came from a cache.
                  gather and scatter on the profiler.  A run that leaves its
                  slot engine fails the phase.  PD runs metered: its
                  per-request Joules must sum to the meter's total;
-  7. fleet     — the carbon-aware fleet on the same model: a metered
+  7. tp        — tensor-parallel serving, one process per rank on
+                 torch.distributed, the ranks sharing the card over gloo
+                 (NCCL refuses two ranks on one device): the kernels at a
+                 model=2 rank's shapes against their plain versions
+                 (skinny at m = 4 and 32, plane 0 at M = 128 on
+                 TinyLlama's n / 2, fused under pareto:0.01, flash over
+                 16 heads); then a world of model=2 (the TP GEMM bit-equal
+                 to one device; the serve phase's requests, tokens equal
+                 to its, the logit gap against one device held to 0, with
+                 a witness naming the first GEMM where the runs part,
+                 launches equal
+                 to one device's formula, 89 all-gathers per decode step;
+                 S4, P and PS on five of the paged trace's requests
+                 (both sampled, both sharing a prefix), P and PS equal
+                 to S4; mamba2 at 4 layers, held to the recurrent phase's S4
+                 once it has run; calibrate_serving(model=2)) and of
+                 model=2,data=2 (the serving check); per rank: ms per
+                 decode step, its collectives' share, device ms per
+                 profiled step, prepared int8, float and K/V bytes;
+  8. fleet     — the carbon-aware fleet on the same model: a metered
                  two-replica fleet (us-west and eu-west on the diurnal
                  trace, capacity 2, trunc2x2, 12 Poisson requests of 104
                  tokens x 16, replica 0 killed at its step 5), Joules
@@ -102,7 +121,7 @@ outside autotune came from a cache.
                  twin, every death an injected one; the total-carbon
                  search over the multi-die scenarios on the card, held to
                  the CPU's (rtol 1e-6);
-  8. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
+  9. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
                  stays well inside its time limit: the engines' steps are
                  host-bound and scale with depth) and then
                  recurrentgemma-9b (38 layers, 10.4B params) at full
@@ -126,13 +145,13 @@ outside autotune came from a cache.
                  per hybrid step, no flash); ms per prefill, decode step,
                  chunk step and spec step, one profiled decode step's
                  device busy share, and the peak device memory;
-  9. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
+ 10. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
                  crosses two 256-token chunks) and the hybrid at 4 layers
                  (window cut to 64 under 128-token prompts: the rings
                  wrap), full width, once through the kernels and once
                  through the plain versions on the card: logits compared,
                  greedy tokens equal, the plain run launching nothing;
- 10. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
+ 11. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
                  frames), starcoder2-7b (8 of its 32 layers, the GELU
                  MLP) and llama-3.2-vision-11b (1 of its 8 superblocks,
                  5 + 1 cross layers; all three cut so the script stays
@@ -157,7 +176,7 @@ outside autotune came from a cache.
                  step and spec step, one profiled decode step's device
                  busy share, device memory after prepare and at peak, and
                  each model's seconds;
- 11. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
+ 12. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
                  layers in one superblock) at full width, once through the
                  kernels and once through the plain versions on the card,
                  both on the chunked attention (flash's rounding moves
@@ -166,7 +185,7 @@ outside autotune came from a cache.
                  flash's outputs): logits compared, greedy tokens equal,
                  the plain run launching nothing; the whole prefill held
                  to the chunked one under exact;
- 12. moe       — grok-1-314b (2 of its 64 layers: every layer MoE, 8
+ 13. moe       — grok-1-314b (2 of its 64 layers: every layer MoE, 8
                  experts, top-2) and llama4-maverick-400b-a17b (1 of its
                  24 superblocks: a dense layer and an MoE layer with its
                  shared expert; 32 of its 128 experts, top-1: at 128 one
@@ -193,13 +212,13 @@ outside autotune came from a cache.
                  formula (an MoE layer's expert GEMMs at M = the call's
                  capacity), ms per prefill, decode, chunk and spec step,
                  device busy share, memory after prepare and at peak;
- 13. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
+ 14. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
                  (32 experts), full width, through the kernels and through
                  the plain versions, both on chunked attention: logit gap
                  0, greedy tokens and every call's routing (expert
                  indices, drop mask) equal, the plain run launching
                  nothing;
- 14. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
+ 15. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
                  random f32 weights from a seeded CUDA generator) trained
                  under trunc2x2 through the kernels, chunked attention
                  (the flash kernel has no backward) and remat: 6 AdamW
@@ -211,7 +230,7 @@ outside autotune came from a cache.
                  profiled step's device busy share and the forward's
                  per-call weight quantize + K-major copy; then the CLI
                  (`launch.train.main`) for 2 steps at the config's bf16;
- 15. train-check — the same model at 2 layers: one train step through
+ 16. train-check — the same model at 2 layers: one train step through
                  the kernels and one through the plain versions from the
                  same state, under trunc2x2 and pareto:0.01 (fused):
                  loss, gradient norm and every updated param equal (gap
@@ -219,7 +238,7 @@ outside autotune came from a cache.
                  bit-equal into a fresh trainer, steps 3-4 resumed within
                  1e-5 of an uninterrupted run); an int8-moment and an
                  Adafactor step finite;
- 16. check     — a 2-layer full-width model served once through the kernels
+ 17. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -227,7 +246,7 @@ outside autotune came from a cache.
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 17. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 18. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -236,14 +255,14 @@ outside autotune came from a cache.
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 18. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 19. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 19. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 20. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 20. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 21. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
@@ -262,7 +281,8 @@ forward; `path` names the run its launches come from,
 `conditioned_launches` and `moe_launches` those of each recurrent,
 conditioned and MoE model's runs, summed; `train_launches` those of the
 train phase's 6 steps; `autotune_launches` those of the autotune phase's
-runs under its tuned cache);
+runs under its tuned cache; `tp_launches` each model=2 rank's in the tp
+phase's serving run);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -1337,12 +1357,41 @@ def counted(fn) -> tuple:
     return res, {name: f.launches for name, f in ctr.items()}
 
 
-def serve_phase(dev, cfg) -> dict:
+#: The serve phase's six greedy requests (prompt lengths, arrival ticks)
+SERVE_LENS = [40, 128, 77, 100, 64, 115]
+SERVE_ARRIVALS = [0, 0, 0, 0, 3, 5]
+SERVE_NEW = 16
+
+
+def serve_requests(cfg, rng) -> list:
+    """The serve phase's six requests, prompts drawn from `rng`."""
+    from repro_torch.serving import Request, SamplingParams
+    sp = SamplingParams(max_new_tokens=SERVE_NEW)
+    return [Request(f"r{i}", rng.integers(0, cfg.vocab, n).tolist(), sp,
+                    arrival=t)
+            for i, (n, t) in enumerate(zip(SERVE_LENS, SERVE_ARRIVALS))]
+
+
+def serve_want(cfg, st: dict) -> dict:
+    """Launches of a slot-engine run of TinyLlama from its stats: per
+    step every GEMM quantizes its rows and runs one GEMM kernel (skinny at
+    decode, plane 0 at prefill), the LM head at M = 1 in prefill."""
+    steps, adm = st["decode_steps"], st["admitted"]
+    n_gemm = 7 * cfg.n_layers
+    return {"quantize_rows": (n_gemm + 1) * (steps + adm),
+            "approx_qgemm_skinny": (n_gemm + 1) * steps + adm,
+            "approx_qgemm_plane0": n_gemm * adm,
+            "flash_attention": cfg.n_layers * adm,
+            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+
+
+def serve_phase(dev, cfg) -> tuple[dict, dict]:
+    """Returns (the kernels' launches, each request's tokens)."""
     import numpy as np
     import torch
     from repro_torch.approx import gemm as G
     from repro_torch.models import api
-    from repro_torch.serving import Engine, Request, SamplingParams
+    from repro_torch.serving import Engine
 
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, device=dev)
@@ -1362,12 +1411,8 @@ def serve_phase(dev, cfg) -> dict:
         f"skinny kernels: "
         f"{kmajor_bytes(eng._tier_exec[eng.tiers[0]]) / 1e9:.4f} GB")
     rng = np.random.default_rng(0)
-    lens = [40, 128, 77, 100, 64, 115]
-    arrivals = [0, 0, 0, 0, 3, 5]
-    sp = SamplingParams(max_new_tokens=16)
-    for i, (n, t) in enumerate(zip(lens, arrivals)):
-        eng.submit(Request(f"r{i}", rng.integers(0, cfg.vocab, n).tolist(),
-                           sp, arrival=t))
+    for req in serve_requests(cfg, rng):
+        eng.submit(req)
     t0 = time.perf_counter()
     done, launches = counted(eng.run_until_complete)
     wall = time.perf_counter() - t0
@@ -1379,11 +1424,7 @@ def serve_phase(dev, cfg) -> dict:
     st = eng.stats()
     steps, adm = st["decode_steps"], st["admitted"]
     n_gemm = 7 * cfg.n_layers
-    want = {"quantize_rows": (n_gemm + 1) * (steps + adm),
-            "approx_qgemm_skinny": (n_gemm + 1) * steps + adm,
-            "approx_qgemm_plane0": n_gemm * adm,
-            "flash_attention": cfg.n_layers * adm,
-            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
+    want = serve_want(cfg, st)
     assert launches == want, (launches, want)
     toks = sum(len(c.tokens) - 1 for c in done)
     log(f"[serve] 6 requests x 16 tokens in {wall:.2f}s: prefill "
@@ -1394,10 +1435,11 @@ def serve_phase(dev, cfg) -> dict:
     log(f"[serve] launches {launches}; per decode step: "
         f"{n_gemm + 1} quantize_rows + {n_gemm + 1} approx_qgemm_skinny")
     log(f"[serve] r0 tokens {done[0].tokens}")
+    tokens = {c.request_id: c.tokens for c in done}
     profile_decode(eng, rng, cfg)
     del eng, params
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens
 
 
 #: The paged phase's trace: the serve phase's six greedy prompts, two
@@ -1825,6 +1867,504 @@ def profile_decode(eng, rng, cfg, steps: int = 4,
             f"ms/step  {e.count // steps:5d}/step  {e.key[:60]}")
     eng.run_until_complete()
     return kernels, wall / steps
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: one process per rank on torch.distributed, the ranks
+# sharing the one card over gloo (NCCL refuses two ranks on one device)
+# ---------------------------------------------------------------------------
+
+#: The tp phase's meshes: every check runs in the model=2 world, the
+#: serving check also in model=2,data=2 (four ranks)
+TP_SPECS = ("model=2", "model=2,data=2")
+TP_TIMEOUT_S = 420.0
+#: TinyLlama's GEMM (k, n) per layer and its head, whose n / 2 a model=2
+#: rank runs: wq, wk / wv, wo, w_gate / w_up, w_down, lm_head
+TP_GEMMS = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
+            (2048, 32000)]
+TP_OPS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def tp_gathers(cfg) -> int:
+    """All-gathers of one step on a model axis that splits the heads: per
+    layer the attention output, wo's output, the SwiGLU product and
+    w_down's output; and the head's output."""
+    return 4 * cfg.n_layers + 1
+
+
+def tp_kernels(dev) -> dict:
+    """Every kernel of the TP path at the shard-local shapes a model=2
+    rank runs, against its plain version: skinny at m = 4 and 32 and
+    plane 0 at M = 128 on TinyLlama's n / 2 (1024, 128, 2816, 1024 and
+    16000 for the head), bit-exact; fused under pareto:0.01 at a prefill
+    n / 2; flash over a rank's 16 heads at s = 128 within 2e-6.  Returns
+    max |err| per kernel."""
+    import torch
+    from repro_torch.approx import gemm as G
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    trunc = G.spec_from_name(MULT).to(dev)
+    lowrank = G.spec_from_name(CNN_MULT).to(dev)
+    err = {}
+
+    def hold(name, got, want, what):
+        if not torch.equal(got, want):
+            diff = (got.double() - want.double()).abs().max().item()
+            raise AssertionError(f"[tp] {name} {what}: kernel != plain "
+                                 f"(max |diff| {diff})")
+        err[name] = 0.0
+
+    for k, n in TP_GEMMS:
+        n //= 2
+        b = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        bt = b.T.contiguous()
+        for m, skinny in ((4, True), (32, True), (128, False)):
+            a = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            got = ops.approx_qgemm(a, b, trunc, skinny=skinny, b_t=bt)
+            name = "approx_qgemm_skinny" if skinny else "approx_qgemm_plane0"
+            hold(name, got, G.approx_qgemm(a, b, trunc), f"({m},{k},{n})")
+        if n == 2816:
+            a = torch.randint(-128, 128, (128, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            hold("approx_qgemm_fused", ops.approx_qgemm(a, b, lowrank, b_t=bt),
+                 G.approx_qgemm(a, b, lowrank), f"(128,{k},{n}) {CNN_MULT}")
+    q, k_, v = (torch.randn((16, 128, 64), generator=gen, device=dev)
+                for _ in range(3))
+    got = fk.flash_attention(q, k_, v, causal=True)
+    want = fk.flash_attention_plain(q, k_, v, causal=True, bq=64, bkv=64)
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=6e-6)
+    err["flash_attention"] = (got - want).abs().max().item()
+    torch.cuda.synchronize()
+    log(f"[tp] kernels at a model=2 rank's shapes agree with their plain "
+        f"versions: max |err| {err}")
+    return err
+
+
+@__import__("contextlib").contextmanager
+def gemm_recorder(want: list | None = None, store: bool = True):
+    """Record every GEMM of the model (`approx.layers.gemm`): its input
+    and its whole output (a rank's column block gathered, which adds a
+    collective every rank runs alike).  With `want` (another run's
+    record) each call is compared as it comes and only (input gap, output
+    gap) is kept; with `store` False nothing is (the ranks > 0)."""
+    import torch
+    from repro_torch.approx import layers as AL
+    orig = AL.gemm
+    rec: list = []
+
+    def gemm(x, w, spec=None, policy=None, gather=True):
+        y = orig(x, w, spec, policy, gather)
+        full = y if gather else AL.gather_cols(y, AL.column_split(w))
+        if not store:
+            pass
+        elif want is None:
+            rec.append((x.detach().float().clone(),
+                        full.detach().float().clone()))
+        elif len(rec) < len(want):
+            wx, wy = want[len(rec)]
+            rec.append(((x.float() - wx).abs().max().item(),
+                        (full.float() - wy).abs().max().item()))
+        return y
+
+    AL.gemm = gemm
+    try:
+        yield rec
+    finally:
+        AL.gemm = orig
+        torch.cuda.synchronize()
+
+
+def tp_steps(exec_params, cfg, spec, prompt: list[int], dev,
+             steps: int = 2) -> list:
+    """Prefill of `prompt`, then `steps` greedy decode steps: the logits
+    of each."""
+    import torch
+    from repro_torch.models import api
+    tokens = torch.tensor([prompt], device=dev)
+    lg, cache = api.prefill(exec_params, tokens, cfg, spec,
+                            max_len=len(prompt) + steps)
+    out = [lg]
+    for _ in range(steps):
+        tok = torch.argmax(out[-1], dim=-1)[:, None]
+        lg, cache = api.decode_step(exec_params, cache, tok, cfg, spec)
+        out.append(lg[:, -1])
+    return out
+
+
+def tp_witness(mesh, cfg, params, dev) -> dict | None:
+    """The largest logit gap between the mesh and one device on the serve
+    phase's 128-token prompt (its prefill and two decode steps); rank 0
+    runs the one-device model too.  Where the gap is not 0, the first
+    GEMM whose input or output parts names the layer and op (an input of
+    wo that parts first is the attention's output).  None on ranks > 0."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.sharding import ctx, rules
+
+    spec = api.make_spec(cfg, device=dev)
+    prompt = serve_requests(cfg, np.random.default_rng(0))[1].tokens
+    one = want = None
+    if mesh.rank == 0:
+        whole = api.prepare_params(params, cfg, spec)
+        with gemm_recorder() as want:
+            one = tp_steps(whole, cfg, spec, prompt, dev)
+        del whole
+    local = api.prepare_params(params, cfg, spec, mesh=mesh)
+    with ctx.use_rules(mesh, rules.logical_rules(mesh)), \
+            gemm_recorder(want, store=mesh.rank == 0) as got:
+        tp = tp_steps(local, cfg, spec, prompt, dev)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mesh.rank != 0:
+        return None
+    gap = max((a - b).abs().max().item() for a, b in zip(tp, one))
+    per_step = 7 * cfg.n_layers + 1
+    first = None
+    for i, (gx, gy) in enumerate(got):
+        if gx or gy:
+            step, j = divmod(i, per_step)
+            layer, op = divmod(j, 7)
+            name = "lm_head" if j == per_step - 1 else TP_OPS[op]
+            where = ("the input of " if gx else "the output of ") + name
+            if gx and name == "wo":
+                where += " (the attention's output)"
+            first = (f"step {step} ({'prefill' if step == 0 else 'decode'})"
+                     f", layer {layer}: {where}, gap {max(gx, gy):.3g}")
+            break
+    return {"gap": gap, "first": first, "gemms": len(got),
+            "argmax_equal": all(torch.equal(a.argmax(-1), b.argmax(-1))
+                                for a, b in zip(tp, one))}
+
+
+def _nbytes(tree) -> dict:
+    """Bytes of a params tree: prepared int8 (wq, wq_t, sw, planes) and
+    float leaves."""
+    from repro_torch.approx import gemm as G
+    out = {"prepared": 0, "float": 0}
+    if isinstance(tree, dict):
+        for v in tree.values():
+            for k, n in _nbytes(v).items():
+                out[k] += n
+    elif G.is_prepared(tree):
+        out["prepared"] += sum(t.numel() * t.element_size() for t in
+                               (tree.wq, tree.wq_t, tree.sw, tree.planes)
+                               if t is not None)
+    elif hasattr(tree, "element_size"):
+        out["float"] += tree.numel() * tree.element_size()
+    return out
+
+
+def tp_gemm_check(mesh, dev) -> int:
+    """The column-parallel GEMM (`ops.approx_qgemm_tp`) bit-equal to the
+    one-device GEMM under its own plan, at TinyLlama's decode (m = 4) and
+    prefill (M = 128) shapes, under trunc2x2 and pareto:0.01.  Returns
+    the number of GEMMs held."""
+    import torch
+    from repro_torch.approx import gemm as G
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(11)   # alike on every rank
+    held = 0
+    for mult in (MULT, CNN_MULT):
+        spec = G.spec_from_name(mult).to(dev)
+        for k, n in TP_GEMMS:
+            b = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            bt = b.T.contiguous()
+            bt_local = mesh.shard_cols(bt.T).T.contiguous()
+            for m in (4, 128):
+                a = torch.randint(-128, 128, (m, k), generator=gen,
+                                  device=dev, dtype=torch.int8)
+                one = ops.approx_qgemm_replicated(a, b, spec, b_t=bt)
+                got = ops.approx_qgemm_tp(a, mesh.shard_cols(b), spec, mesh,
+                                          b_t=bt_local)
+                assert torch.equal(got, one), (mult, m, k, n)
+                held += 1
+    return held
+
+
+def tp_serve(mesh, cfg, params, dev, who: str) -> dict:
+    """The serve phase's six requests through the slot engine on the mesh:
+    tokens, launches (= the serve phase's formula: each GEMM one launch
+    per rank), all-gathers per step (= `tp_gathers`), bytes, ms per
+    decode step on the host clock and the device ms of profiled steps."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    eng = Engine(cfg, params, capacity=4, max_len=256,
+                 prefill_buckets=(128,), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    ready = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    for req in serve_requests(cfg, rng):
+        eng.submit(req)
+    t0 = time.perf_counter()
+    done, launches = counted(eng.run_until_complete)
+    wall = time.perf_counter() - t0
+    tokens = {c.request_id: c.tokens for c in done}
+    st = eng.stats()
+    assert launches == serve_want(cfg, st), (who, launches)
+    tp = st["tp"]
+    per = tp_gathers(cfg)
+    assert tp["decode_all_gathers"] == per * st["decode_steps"], (who, tp)
+    assert tp["all_gathers"] == per * (st["decode_steps"] + st["admitted"])
+    nb = _nbytes(eng.exec_params)
+    kv = sum(t.numel() * t.element_size()
+             for k, t in eng._arena.cache.items() if k in ("k", "v"))
+    prof = profile_decode(eng, rng, cfg, steps=2, tag=f"{who} profile")
+    out = {"tokens": tokens, "launches": launches, "ready_s": ready,
+           "wall_s": wall,
+           "steps": st["decode_steps"], "admitted": st["admitted"],
+           "decode_ms": st["decode_s"] / st["decode_steps"] * 1e3,
+           "prefill_ms": st["prefill_s"] / st["admitted"] * 1e3,
+           "gathers_per_step": tp["all_gathers_per_decode_step"],
+           "decode_collective_ms": tp["decode_collective_s"]
+           / st["decode_steps"] * 1e3,
+           "collective_s": tp["collective_s"],
+           "prepared_gb": nb["prepared"] / 1e9,
+           "float_gb": _nbytes(eng.params)["float"] / 1e9, "kv_gb": kv / 1e9,
+           "device_ms": None if prof is None else
+           sum(e.self_device_time_total for e in prof[0]) / 1e3 / 2,
+           "profiled_wall_ms": None if prof is None else prof[1] * 1e3}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_paged_trace(cfg) -> list:
+    """Five of the paged trace's ten requests: its first greedy one, both
+    sampled ones and both that share a prefix (so the prefix cache is
+    hit); the paged trace whole took 80 s on a model=2 world whose steps
+    are host-bound in their all-gathers."""
+    keep = ("g0", "s0", "s1", "h0", "h1")
+    return [r for r in paged_trace(cfg) if r.request_id in keep]
+
+
+def tp_paged(mesh, cfg, params, dev, who: str) -> dict:
+    """S4, P and PS (drafting with trunc2x2 itself) on `tp_paged_trace`,
+    sampled requests included, at the mesh: P and PS token-identical to
+    S4, every draft accepted, audit clean, launches = `paged_want`'s
+    formula.  Returns each run's tokens and P's launches."""
+    import gc
+
+    import torch
+
+    trace = tp_paged_trace(cfg)
+    runs = paged_runs(False)
+    res = {}
+    for name in ("S4", "P", "PS"):
+        cls, kw = runs[name]
+        eng = cls(cfg, params, max_len=256, prefill_buckets=(128,),
+                  device=dev, mesh=mesh, **kw)
+        for req in trace:
+            eng.submit(req)
+        done, launches = counted(eng.run_until_complete)
+        st = eng.stats()
+        want = run_want(cfg, name, kw, st, trace)
+        assert launches == want, (who, name, launches, want)
+        if name != "S4":
+            eng._alloc.audit()
+            assert st["paged"]["pages_live"] == 0, (who, st["paged"])
+        if name == "PS":
+            assert st["spec"]["acceptance_rate"] == 1.0, (who, st["spec"])
+        res[name] = {"tokens": {c.request_id: c.tokens for c in done},
+                     "launches": launches}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("P", "PS"):
+        assert res[name]["tokens"] == res["S4"]["tokens"], (who, name)
+    return res
+
+
+def tp_rank(mesh, cfg, mamba_cfg) -> dict:
+    """One rank of the tp phase (`tp_phase`)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import calibrate as cal
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    spec = ",".join(f"{k}={v}" for k, v in mesh.shape.items())
+    who = f"[tp {spec} rank {mesh.rank}]"
+    full = mesh.axis_size("data") == 1
+    out = {"rank": mesh.rank, "device": str(dev)}
+    x = torch.full((4,), float(mesh.rank), device=dev)
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    try:
+        dist.all_gather(parts, x)
+        out["gloo_cuda"] = "accepted" if all(
+            bool((p == i).all()) for i, p in enumerate(parts)) else "wrong"
+    except Exception as e:                              # noqa: BLE001
+        out["gloo_cuda"] = f"refused ({type(e).__name__}: {str(e)[:160]})"
+    times = out["times"] = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        times[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    if full:
+        out["gemm_held"] = tp_gemm_check(mesh, dev)
+        lap("gemm")
+    params = api.init_params(cfg, seed=0, device=dev)
+    lap("init")
+    out["witness"] = tp_witness(mesh, cfg, params, dev)
+    lap("witness")
+    out["serve"] = tp_serve(mesh, cfg, params, dev, who)
+    lap("serve")
+    if full:
+        out["paged"] = tp_paged(mesh, cfg, params, dev, who)
+        lap("paged")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if full:
+        mparams = api.init_params(mamba_cfg, seed=0, device=dev)
+        eng_cls, kw = paged_runs(False)["S4"]
+        trace = paged_trace(mamba_cfg)
+        eng = eng_cls(mamba_cfg, mparams, max_len=256, prefill_buckets=(128,),
+                      device=dev, mesh=mesh, **kw)
+        for req in trace:
+            eng.submit(req)
+        done, launches = counted(eng.run_until_complete)
+        st = eng.stats()
+        assert launches == run_want(mamba_cfg, "S4", kw, st, trace), (
+            who, launches)
+        out["mamba"] = {"tokens": {c.request_id: c.tokens for c in done},
+                        "launches": launches,
+                        "gathers_per_step":
+                            st["tp"]["all_gathers_per_decode_step"]}
+        del eng, mparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("mamba")
+        c = cal.calibrate_serving(mesh_spec="model=2", mult=MULT,
+                                  kernel_policy="pallas", device=dev)
+        out["calibrate"] = {"measured": c.measured,
+                            "analytical": c.analytical, "scale": c.scale,
+                            "anchor": c.anchor, "n_dies": c.meta["n_dies"]}
+        lap("calibrate")
+    return out
+
+
+def tp_phase(dev, cfg, card: str, serve_tokens: dict) -> dict:
+    """Tensor-parallel serving on the card: the kernels at a rank's
+    shapes (`tp_kernels`), then worlds of `TP_SPECS` ranks sharing the card
+    over gloo (`repro_torch.launch.mesh.spawn`): every rank's tokens
+    equal to the serve phase's, the logit gap against one device with its
+    witness, launches and all-gathers equal to their formulas; in the
+    model=2 world also the TP GEMM, the paged engine, mamba2 (held to
+    the recurrent phase's S4 once it has run: `tp_hold_mamba`) and
+    `calibrate_serving`.  Returns the ranks' launches of the model=2
+    serving run and mamba2's tokens."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshmod
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_kernels(dev)
+    mamba_cfg = configs.get_config(
+        "mamba2-370m", mult=MULT, kernel_policy="pallas", dtype="float32",
+        n_layers=RECURRENT_DEPTH["mamba2-370m"])
+    out = {}
+    for spec in TP_SPECS:
+        t0 = time.perf_counter()
+        ranks = meshmod.spawn(tp_rank, spec, device=dev.type,
+                              timeout_s=TP_TIMEOUT_S, args=(cfg, mamba_cfg))
+        took = time.perf_counter() - t0
+        w = ranks[0]["witness"]
+        s = [r["serve"] for r in ranks]
+        log(f"[tp] {spec}: {len(ranks)} ranks on {ranks[0]['device']} "
+            f"({card}; the ranks share one card, so these are each rank's "
+            f"work, not a TP speed-up); gloo on CUDA tensors "
+            f"{ranks[0]['gloo_cuda']}; world {took:.1f}s, rank 0's seconds "
+            f"by part {ranks[0]['times']}")
+        log(f"[tp] {spec}: logit gap against one device {w['gap']:.3g} "
+            f"over prefill + 2 decode steps ({w['gemms']} GEMMs recorded; "
+            f"argmax equal {w['argmax_equal']}); first parting: "
+            f"{w['first'] or 'none'}")
+        # the design holds a rank's every product to one device's bits
+        # (column-parallel GEMMs over the full K, decode attention at one
+        # device's shapes): any gap is a fault, logged above with its op
+        assert w["gap"] == 0 and w["first"] is None, (spec, w)
+        for r in ranks:
+            for rid, toks in r["serve"]["tokens"].items():
+                if toks != serve_tokens[rid]:
+                    log(f"[tp] {spec} rank {r['rank']} {rid} parts from the "
+                        f"serve phase: {toks} vs {serve_tokens[rid]}")
+        for r in ranks:
+            assert r["serve"]["tokens"] == serve_tokens, (spec, r["rank"])
+        for r, sv in zip(ranks, s):
+            log(f"[tp] {spec} rank {r['rank']}: launches {sv['launches']} "
+                f"(= the one-device formula); {sv['gathers_per_step']:.0f} "
+                f"all-gathers per decode step (= {tp_gathers(cfg)}); "
+                f"{sv['decode_ms']:.2f} ms per decode step (host), "
+                f"{sv['decode_collective_ms']:.2f} ms of it in collectives, "
+                f"device {sv['device_ms'] if sv['device_ms'] is None else format(sv['device_ms'], '.2f')}"
+                f" ms per profiled step of {sv['profiled_wall_ms'] if sv['profiled_wall_ms'] is None else format(sv['profiled_wall_ms'], '.2f')} ms wall; "
+                f"prefill {sv['prefill_ms']:.1f} ms; {sv['collective_s']:.3f}"
+                f" s in collectives in all; prepared int8 "
+                f"{sv['prepared_gb']:.4f} GB, float params kept whole "
+                f"{sv['float_gb']:.3f} GB, K/V {sv['kv_gb']:.4f} GB; peak "
+                f"{r['peak_gb']:.2f} GB")
+        if spec == "model=2":
+            r0 = ranks[0]
+            out["launches"] = [sv["launches"] for sv in s]
+            out["mamba"] = [r["mamba"]["tokens"] for r in ranks]
+            for r in ranks[1:]:
+                assert r["mamba"]["tokens"] == out["mamba"][0], r["rank"]
+                assert r["paged"] == r0["paged"], r["rank"]
+                assert r["calibrate"] == r0["calibrate"], r["rank"]
+            p = r0["paged"]
+            log(f"[tp] model=2: TP GEMM bit-equal to one device on "
+                f"{r0['gemm_held']} GEMMs; paged P and PS token-identical "
+                f"to S4 on 5 requests of the paged trace (both sampled "
+                f"and both prefix-sharing ones), "
+                f"launches {p['P']['launches']} (P, = paged_want); mamba2 "
+                f"({mamba_cfg.n_layers} layers) launches "
+                f"{r0['mamba']['launches']}, "
+                f"{r0['mamba']['gathers_per_step']:.0f} all-gathers per "
+                f"decode step; calibrate_serving(model=2): "
+                f"{r0['calibrate']}")
+    log(f"[tp] phase {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
+def tp_hold_mamba(tp: dict) -> None:
+    """mamba2 at model=2: greedy tokens equal to the recurrent phase's S4
+    (the sampled requests reported)."""
+    want = S4_TOKENS["mamba2-370m"]
+    got = tp["mamba"][0]
+    greedy = [r for r in want if not r.startswith("s")]
+    for rid in greedy:
+        assert got[rid] == want[rid], (rid, got[rid], want[rid])
+    sampled = {r: got[r] == want[r] for r in want if r.startswith("s")}
+    log(f"[tp] mamba2 at model=2: {len(greedy)} greedy requests equal to "
+        f"the recurrent phase's S4; sampled equal {sampled}")
 
 
 # ---------------------------------------------------------------------------
@@ -2330,6 +2870,11 @@ def _prepared_bytes(tree) -> int:
                               else 0)
 
 
+#: each model_serving model's S4 tokens, by config name (the tp phase
+#: holds mamba2 at model=2 to the recurrent phase's)
+S4_TOKENS: dict = {}
+
+
 def model_serving(dev, cfg, card: str, names: list[str],
                   tag: str = "recurrent") -> dict:
     """One model at full width and depth through the slot and paged
@@ -2374,6 +2919,7 @@ def model_serving(dev, cfg, card: str, names: list[str],
         prefill_gap(dev, cfg, params, trace, tag=tag)
     res, total, s4 = serve_and_hold(dev, cfg, params, names, trace, tag,
                                     drops=cfg.is_moe)
+    S4_TOKENS[cfg.name] = res["S4"]["toks"]
     if cfg.is_moe:
         _, more, twin = serve_and_hold(
             dev, moe.no_drop(cfg), params,
@@ -3821,17 +4367,31 @@ def main() -> int:
     cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
                              kernel_policy="pallas", attn_impl="flash",
                              dtype="float32")
+    if sys.argv[1:] == ["--tp-only"]:
+        # the serve phase (its tokens), the tp phase and mamba2's S4 only
+        _, serve_tokens = serve_phase(dev, cfg)
+        tp = tp_phase(dev, cfg, card, serve_tokens)
+        model_serving(dev, configs.get_config(
+            "mamba2-370m", mult=MULT, kernel_policy="pallas",
+            dtype="float32", n_layers=RECURRENT_DEPTH["mamba2-370m"]),
+            card, ["S4"])
+        tp_hold_mamba(tp)
+        log(f"[done] --tp-only {time.perf_counter() - t_start:.1f}s")
+        return 0
     errs, stacked_launches = check_kernels(dev)
     table = time_kernels(dev, cfg, errs)
     log(f"[kernels] {time.perf_counter() - t_start:.1f}s")
     autotune_launches = autotune_phase(dev, cfg, card)
     log(f"[autotune] {time.perf_counter() - t_start:.1f}s")
     # each kernel's launches come from the main path that runs it
-    launches = serve_phase(dev, cfg)
+    launches, serve_tokens = serve_phase(dev, cfg)
     paged_launches = paged_phase(dev, cfg, card)
+    tp = tp_phase(dev, cfg, card, serve_tokens)
+    log(f"[tp] {time.perf_counter() - t_start:.1f}s")
     fleet_launches = fleet_phase(dev, cfg, card)
     log(f"[fleet] {time.perf_counter() - t_start:.1f}s")
     recurrent_launches = recurrent_phase(dev, card)
+    tp_hold_mamba(tp)
     recurrent_check_phase(dev)
     log(f"[recurrent] {time.perf_counter() - t_start:.1f}s")
     conditioned_launches = conditioned_phase(dev, card)
@@ -3866,6 +4426,7 @@ def main() -> int:
         row["moe_launches"] = {
             arch: n[row["name"]] for arch, n in moe_launches.items()}
         row["train_launches"] = train_launches[row["name"]]
+        row["tp_launches"] = [r[row["name"]] for r in tp["launches"]]
         row["autotune_launches"] = autotune_launches[row["name"]]
     assert_untuned(untuned)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -158,6 +158,9 @@ class PreparedWeight:
                                   (lowrank) or the LSB-masked weight (trunc,
                                   P'=1); empty under the "pallas" policy
       w       the original float weight (same storage as the source params)
+      tp      the column split: 1 for the whole weight; under tensor
+              parallelism every field above holds this rank's block of
+              n / tp columns (wq_t its rows), w as a view of the source
 
     Leading stack dims (layer-stacked params) are kept; `layer(i)` slices
     one layer.  Training must not use prepared weights:
@@ -169,6 +172,7 @@ class PreparedWeight:
     mode: str
     mult: str
     wq_t: torch.Tensor | None = None
+    tp: int = 1
 
     def layer(self, i: int) -> "PreparedWeight":
         return dataclasses.replace(
@@ -181,17 +185,23 @@ def is_prepared(w) -> bool:
     return isinstance(w, PreparedWeight)
 
 
-def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
+def prepare_weight(w: torch.Tensor, spec: MultSpec | None, mesh=None):
     """Quantize (per-output-channel) and pre-map a static weight for the
     spec.  Identity for exact/absent specs.  Accepts stacked (..., k, n)
     leaves (quantized one matrix at a time); scales reduce over the
     contraction dim only.  The pre-mapped
     planes serve the plain path only, so a "pallas"-pinned policy skips
     them; the K-major copy serves the plane-0, fused and skinny kernels,
-    so it is made where the kernels run."""
+    so it is made where the kernels run.  Under a `mesh` whose model axis
+    divides n, only this rank's column block is quantized and kept
+    (`tp` > 1): each column's scale reads that column alone, so these are
+    the bits of the whole weight's block."""
     if spec is None or spec.is_exact or is_prepared(w):
         return w
     from repro_torch.kernels import dispatch
+    tp = _split(mesh, w.shape[-1])
+    if tp > 1:
+        w = mesh.shard_cols(w)
     # one (k, n) matrix at a time: the scales reduce over k only, so this
     # is the whole-stack quantization, with f32 temporaries of one matrix
     # (a (12, 2, 4096, 12288) stack whole would need several of 4.8 GB)
@@ -217,7 +227,7 @@ def prepare_weight(w: torch.Tensor, spec: MultSpec | None):
         wq_t = wq.transpose(-1, -2).contiguous()
     return PreparedWeight(w=w, wq=wq, sw=sw,
                           planes=planes, mode=spec.mode, mult=spec.name,
-                          wq_t=wq_t)
+                          wq_t=wq_t, tp=tp)
 
 
 def approx_qgemm_prepared(a_q: torch.Tensor, pw: PreparedWeight,
@@ -283,6 +293,23 @@ def _gemm_plan(spec: MultSpec, m: int, k: int, n: int, device):
                                      rank=rank)
 
 
+def _split(mesh, n: int) -> int:
+    """The column split of an output dim of `n` on `mesh`: its model-axis
+    size where that divides n, else 1 (the dim stays whole, the
+    divisibility drop of sharding/rules.py)."""
+    from repro_torch.kernels import dispatch
+    return n // dispatch.tp_split(n, dispatch.tp_degree(mesh))
+
+
+def _tp_mesh(n: int):
+    """(mesh, tp) for the active sharding context (`sharding.ctx`): the
+    mesh (None outside one) and the column split of an output dim of
+    `n` on it."""
+    from repro_torch.sharding import ctx
+    mesh = ctx.active_mesh()
+    return mesh, _split(mesh, n)
+
+
 #: Profiler label of the per-call weight prep in training's forward: the
 #: int8 quantize of a raw float weight and its K-major copy for the
 #: kernels (a prepared weight keeps both, so serving runs neither).
@@ -291,10 +318,18 @@ WEIGHT_PREP = "approx.weight_prep"
 
 def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                     spec: MultSpec, plain,
-                    wq_t: torch.Tensor | None = None) -> torch.Tensor:
+                    wq_t: torch.Tensor | None = None, mesh=None,
+                    split: int = 1, gather: bool = True) -> torch.Tensor:
     """Shared forward: quantize rows, run the planned GEMM, dequantize.
     `plain(xq)` is the plain-path GEMM for this weight; `wq_t` its K-major
-    copy, where one is kept (else made here for the kernels)."""
+    copy, where one is kept (else made here for the kernels).  With
+    `split` > 1, wq / sw / wq_t are the rank's column block of `mesh`'s
+    model axis and the GEMM runs column-parallel (`ops.approx_qgemm_tp`),
+    planned at the shard-local shape, its output all-gathered over the
+    model group unless `gather` is False (the rank's block comes back);
+    with `split` 1 every rank runs the whole GEMM.  Each rank contracts
+    the full K, so there is no cross-rank reduction: the bits are one
+    device's."""
     from repro_torch.kernels import ops as kops
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -310,7 +345,10 @@ def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     else:
         acc = plain(xq)
     out = acc * (sx * sw)                     # (m, n) * (m, 1) * (1, n)
-    return out.reshape(*lead, n).to(x.dtype)
+    out = out.reshape(*lead, n).to(x.dtype)
+    if split > 1 and gather:
+        out = mesh.all_gather(out)
+    return out
 
 
 class _ApproxMatmul(torch.autograd.Function):
@@ -318,12 +356,17 @@ class _ApproxMatmul(torch.autograd.Function):
     backward on the float operands."""
 
     @staticmethod
-    def forward(ctx, x, w, spec):
+    def forward(ctx, x, w, spec, gather=True):
         ctx.save_for_backward(x, w)
+        mesh, split = _tp_mesh(w.shape[-1])
         with torch.profiler.record_function(WEIGHT_PREP):
-            wq, sw = quant.quantize(w, axis=1)    # (k, n) -> (1, n) scales
+            # per-column scales: the rank's block quantizes to the bits
+            # of the whole weight's block
+            wl = mesh.shard_cols(w) if split > 1 else w
+            wq, sw = quant.quantize(wl, axis=1)   # (k, n) -> (1, n) scales
         return _approx_forward(x, wq, sw, spec,
-                               lambda xq: approx_qgemm(xq, wq, spec))
+                               lambda xq: approx_qgemm(xq, wq, spec),
+                               mesh=mesh, split=split, gather=gather)
 
     @staticmethod
     def backward(ctx, g):
@@ -331,23 +374,32 @@ class _ApproxMatmul(torch.autograd.Function):
         gf, xf, wf = g.float(), x.float(), w.float()
         dx = torch.einsum("...n,kn->...k", gf, wf).to(x.dtype)
         dw = torch.einsum("...k,...n->kn", xf, gf).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def approx_matmul(x: torch.Tensor, w: torch.Tensor,
-                  spec: MultSpec) -> torch.Tensor:
+                  spec: MultSpec, gather: bool = True) -> torch.Tensor:
     """x (..., k) @ w (k, n) through the approximate multiplier.
-    Activations quantize per row, weights per output channel."""
-    return _ApproxMatmul.apply(x, w, spec)
+    Activations quantize per row, weights per output channel.  Under an
+    active mesh the GEMM runs column-parallel where n divides the model
+    axis (`_approx_forward`; `gather=False` returns the rank's block)."""
+    return _ApproxMatmul.apply(x, w, spec, gather)
 
 
 class _ApproxMatmulPrepared(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, pw, spec):
+    def forward(ctx, x, pw, spec, gather=True):
+        mesh, split = _tp_mesh(pw.wq.shape[-1] * pw.tp)
+        if pw.tp != split:
+            raise ValueError(
+                f"a weight prepared for a {pw.tp}-way column split is used "
+                f"where the active mesh splits it {split} ways: prepare it "
+                "for this mesh (api.prepare_params(..., mesh=))")
         return _approx_forward(x, pw.wq, pw.sw, spec,
                                lambda xq: approx_qgemm_prepared(xq, pw, spec),
-                               pw.wq_t)
+                               pw.wq_t, mesh=mesh, split=split,
+                               gather=gather)
 
     @staticmethod
     def backward(ctx, g):
@@ -358,10 +410,11 @@ class _ApproxMatmulPrepared(torch.autograd.Function):
 
 
 def approx_matmul_prepared(x: torch.Tensor, pw: PreparedWeight,
-                           spec: MultSpec) -> torch.Tensor:
+                           spec: MultSpec, gather: bool = True
+                           ) -> torch.Tensor:
     """x (..., k) @ cached weight through the approximate multiplier — the
     inference twin of `approx_matmul`, bit-identical to it.  Serving only:
-    differentiation raises."""
+    differentiation raises.  Under an active mesh, as `approx_matmul`."""
     if pw.mult != spec.name or pw.mode != spec.mode:
         raise ValueError(
             f"PreparedWeight was built for multiplier {pw.mult!r} "
@@ -370,7 +423,7 @@ def approx_matmul_prepared(x: torch.Tensor, pw: PreparedWeight,
     assert pw.wq.ndim == 2, (
         "prepared weights must be per-matrix at use time (slice stacked "
         f"leaves with .layer(i)); got wq shape {tuple(pw.wq.shape)}")
-    return _ApproxMatmulPrepared.apply(x, pw, spec)
+    return _ApproxMatmulPrepared.apply(x, pw, spec, gather)
 
 
 def spec_from_name(name: str, rank: int | None = None) -> MultSpec:

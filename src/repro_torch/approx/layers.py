@@ -25,26 +25,67 @@ def _as_weight(w, dtype):
     return w
 
 
+def _out_dim(w) -> int:
+    """The whole output dim of a weight of any form `_as_weight` takes."""
+    if gemm_mod.is_prepared(w):
+        return w.wq.shape[-1] * w.tp
+    if quant.is_qweight(w):
+        return w["q"].shape[-1]
+    return w.shape[-1]
+
+
+def column_split(w) -> int:
+    """How many column blocks `gemm(x, w, gather=False)` splits its output
+    into under the active mesh (1: the whole output comes back): the
+    model-axis size where it divides the output dim."""
+    return gemm_mod._tp_mesh(_out_dim(w))[1]
+
+
+def gather_cols(y: torch.Tensor, split: int) -> torch.Tensor:
+    """Reassemble an output split `split` ways over the model axis (a
+    `gemm(..., gather=False)` block, or any tensor the ranks hold by
+    column blocks) into the whole tensor; identity at split 1."""
+    if split == 1:
+        return y
+    from repro_torch.sharding import ctx
+    return ctx.active_mesh().all_gather(y)
+
+
 def gemm(x: torch.Tensor, w, spec: gemm_mod.MultSpec | None = None,
-         policy: str | None = None) -> torch.Tensor:
+         policy: str | None = None, gather: bool = True) -> torch.Tensor:
     """x (..., k) @ w (k, n), approximate if the spec says so.  `policy`
-    overrides the spec-carried kernel-dispatch policy for this call."""
+    overrides the spec-carried kernel-dispatch policy for this call.
+
+    Under an active mesh (`sharding.ctx`) a GEMM whose n divides the model
+    axis runs column-parallel, each rank on its block of columns, exact
+    and approximate alike; the output is all-gathered, or, with
+    `gather=False`, the rank's block comes back (`column_split` says
+    which)."""
     if spec is None or spec.is_exact:
-        return torch.matmul(x, _as_weight(w, x.dtype).to(x.dtype))
+        wf = _as_weight(w, x.dtype)
+        mesh, split = gemm_mod._tp_mesh(_out_dim(w))
+        if split > 1 and not (gemm_mod.is_prepared(w) and w.tp > 1):
+            wf = mesh.shard_cols(wf)
+        y = torch.matmul(x, wf.to(x.dtype))
+        return gather_cols(y, split) if gather else y
     if policy is not None:
         spec = spec.with_policy(policy)
     if gemm_mod.is_prepared(w):
-        return gemm_mod.approx_matmul_prepared(x, w, spec)
-    return gemm_mod.approx_matmul(x, _as_weight(w, x.dtype), spec)
+        return gemm_mod.approx_matmul_prepared(x, w, spec, gather)
+    return gemm_mod.approx_matmul(x, _as_weight(w, x.dtype), spec, gather)
 
 
 def dense(x: torch.Tensor, w, b: torch.Tensor | None = None,
           spec: gemm_mod.MultSpec | None = None,
-          policy: str | None = None) -> torch.Tensor:
+          policy: str | None = None, gather: bool = True) -> torch.Tensor:
     """Linear layer.  The bias add stays exact (the paper approximates the
-    MAC multipliers; accumulators/adders are exact)."""
-    y = gemm(x, w, spec, policy)
+    MAC multipliers; accumulators/adders are exact).  With `gather=False`
+    a column-parallel output takes the rank's block of the bias."""
+    y = gemm(x, w, spec, policy, gather)
     if b is not None:
+        if not gather and column_split(w) > 1:
+            from repro_torch.sharding import ctx
+            b = ctx.active_mesh().shard_cols(b)
         y = y + b
     return y
 

@@ -27,7 +27,6 @@ consumers that only want the carbon/GA models.
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 
 import torch
@@ -37,7 +36,6 @@ from repro_torch.device import resolve_device
 from . import accelerator as accmod
 from . import carbon as carbonmod
 from . import dataflow as dfmod
-from . import target as targetmod
 from . import workloads as wl
 
 
@@ -114,40 +112,41 @@ def calibrate_serving(arch: str = "tinyllama-1.1b", *, requests: int = 3,
     `mult` / `kernel_policy` ("" keeps the config's) pick the multiplier
     and the kernels: `mult="trunc2x2", kernel_policy="pallas"` serves the
     trace through the row quantizer, the plane-0 prefill GEMM and the
-    skinny decode GEMM.  `n_dies` (or a `mesh_spec` / `core.target.
-    HardwareTarget` whose model axis gives it) runs the analytical mirror
-    under that die partition; the measured side serves on one device, so
-    a mesh or target spanning more than one device raises
-    `NotImplementedError` (tensor-parallel serving on
-    `torch.distributed` is not ported yet)."""
+    skinny decode GEMM.
+
+    `mesh_spec` (e.g. ``"model=2"``) serves the trace tensor-parallel:
+    the measured side runs the engine on that mesh, and the analytical
+    mirror runs the SAME partition (`n_dies` = the mesh's model-axis
+    size) through the multi-die dataflow model, so a multi-die target's
+    delay is anchored by a measurement that communicates.  A
+    `core.target.HardwareTarget` gives both (one die == one TP shard).
+    Every rank of the mesh calls this function (SPMD, one process per
+    rank; a mesh over more ranks than the process group raises
+    `ValueError`); each rank's timings are reduced to their maximum over
+    the ranks, so every rank returns the same calibration.  `n_dies`
+    alone moves only the analytical mirror."""
     from repro_torch import configs
     from repro_torch.serving import Engine, Request, SamplingParams
 
     cfg = configs.apply_overrides(configs.get_config(arch), reduced=True,
                                   mult=mult, kernel_policy=kernel_policy)
-    axes: tuple[tuple[str, int], ...] = ()
+    mesh = None
     if target is not None:
         if mesh_spec or n_dies is not None:
             raise ValueError("pass either target= or mesh_spec/n_dies, "
                              "not both")
-        axes = target.mesh_axes or (("model", target.n_dies),)
+        mesh = target.make_mesh()
         mesh_spec = target.mesh_spec()
         n_dies = target.n_dies
     elif mesh_spec:
-        axes = targetmod.parse_mesh_spec(mesh_spec)
+        from repro_torch.launch import mesh as meshmod
+        mesh = meshmod.make_mesh_from_spec(mesh_spec)
         if n_dies is None:
-            n_dies = dict(axes).get("model", 1)
+            n_dies = mesh.axis_size("model")
     n_dies = n_dies or 1
-    n_devices = math.prod(size for _, size in axes)
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"serving over {n_devices} devices (mesh "
-            f"{mesh_spec or dict(axes)!r}) needs tensor-parallel serving on "
-            "torch.distributed, which the port does not have yet (ROADMAP "
-            "Queue 1, item 2: sharding)")
     dev = resolve_device(device)
     eng = Engine(cfg, capacity=capacity, max_len=max_len, seed=seed,
-                 device=dev)
+                 device=dev, mesh=mesh)
     # warm the phases (and build the kernels) so the measurement is
     # steady-state decode
     eng.submit(Request("_warmup", [1] * prompt,
@@ -165,6 +164,13 @@ def calibrate_serving(arch: str = "tinyllama-1.1b", *, requests: int = 3,
     decode_s = stats["decode_s"] - base["decode_s"]
     decode_steps = stats["decode_steps"] - base["decode_steps"]
     decode_toks = sum(max(len(c.tokens) - 1, 0) for c in done)
+    engine = {k: v for k, v in stats.items() if isinstance(v, (int, float))}
+    if mesh is not None:
+        # the slowest rank's times, so every rank returns the same value
+        keys = sorted(k for k, v in engine.items() if isinstance(v, float))
+        vals = mesh.all_reduce_max([decode_s] + [engine[k] for k in keys])
+        decode_s = vals[0]
+        engine.update(zip(keys, vals[1:]))
     measured = decode_steps / max(decode_s, 1e-9)
 
     # analytical mirror: one decode step of this model at mid-trace cache
@@ -190,9 +196,7 @@ def calibrate_serving(arch: str = "tinyllama-1.1b", *, requests: int = 3,
               "decode_s": decode_s, "decode_steps": decode_steps,
               "decode_tokens": decode_toks,
               "batched_tokens_per_s": decode_toks / max(decode_s, 1e-9),
-              "backend": _backend(dev),
-              "engine": {k: v for k, v in stats.items()
-                         if isinstance(v, (int, float))}})
+              "backend": _backend(dev), "engine": engine})
 
 
 def calibrate_gemm(m: int = 128, k: int = 160, n: int = 128, *,

@@ -14,9 +14,9 @@ One frozen value ties the three layers of the repo together:
     measured serving engine all describe the same partitioning.
 
 The co-design GA emits targets (`ga.Genome.to_target`); the calibration
-layer consumes them (`calibrate.calibrate_serving(target=...)`).  Serving
-a target over more than one device waits for tensor-parallel serving on
-`torch.distributed`, so this module builds no device mesh.
+layer consumes them (`calibrate.calibrate_serving(target=...)`), and
+the serving engine serves on `make_mesh()`: one rank per die on the model
+axis, over a `torch.distributed` process group.
 """
 
 from __future__ import annotations
@@ -138,3 +138,13 @@ class HardwareTarget:
 
     def mesh_spec(self) -> str:
         return ",".join(f"{n}={s}" for n, s in self.mesh_axes)
+
+    def make_mesh(self):
+        """The serving mesh of this target (`launch.mesh.Mesh`) over the
+        process group's ranks: its axes, or `n_dies` ranks on the model
+        axis when it names none (lazy import: `core` consumers that only
+        want the carbon model never touch torch.distributed)."""
+        from repro_torch.launch import mesh as meshmod
+        if not self.mesh_axes:
+            return meshmod.make_host_mesh(model=self.n_dies)
+        return meshmod.mesh_from_axes(self.mesh_axes)

@@ -80,6 +80,22 @@ def use_kernels(policy: str | None, device: torch.device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+def tp_degree(mesh) -> int:
+    """Model-axis size of a mesh (1 when absent / no mesh): the tensor-
+    parallel fan-out a GEMM's output dimension is split across."""
+    if mesh is None:
+        return 1
+    return int(mesh.shape.get("model", 1))
+
+
+def tp_split(n: int, tp: int) -> int:
+    """Shard-local output dimension under `tp`-way column parallelism
+    (the whole dim when it does not divide: that GEMM stays unsplit).
+    Plans, the memo and tuning buckets key on the shard-local
+    (m, k, tp_split(n, tp)), since that is the GEMM each rank runs."""
+    return n // tp if tp > 1 and n % tp == 0 else n
+
+
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
     """Execution plan for one approximate GEMM.

@@ -165,6 +165,38 @@ def approx_qgemm_planned(a_q: torch.Tensor, b_q: torch.Tensor,
                         b_t=b_t, splits=plan.splits)
 
 
+def approx_qgemm_tp(a_q: torch.Tensor, b_local: torch.Tensor,
+                    spec: gemm_mod.MultSpec, mesh, *,
+                    b_t: torch.Tensor | None = None, gather: bool = True,
+                    axis: str = "model") -> torch.Tensor:
+    """Column-parallel tensor-parallel GEMM.  Activations are
+    replicated; `b_local` is this rank's (k, n/tp) column block of the
+    weight (`mesh.shard_cols`), `b_t` its K-major copy.  Each rank
+    contracts the full K against its block under its plan for the
+    shard-local shape, so there is no cross-rank reduction and the result
+    is bit-identical to one device.  `gather` all-gathers the (m, n)
+    result over the model group; else the rank's (m, n/tp) block comes
+    back.  The model's layers reach the same path through
+    `approx.gemm._approx_forward`."""
+    out = approx_qgemm_replicated(a_q, b_local, spec, b_t=b_t)
+    return mesh.all_gather(out, axis) if gather else out
+
+
+def approx_qgemm_replicated(a_q: torch.Tensor, b_q: torch.Tensor,
+                            spec: gemm_mod.MultSpec, *,
+                            b_t: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """The replicated branch of a multi-rank mesh, and one device's GEMM:
+    an output dim that does not divide the model axis stays whole, and
+    every rank runs the whole GEMM under its plan (the kernel, else the
+    plain path)."""
+    plan = gemm_mod._gemm_plan(spec, a_q.shape[0], a_q.shape[1],
+                               b_q.shape[1], a_q.device)
+    if plan.use_pallas:
+        return approx_qgemm_planned(a_q, b_q, spec, plan, b_t)
+    return gemm_mod.approx_qgemm(a_q, b_q, spec)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int | None = None,
                     bkv: int | None = None) -> torch.Tensor:

@@ -15,6 +15,12 @@ frames and the vision model's synthetic image embeddings
 (`data/synthetic.frames_batch` / `img_batch`), one per request.
 `--device cpu` runs the plain PyTorch versions instead (use `--reduced`
 there).
+
+`--mesh model=2` (or $REPRO_MESH) serves tensor-parallel, one process per
+rank, under torchrun; only rank 0 prints:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh model=2 \
+      --arch tinyllama-1.1b --mult trunc2x2 --kernel-policy pallas
 """
 
 from __future__ import annotations
@@ -50,7 +56,15 @@ def main(argv=None) -> int:
                     help="top-k filter (0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--mesh", default="",
+                    help="mesh spec, e.g. 'model=2,data=2' (default: "
+                         "$REPRO_MESH, then the host mesh over torchrun's "
+                         "ranks); a model axis > 1 serves tensor-parallel")
     args = ap.parse_args(argv)
+
+    from repro_torch.launch import mesh as meshmod
+    meshmod.init_from_env(args.device)
+    mesh = meshmod.make_mesh_from_spec(args.mesh)
 
     cfg = configs.apply_overrides(configs.get_config(args.arch),
                                   reduced=args.reduced, mult=args.mult,
@@ -67,7 +81,7 @@ def main(argv=None) -> int:
     max_len = args.prompt_len + args.gen
     eng = Engine(cfg, capacity=args.capacity or args.batch, max_len=max_len,
                  prefill_buckets=(args.prompt_len,), seed=args.seed,
-                 device=args.device)
+                 device=args.device, mesh=mesh)
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         max_new_tokens=args.gen)
     for i in range(args.batch):
@@ -84,8 +98,15 @@ def main(argv=None) -> int:
     decode_toks = sum(len(c.tokens) - 1 for c in done)
     toks_per_s = decode_toks / max(stats["decode_s"], 1e-9)
     first = next(c for c in done if c.request_id == "r0")
+    if mesh.rank != 0:
+        return 0
     print(f"[serve] arch={cfg.name} mult={cfg.mult or 'exact'} "
-          f"batch={args.batch} device={stats['device']}")
+          f"batch={args.batch} device={stats['device']} "
+          f"mesh={stats['mesh']}")
+    if "tp" in stats:
+        print(f"[serve] all-gathers per decode step "
+              f"{stats['tp']['all_gathers_per_decode_step']:.1f}, "
+              f"{stats['tp']['collective_s']:.3f}s in collectives")
     print(f"[serve] prefill {args.prompt_len} toks: "
           f"{stats['prefill_s']:.3f}s; decode: {toks_per_s:.1f} tok/s")
     print(f"[serve] sample continuation ids: "

@@ -73,13 +73,21 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def prepare_params(params: Params, cfg: ModelConfig,
-                   spec: gemm_mod.MultSpec | None = None) -> Params:
+                   spec: gemm_mod.MultSpec | None = None,
+                   mesh=None) -> Params:
     """Serving-time weight-plane cache: every leaf named in the family's
     PREPARED_GEMM_WEIGHTS becomes a `PreparedWeight` (per-output-channel
     int8 quantization, plus the pre-mapped planes of the plain path),
     computed once instead of on every decode step.  Outputs through the
     prepared tree are bit-identical to the raw tree.  `spec=None` resolves
-    through `make_spec(cfg)` on the params' device; identity for exact."""
+    through `make_spec(cfg)` on the params' device; identity for exact.
+
+    Under a `mesh`, each leaf whose output dim divides the model axis
+    keeps only this rank's column block (wq, wq_t, sw, planes; `w` a view
+    of the source), the layout the column-parallel GEMMs run on
+    (`approx.gemm`); the others stay whole.  The exact tier has no
+    cache: its float weights stay whole and each GEMM multiplies the
+    rank's column block."""
     if spec is None:
         spec = make_spec(cfg, device=params["embed"].device)
     if spec is None or spec.is_exact:
@@ -94,7 +102,7 @@ def prepare_params(params: Params, cfg: ModelConfig,
         if not torch.is_tensor(leaf) or leaf.ndim < 2 or \
                 not leaf.is_floating_point():
             return leaf
-        return gemm_mod.prepare_weight(leaf, spec)
+        return gemm_mod.prepare_weight(leaf, spec, mesh)
 
     return {k: prep(k, v) for k, v in params.items()}
 
@@ -134,9 +142,18 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, spec=None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: str | torch.device | None = None) -> dict:
-    return family_module(cfg).init_cache(cfg, batch, max_len,
-                                         resolve_device(device))
+               device: str | torch.device | None = None, mesh=None) -> dict:
+    """The decode cache at `batch` rows and `max_len` positions.  Under a
+    `mesh` (or the active one, `sharding.ctx`) a family that runs its
+    attention on the rank's heads keeps the rank's block of each K/V leaf
+    by `sharding.rules.cache_pspec`'s model-axis rule."""
+    fam = family_module(cfg)
+    dev = resolve_device(device)
+    if mesh is None:
+        return fam.init_cache(cfg, batch, max_len, dev)
+    from repro_torch.sharding import ctx, rules
+    with ctx.use_rules(mesh, rules.logical_rules(mesh)):
+        return fam.init_cache(cfg, batch, max_len, dev)
 
 
 @torch.no_grad()

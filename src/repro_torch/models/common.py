@@ -291,15 +291,22 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, w_gate, w_up, w_down,
            spec: MultSpec | None) -> torch.Tensor:
-    gate = AL.gemm(x, w_gate, spec)
-    up = AL.gemm(x, w_up, spec)
-    return AL.gemm(silu(gate) * up, w_down, spec)
+    """Under a mesh the gate and up outputs stay in the rank's column
+    blocks through the elementwise SiLU product, and are gathered once
+    before w_down."""
+    gate = AL.gemm(x, w_gate, spec, gather=False)
+    up = AL.gemm(x, w_up, spec, gather=False)
+    h = AL.gather_cols(silu(gate) * up, AL.column_split(w_gate))
+    return AL.gemm(h, w_down, spec)
 
 
 def gelu_mlp(x: torch.Tensor, w_up, b_up, w_down, b_down,
              spec: MultSpec | None) -> torch.Tensor:
-    h = AL.dense(x, w_up, b_up, spec)
-    return AL.dense(gelu(h), w_down, b_down, spec)
+    """Under a mesh the up projection stays in the rank's column block
+    through the GELU, gathered once before w_down (as `swiglu`)."""
+    h = AL.dense(x, w_up, b_up, spec, gather=False)
+    h = AL.gather_cols(gelu(h), AL.column_split(w_up))
+    return AL.dense(h, w_down, b_down, spec)
 
 
 # --- losses -------------------------------------------------------------------

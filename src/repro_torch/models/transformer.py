@@ -17,6 +17,14 @@ stacked (n_layers, ...) with the router and the expert stacks we_*
 ...) dense, "moe" (n_super, ...) with a shared expert ws_*), the cache
 then (n_super, moe_every, b, max_len, kv, hd).  All projections route
 through the approximate-GEMM layer (`spec`).
+
+Under a mesh (`sharding.ctx`) whose model axis divides `n_kv_heads` (and
+so `n_heads`), self-attention runs on the rank's heads: the q/k/v GEMMs
+keep the rank's column blocks, which are whole heads (its query heads
+map to its kv heads), the K/V cache holds those heads only
+(`sharding.rules.cache_pspec`), and the attention output is gathered
+before `wo`.  Otherwise q/k/v are gathered and attention is replicated
+(the reference's divisibility drop).  Cross-attention stays replicated.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from repro_torch.approx import layers as AL
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
 from repro_torch.models.moe import moe_ffn
+from repro_torch.sharding import ctx, rules
 
 Params = dict[str, Any]
 
@@ -147,15 +156,28 @@ def _head(params: Params, cfg: ModelConfig):
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _qkv(h, lp, cfg: ModelConfig, spec, positions):
+def head_split(cfg: ModelConfig) -> int:
+    """The ranks self-attention's heads split over under the active mesh:
+    its model-axis size where `cache_pspec` puts the kv-head dim of the
+    K/V cache on "model", else 1 (attention replicated)."""
+    mesh = ctx.active_mesh()
+    if mesh is None:
+        return 1
+    spec = rules.cache_pspec("k", (1, 1, cfg.n_kv_heads, cfg.hd), mesh)
+    return mesh.axis_size("model") if spec[-2] == "model" else 1
+
+
+def _qkv(h, lp, cfg: ModelConfig, spec, positions, split: int = 1):
+    """q, k, v with rope; with `split` > 1 the rank's heads only."""
     b, s, _ = h.shape
     hd = cfg.hd
-    q = AL.dense(h, lp["wq"], lp.get("bq"), spec).reshape(
-        b, s, cfg.n_heads, hd)
-    k = AL.dense(h, lp["wk"], lp.get("bk"), spec).reshape(
-        b, s, cfg.n_kv_heads, hd)
-    v = AL.dense(h, lp["wv"], lp.get("bv"), spec).reshape(
-        b, s, cfg.n_kv_heads, hd)
+    whole = split == 1
+    q = AL.dense(h, lp["wq"], lp.get("bq"), spec, gather=whole).reshape(
+        b, s, cfg.n_heads // split, hd)
+    k = AL.dense(h, lp["wk"], lp.get("bk"), spec, gather=whole).reshape(
+        b, s, cfg.n_kv_heads // split, hd)
+    v = AL.dense(h, lp["wv"], lp.get("bv"), spec, gather=whole).reshape(
+        b, s, cfg.n_kv_heads // split, hd)
     q = C.apply_rope(q, positions, cfg.rope_theta)
     k = C.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -188,10 +210,12 @@ def _self_attention(h, lp, cfg: ModelConfig, spec, positions):
     """The pre-norm causal self-attention and its residual -> (h, k, v)."""
     b, s, _ = h.shape
     x = C.rmsnorm(h, lp["ln1"])
-    q, k, v = _qkv(x, lp, cfg, spec, positions)
+    split = head_split(cfg)
+    q, k, v = _qkv(x, lp, cfg, spec, positions, split)
     attn = C.attention(q, k, v, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
                        policy=spec.policy if spec is not None else None)
-    return h + AL.dense(attn.reshape(b, s, -1), lp["wo"], None, spec), k, v
+    attn = AL.gather_cols(attn.reshape(b, s, -1), split)
+    return h + AL.dense(attn, lp["wo"], None, spec), k, v
 
 
 def decoder_block(h, lp, cfg: ModelConfig, spec, positions):
@@ -299,8 +323,14 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device, dtype=None) -> dict:
+    """K/V of every layer; under the active mesh the rank's block by
+    `cache_pspec`'s model-axis rule (its heads, where `head_split`)."""
     dtype = dtype or getattr(torch, cfg.dtype)
     shape = (*_lead(cfg), batch, max_len, cfg.n_kv_heads, cfg.hd)
+    mesh = ctx.active_mesh()
+    if mesh is not None:
+        shape = rules.local_shape(shape, rules.cache_pspec("k", shape, mesh),
+                                  mesh)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -308,16 +338,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def _decode_attention(q, ck, cv, length, split: int):
+    """`C.decode_attention` on the rank's heads (`split` > 1: q holds
+    n_heads / split of them, ck / cv n_kv_heads / split), bit for bit as
+    one device computes them.  The rank's heads are placed at their own
+    offsets among zero heads of the whole count and attend there: the
+    batched products then have one device's shapes (cuBLAS picks its
+    kernel by the batch count, rows x kv heads, and another kernel rounds
+    differently), and the zero heads' outputs are dropped.  The rank pays
+    one device's attention products and a padded copy of its K/V."""
+    if split == 1:
+        return C.decode_attention(q, ck, cv, length)
+    r = ctx.active_mesh().axis_index("model")
+
+    def whole(x):
+        n = x.shape[2]
+        out = x.new_zeros(*x.shape[:2], n * split, *x.shape[3:])
+        out[:, :, r * n:(r + 1) * n] = x
+        return out
+
+    h = q.shape[2]
+    o = C.decode_attention(whole(q), whole(ck), whole(cv), length)
+    return o[:, :, r * h:(r + 1) * h]
+
+
 def _decode_block(h, lp, ck, cv, lengths, cfg: ModelConfig, spec):
     """Single-token block against cache slices ck/cv (b, smax, kv, hd),
     which it updates in place; `lengths` is per-row (b,)."""
     b = h.shape[0]
     x = C.rmsnorm(h, lp["ln1"])
-    q, k, v = _qkv(x, lp, cfg, spec, lengths[:, None])
+    split = head_split(cfg)
+    q, k, v = _qkv(x, lp, cfg, spec, lengths[:, None], split)
     C.rowwise_cache_update(ck, k, lengths)
     C.rowwise_cache_update(cv, v, lengths)
-    attn = C.decode_attention(q, ck, cv, lengths + 1)
-    h = h + AL.dense(attn.reshape(b, 1, -1), lp["wo"], None, spec)
+    attn = _decode_attention(q, ck, cv, lengths + 1, split)
+    attn = AL.gather_cols(attn.reshape(b, 1, -1), split)
+    h = h + AL.dense(attn, lp["wo"], None, spec)
     x = C.rmsnorm(h, lp["ln2"])
     return h + _ffn(x, lp, cfg, spec)[0]
 

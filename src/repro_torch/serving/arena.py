@@ -10,6 +10,12 @@ axis, which is found structurally.
 pools addressed through per-request block tables (the paged engine's
 layout); every other leaf (SSM states, conv tails, attention rings, the
 lengths) stays a dense per-slot leaf.
+
+Under a mesh the engines build their arena inside the mesh's rules, so
+`api.init_cache` (and the meta probes) give each rank its heads of the
+K/V leaves: slot leaves and pools hold the rank's kv heads, the split
+`sharding.rules.cache_pspec` / `paged_pool_pspec` describe, while page
+tables and lengths are whole on every rank.
 """
 
 from __future__ import annotations

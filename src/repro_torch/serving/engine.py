@@ -29,10 +29,22 @@ Metering (`meter=`, a `fleet.meter.EnergyMeter`): each prefill and decode
 step is timed on the host clock after the step's device sync, and the
 meter turns those seconds into per-request Joules and CO2eq
 (`Completion.carbon`, `stats()["carbon"]`).
+
+Tensor parallelism (`mesh=`, a `launch.mesh.Mesh`, or `target=`, which
+builds its mesh: one die == one TP shard): every rank of the mesh runs
+this same engine loop (SPMD), one process per rank.  Each rank keeps its
+column block of every approximate GEMM weight (`api.prepare_params`) and
+its heads of the K/V cache (`api.init_cache`), and every model call runs
+under the mesh's rules (`sharding.ctx`): the GEMMs run column-parallel and
+all-gather what a later op needs whole.  The data axis is replicated:
+every data rank computes every row.  Admission, eviction and sampling
+read only ticks, tokens and each request's seeded generator, all equal
+on every rank because the logits are; host clocks feed only `stats()`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Any, Callable
@@ -47,12 +59,6 @@ from repro_torch.serving import sampling
 from repro_torch.serving.arena import SlotArena
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.types import Completion, Request
-
-
-def _n_devices(target) -> int:
-    """Devices a `HardwareTarget` spans: its mesh, else one per die."""
-    axes = target.mesh_axes or (("model", target.n_dies),)
-    return max(math.prod(size for _, size in axes), target.n_dies)
 
 
 def prefill_extras(cfg: ModelConfig, extras: dict | None,
@@ -118,10 +124,13 @@ class Engine:
         raises when there is none.
       meter: optional `fleet.meter.EnergyMeter`, charged with the measured
         seconds of every prefill and decode step; None serves unmetered.
-      target: optional one-die `core.target.HardwareTarget`, kept for the
-        fleet's power model.  A target over more than one device, or a
-        `mesh`, raises `NotImplementedError`: the port has no
-        tensor-parallel serving yet.
+      target: optional `core.target.HardwareTarget`, kept for the fleet's
+        power model; when `mesh` is None it builds the mesh
+        (`HardwareTarget.make_mesh`: one die == one TP shard).
+      mesh: optional `launch.mesh.Mesh` to serve tensor-parallel over,
+        every rank running this engine (module docstring).  A mesh over
+        more ranks than the process group has raises `ValueError` where
+        it is made.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any | None = None, *,
@@ -132,14 +141,9 @@ class Engine:
                  tiers: tuple[str, ...] | None = None,
                  device: str | torch.device | None = None,
                  meter=None, target=None, mesh=None):
-        if mesh is not None or (target is not None
-                                and _n_devices(target) > 1):
-            raise NotImplementedError(
-                f"serving over a mesh or a multi-die target "
-                f"({mesh if mesh is not None else target.mesh_spec()!r}) "
-                "needs tensor-parallel serving on torch.distributed, which "
-                "the port does not have yet (ROADMAP Queue 1, sharding and "
-                "TP serving)")
+        if mesh is None and target is not None:
+            mesh = target.make_mesh()
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.meter, self.target = meter, target
         self.cfg, self.seed = cfg, seed
@@ -152,7 +156,8 @@ class Engine:
         self.params = params if params is not None else api.init_params(
             cfg, seed, self.device)
 
-        self._build_state()
+        with self._rules():
+            self._build_state()
 
         # Per-tier serving artifacts: the weight-plane cache is built once
         # per (weight, multiplier); switching tiers is a pointer swap.
@@ -162,7 +167,7 @@ class Engine:
             spec = api.make_spec(cfg, mult=name, device=self.device)
             self._tier_specs[name] = spec
             self._tier_exec[name] = api.prepare_params(self.params, cfg,
-                                                       spec)
+                                                       spec, mesh=mesh)
         self._tier = self.tiers[0]
         self._tier_tokens: dict[str, int] = {t: 0 for t in self.tiers}
         self._tier_switches: list[dict] = []
@@ -177,9 +182,29 @@ class Engine:
         self._admitted = 0
         self._prefill_s = 0.0
         self._decode_s = 0.0
+        self._decode_gathers = 0
+        self._decode_collective_s = 0.0
+        # the mesh's collectives before this engine ran any
+        self._mark0 = self._mark()
         self._queue_wait_ticks = 0.0
         self._evictions = {"eos": 0, "length": 0}
         self.completions: list[Completion] = []
+
+    def _rules(self):
+        """The mesh's sharding context, which every model call of the
+        engine runs under (nothing without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.sharding import ctx, rules
+        return ctx.use_rules(self.mesh, rules.logical_rules(self.mesh))
+
+    def _mark(self) -> tuple[float, int, float]:
+        """(host time, the mesh's all-gathers and collective seconds so
+        far): a step's accounting reads its deltas from this mark."""
+        if self.mesh is None:
+            return time.perf_counter(), 0, 0.0
+        return (time.perf_counter(), self.mesh.gathers,
+                self.mesh.collective_s)
 
     def _build_state(self) -> None:
         """The decode arena and the per-lane sampling state."""
@@ -464,6 +489,10 @@ class Engine:
         """One engine tick: shed dead-on-arrival requests, admit due
         requests into free slots, then run one decode step across the
         whole arena."""
+        with self._rules():
+            self._step()
+
+    def _step(self) -> None:
         now = self._tick
         self._sched.note_ready(now, time.perf_counter())
         for request in self._sched.pop_expired(now):
@@ -515,19 +544,23 @@ class Engine:
         if not lanes:
             return
         self._quiet_idle_lanes(lanes)
-        t0 = time.perf_counter()
+        mark = self._mark()
         tok_host = self._decode()
-        self._note_decode(lanes, time.perf_counter() - t0)
+        self._note_decode(lanes, mark)
         for slot_id in lanes:
             if self._slots[slot_id] is not None:
                 self._emit(slot_id, int(tok_host[slot_id]))
 
-    def _note_decode(self, lanes: list[int], dt: float) -> None:
-        """Book a synced decode step of `dt` seconds over `lanes`.  The
-        meter is charged BEFORE the lanes emit: a request evicted at this
-        step carries its share of the step's energy."""
+    def _note_decode(self, lanes: list[int], mark: tuple) -> None:
+        """Book a synced decode step over `lanes` that started at `mark`
+        (`_mark`).  The meter is charged BEFORE the lanes emit: a request
+        evicted at this step carries its share of the step's energy."""
+        t0, gathers, coll_s = self._mark()
+        dt = t0 - mark[0]
         self._decode_steps += 1
         self._decode_s += dt
+        self._decode_gathers += gathers - mark[1]
+        self._decode_collective_s += coll_s - mark[2]
         if self.meter is not None:
             self.meter.on_decode(
                 dt, [self._slots[i].request.request_id for i in lanes],
@@ -561,4 +594,17 @@ class Engine:
                          "switches": list(self._tier_switches)}}
         if self.meter is not None:
             out["carbon"] = self.meter.summary()
+        if self.mesh is not None:
+            out["mesh"] = {"data": self.mesh.axis_size("data"),
+                           "model": self.mesh.axis_size("model")}
+        if self.mesh is not None and self.mesh.size > 1:
+            steps = self._decode_steps
+            _, gathers, coll_s = self._mark()
+            out["tp"] = {
+                "all_gathers": gathers - self._mark0[1],
+                "collective_s": coll_s - self._mark0[2],
+                "decode_all_gathers": self._decode_gathers,
+                "decode_collective_s": self._decode_collective_s,
+                "all_gathers_per_decode_step":
+                    self._decode_gathers / steps if steps else 0.0}
         return out

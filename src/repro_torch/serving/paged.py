@@ -161,7 +161,8 @@ class PagedEngine(Engine):
                 self._draft_exec = (
                     self.params if self._draft_spec is None
                     else api.prepare_params(self.params, cfg,
-                                            self._draft_spec))
+                                            self._draft_spec,
+                                            mesh=self.mesh))
 
     # --- device state -----------------------------------------------------
 
@@ -585,11 +586,11 @@ class PagedEngine(Engine):
                             sp.max_new_tokens - len(slot.tokens))
             else:
                 kr[i] = 1
-        t0 = time.perf_counter()
+        mark = self._mark()
         emitted, mh, ah = self._verify(self._draft_tokens(), kr)
         self._spec_steps += 1
         # every decoding lane is charged alike, sampled or greedy
-        self._note_decode(decoding, time.perf_counter() - t0)
+        self._note_decode(decoding, mark)
         for i in decoding:
             slot = self._slots[i]
             if slot.request.sampling.temperature <= 0.0:

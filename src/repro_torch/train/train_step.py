@@ -13,7 +13,8 @@ Gradient accumulation keeps both of the reference's modes:
 
 The reference's mesh-bound builders (`state_shardings`,
 `make_train_step`, `make_prefill_step`, `make_decode_step`) and
-`StepOptions(fsdp=True)` wait for the port's sharding slice.
+`StepOptions(fsdp=True)` wait for the training half of the port's
+sharding slice.
 """
 
 from __future__ import annotations
@@ -87,8 +88,10 @@ def make_train_fns(cfg: ModelConfig, options: StepOptions,
     "img"; metrics are {"loss", "gnorm", "step"} as 0-dim tensors."""
     if options.fsdp:
         raise NotImplementedError(
-            "StepOptions(fsdp=True): sharded train state needs the port's "
-            "sharding slice; the port trains on one device")
+            "StepOptions(fsdp=True): sharded train state needs the "
+            "training half of the port's sharding slice (its serving half, "
+            "tensor-parallel serving, is done); the port trains on one "
+            "device")
     dev = resolve_device(device)
     spec = api.make_spec(cfg, device=dev)
     init_opt, update_opt = opt.make_optimizer(

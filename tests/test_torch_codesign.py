@@ -252,7 +252,12 @@ def test_hardware_target_and_genome_to_target_equal():
                dict(n_dies=2, mesh_axes=(("data", 2),))):
         with pytest.raises(ValueError):
             tg.HardwareTarget(die=die, **kw)
-    assert not hasattr(tg.HardwareTarget, "make_mesh")
+    # make_mesh: the target's axes over the process group's ranks (one
+    # rank here: a one-die target's mesh, a four-die one raises)
+    one = tg.HardwareTarget.monolithic(die).make_mesh()
+    assert one.shape == {"data": 1, "model": 1} and one.size == 1
+    with pytest.raises(ValueError, match="spans 4 ranks.*has 1"):
+        tg.HardwareTarget(die, 4, (("data", 1), ("model", 4))).make_mesh()
     tm, jm = _mults(mm), _mults(jmm)
     for genes in ((3, 0, 0, 2, 0, 2), (5, 1, 2, 4, 3, 1), (1, 2, 1, 0, 4, 0)):
         assert _same(ga.Genome(*genes).to_target(tm, 7),
@@ -692,10 +697,20 @@ def test_calibrate_serving_cpu_and_its_analytical_mirror():
         cal.calibrate_serving(target=t1, mesh_spec="model=1", device=CPU)
     t4 = tg.HardwareTarget(acc.nvdla_default(64, 7), 4,
                            (("data", 1), ("model", 4)))
-    for kw in (dict(mesh_spec="model=4"), dict(target=t4),
-               dict(mesh_spec="data=2")):
-        with pytest.raises(NotImplementedError, match="item 2"):
+    # outside a process group of the mesh's size: ValueError, naming both
+    # sizes; inside one it serves tensor-parallel, every rank returning
+    # the same calibration (tests/test_torch_tp.py holds more of it)
+    for kw, ranks in ((dict(mesh_spec="model=4"), 4), (dict(target=t4), 4),
+                      (dict(mesh_spec="data=2"), 2)):
+        with pytest.raises(ValueError, match=f"spans {ranks} ranks but the "
+                                             "process group has 1"):
             cal.calibrate_serving(device=CPU, **kw)
+    import torch_tp_ranks as R
+    from repro_torch.launch import mesh as meshmod
+    got = meshmod.spawn(R.calibrate_spec_world, "model=2", device="cpu",
+                        timeout_s=120.0)
+    assert got[0] == got[1] and got[0][0] == 2
+    assert got[0][1].endswith("x 2 dies") and got[0][2] > 0
 
 
 # --- the launcher and the accuracy module's proxy ------------------------------

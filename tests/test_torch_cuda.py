@@ -884,3 +884,22 @@ def test_cuda_tune_gemm_fills_the_cache_dispatch_reads(cuda_dev, tmp_path,
     tuned = L.dense(x, w, None, spec.with_policy("auto"))
     plain = L.dense(x, w, None, spec.with_policy("xla"))
     assert torch.equal(tuned, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_parallel_world_of_two(cuda_dev):
+    """Two ranks sharing the card over gloo: the column-parallel GEMM
+    through the kernels bit-equal to one device, and the reduced TinyLlama
+    served at model=2 token for token as one device (the full-width run
+    is chip_smoke.py's tp phase)."""
+    import torch_tp_ranks as R
+    from repro_torch.launch import mesh as meshmod
+    ranks = meshmod.spawn(R.cuda_world, "model=2", device="cuda",
+                          timeout_s=300.0)
+    assert ranks[0] == ranks[1]
+    cfg, params = R.model("tinyllama-1.1b", "trunc2x2", cuda_dev,
+                          attn_impl="flash")
+    one = R.serve(cfg, params, device=cuda_dev)
+    assert ranks[0]["done"] == one["done"]
+    assert ranks[0]["stats"]["mesh"] == {"data": 1, "model": 2}
+

@@ -47,6 +47,7 @@ from repro_torch.core import multipliers as mm
 from repro_torch.core import target as tg
 from repro_torch.fleet import chaos, grid, meter, replica, router, total
 from repro_torch.launch import fleet as launch
+from repro_torch.launch import mesh as meshmod
 from repro_torch.models import api
 from repro_torch.serving import Engine, PagedEngine
 from repro_torch.serving import scheduler as sched
@@ -851,13 +852,28 @@ def test_engine_without_meter_has_no_carbon(cls):
 
 
 def test_engine_refuses_a_mesh_or_a_multi_die_target():
+    """Outside a process group of the mesh's size, a multi-die target (or
+    a mesh spec over more ranks) raises `ValueError` naming both sizes;
+    inside one, the engine serves tensor-parallel, token for token as one
+    device (the target's world of two ranks)."""
     cfg, params = _setup()
     die = acc.nvdla_default(256, 7)
     two = tg.HardwareTarget(die, n_dies=2, mesh_axes=(("model", 2),))
     data = tg.HardwareTarget.monolithic(die, data=2)
-    for kw in (dict(target=two), dict(target=data), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            Engine(cfg, params, device="cpu", **kw)
+    for make in (lambda: Engine(cfg, params, device="cpu", target=two),
+                 lambda: Engine(cfg, params, device="cpu", target=data),
+                 lambda: Engine(cfg, params, device="cpu",
+                                mesh=meshmod.make_mesh_from_spec("model=2"))):
+        with pytest.raises(ValueError, match=r"spans 2 ranks but the "
+                                             r"process group has 1"):
+            make()
+    import torch_tp_ranks as R
+    got, other = meshmod.spawn(R.target_world, "model=2", device="cpu",
+                                timeout_s=120.0)
+    tcfg, tparams = R.model("tinyllama-1.1b", "trunc2x2")
+    assert got == other
+    assert got["stats"]["mesh"] == {"data": 1, "model": 2}
+    assert got["done"] == R.serve(tcfg, tparams)["done"]
     one = tg.HardwareTarget.monolithic(die)
     rep = replica.Replica("a", cfg, target=one, params=params, capacity=1,
                           max_len=32, device="cpu")

@@ -48,6 +48,9 @@ def test_no_module_imports_jax_or_the_jax_package():
         assert f"repro_torch.fleet.{name}" in res["modules"]
     assert "repro_torch.train.fault" in res["modules"]
     assert "repro_torch.launch.fleet" in res["modules"]
+    for name in ("sharding", "sharding.rules", "sharding.ctx",
+                 "launch.mesh", "launch.serve"):
+        assert f"repro_torch.{name}" in res["modules"]
     for name in ("train", "train.optimizer", "train.train_step",
                  "train.checkpoint", "launch.train"):
         assert f"repro_torch.{name}" in res["modules"]

@@ -132,5 +132,6 @@ def test_state_layout_and_leaf_names_match_jax():
 
 def test_fsdp_waits_for_the_sharding_slice():
     _, ct = _configs("trunc2x2")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(NotImplementedError,
+                       match="training half of the port's sharding"):
         ts.make_train_fns(ct, ts.StepOptions(fsdp=True), "cpu")
