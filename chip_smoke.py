@@ -238,7 +238,30 @@ outside autotune came from a cache.
                  bit-equal into a fresh trainer, steps 3-4 resumed within
                  1e-5 of an uninterrupted run); an int8-moment and an
                  Adafactor step finite;
- 17. check     — a 2-layer full-width model served once through the kernels
+ 17. dist_train — sharded training, one process per rank sharing the
+                 card over gloo (`make_train_step`): data=2 with FSDP at
+                 full width, 6 of 22 layers (cut for the time limit; the
+                 train phase's options, seed and global 8 x 128 batches),
+                 3 steps: step 1's loss and gradient norm within rtol 1e-6
+                 / 1e-5 of one device's at that depth, steps 2-3 within
+                 2e-4, each rank's launches per step equal to one
+                 device's (85 + 85), per rank peak memory, s/step,
+                 collectives (calls, GB, host s) per step and the last
+                 step's device ms by kind; rank 0 saves after step 2 and
+                 this process restores it on one device (2 ranks to 1)
+                 and holds step 3 to the world's; then model=2,data=2 at
+                 4 of 22 layers (cut for memory and time: four ranks on
+                 one card): step 1 held to one device at that depth,
+                 steps 2-3's loss within 2e-4, and steps 2-3's loss and
+                 gradient norm to one device's step from the world's own
+                 state (rank 0 takes it; the int8 weight codes the two
+                 parts' params differ in are logged), its kernels-vs-plain
+                 step at 2 layers (trunc2x2, pareto:0.01; gap 0 per rank),
+                 the compressed all-reduce (8 error-feedback steps) on
+                 CUDA tensors, the pipeline over stage=2 with trunc2x2
+                 GEMMs bit-equal to the sequential stack, and the train
+                 CLI with --mesh model=2,data=2 for 2 steps;
+ 18. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -246,7 +269,7 @@ outside autotune came from a cache.
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 18. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+ 19. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -255,19 +278,19 @@ outside autotune came from a cache.
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 19. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+ 20. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 20. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+ 21. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 21. codesign  — the co-design core on the card: the VGG16 7 nm space's
+ 22. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 19's vgg_mini), each GA design within
+                 kernels on phase 21's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -282,7 +305,8 @@ forward; `path` names the run its launches come from,
 conditioned and MoE model's runs, summed; `train_launches` those of the
 train phase's 6 steps; `autotune_launches` those of the autotune phase's
 runs under its tuned cache; `tp_launches` each model=2 rank's in the tp
-phase's serving run);
+phase's serving run; `dist_train_launches` each data=2 rank's in the
+dist_train phase's 3 steps);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
 """
@@ -1948,9 +1972,10 @@ def tp_kernels(dev) -> dict:
 def gemm_recorder(want: list | None = None, store: bool = True):
     """Record every GEMM of the model (`approx.layers.gemm`): its input
     and its whole output (a rank's column block gathered, which adds a
-    collective every rank runs alike).  With `want` (another run's
-    record) each call is compared as it comes and only (input gap, output
-    gap) is kept; with `store` False nothing is (the ranks > 0)."""
+    collective every rank runs alike), outside autograd.  With `want`
+    (another run's record) each call is compared as it comes and only
+    (input gap, output gap) is kept; with `store` False nothing is (the
+    ranks > 0)."""
     import torch
     from repro_torch.approx import layers as AL
     orig = AL.gemm
@@ -1958,16 +1983,17 @@ def gemm_recorder(want: list | None = None, store: bool = True):
 
     def gemm(x, w, spec=None, policy=None, gather=True):
         y = orig(x, w, spec, policy, gather)
-        full = y if gather else AL.gather_cols(y, AL.column_split(w))
-        if not store:
-            pass
-        elif want is None:
-            rec.append((x.detach().float().clone(),
-                        full.detach().float().clone()))
-        elif len(rec) < len(want):
-            wx, wy = want[len(rec)]
-            rec.append(((x.float() - wx).abs().max().item(),
-                        (full.float() - wy).abs().max().item()))
+        with torch.no_grad():   # out of a training step's graph
+            full = y if gather else AL.gather_cols(y, AL.column_split(w))
+            if not store:
+                pass
+            elif want is None:
+                rec.append((x.detach().float().clone(),
+                            full.detach().float().clone()))
+            elif len(rec) < len(want):
+                wx, wy = want[len(rec)]
+                rec.append(((x.float() - wx).abs().max().item(),
+                            (full.float() - wy).abs().max().item()))
         return y
 
     AL.gemm = gemm
@@ -3404,8 +3430,10 @@ def _finite(values) -> bool:
     return all(math.isfinite(v) for v in values)
 
 
-def step_breakdown(fn) -> tuple[float, dict, list, tuple] | None:
-    """One profiled call of `fn` (after a warm-up call): its device ms,
+def step_breakdown(fn, warm: bool = True
+                   ) -> tuple[float, dict, list, tuple] | None:
+    """One profiled call of `fn` (after a warm-up call, unless `warm` is
+    False): its device ms,
     summed by kind (the int8 plane-0 GEMMs, `quantize_rows`, other GEMMs
     - cuBLAS's f32 products of the straight-through backward and the
     attention's -, everything else), the 6 costliest device rows as
@@ -3417,7 +3445,8 @@ def step_breakdown(fn) -> tuple[float, dict, list, tuple] | None:
     import torch
     from torch.autograd import DeviceType
     from repro_torch.approx import gemm
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -3678,6 +3707,558 @@ def train_check_phase(dev) -> None:
             f"{vals[1]:.4f}, finite")
     torch.cuda.empty_cache()
     log(f"[train-check] {time.perf_counter() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# sharded training: worlds of ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_TIMEOUT_S = 600.0
+#: the worlds' depths, of 22 layers at full width: data=2 cut to 6 for
+#: the script's time limit (on an H100 80GB HBM3 at 700 W its 3 steps,
+#: the save and the restore of 13.2 GB took 115-162 s at 22 layers, 92 s
+#: at 11: ranks sharing the card move every byte through the host),
+#: model=2,data=2 to 4 for memory and time (four ranks on one card), and
+#: the kernels-vs-plain check's
+DIST_LAYERS, DIST_GRID_LAYERS, DIST_CHECK_LAYERS = 6, 4, 2
+DIST_CKPT = ROOT / "build" / "dist_train_ckpt"
+
+
+def dist_options(steps: int = TRAIN_STEPS):
+    """The train phase's options (the CLI's for a 6-step run), FSDP on."""
+    from repro_torch.train import train_step as ts
+    return ts.StepOptions(lr=3e-4, total_steps=steps,
+                          warmup_steps=max(10, steps // 20), fsdp=True)
+
+
+def dist_batches(cfg, dev, steps: int = DIST_STEPS) -> list:
+    """The train phase's global batches of steps 0..steps-1."""
+    from repro_torch.data import synthetic
+    from repro_torch.train import train_step as ts
+    return [ts.batch_to(synthetic.batch_for(cfg, "train", TRAIN_BATCH,
+                                            TRAIN_SEQ, i, 0), dev)
+            for i in range(steps)]
+
+
+def code_flips(a: dict, b: dict) -> int:
+    """int8 weight codes that differ between two whole params trees, each
+    GEMM weight quantized per column as the forward does."""
+    import numpy as np
+    from repro_torch.approx import quant
+    from repro_torch.train import checkpoint as ckpt
+    bb = dict(ckpt._named_leaves(b))
+    flips = 0
+    for name, w in ckpt._named_leaves(a):
+        if w.ndim < 2 or "norm" in name or "ln" in name:
+            continue
+        for i in np.ndindex(*w.shape[:-2]):
+            flips += int((quant.quantize(w[i], axis=1)[0] !=
+                          quant.quantize(bb[name][i], axis=1)[0]).sum())
+    return flips
+
+
+def dist_steps(mesh, cfg, dev, ckpt_after: int | None = None,
+               profile: bool = False, witness: bool = False) -> dict:
+    """`make_train_step` on this rank: DIST_STEPS steps on the train
+    phase's global batches, each step's loss, gradient norm, kernel
+    launches, host seconds and collectives (calls, bytes, host seconds
+    by kind), the peak memory; a save after step `ckpt_after`; the last
+    step profiled (device ms by kind) with `profile`.  With `witness`,
+    rank 0 also takes one device's step from the world's whole state
+    before each step after the first (`make_train_fns`, the state
+    gathered by every rank; step 1 starts from the initial state, as
+    the free-running one-device run does) and keeps its loss and gnorm,
+    the largest param gap after the step and the int8 weight codes that
+    differ."""
+    import torch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    init, step, st_sh = ts.make_train_step(cfg, dist_options(), mesh)
+    one_step = ts.make_train_fns(cfg, dist_options(), dev)[1] \
+        if witness else None
+    batches = dist_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    box = {"state": init(0)}
+    out = {"losses": [], "gnorms": [], "launches": [], "step_s": [],
+           "collectives": [], "prof": None, "witness": []}
+    for i, b in enumerate(batches):
+        def one(b=b):
+            box["state"], m = step(box["state"], b)
+            return m
+        ref = None
+        if witness and i > 0:
+            whole = opt.state_map(mesh.gather_leaf, box["state"], st_sh)
+            if mesh.rank == 0:
+                ref = one_step(whole, b)
+            del whole
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        if profile and i == len(batches) - 1:
+            res = {}
+
+            def keep(res=res):
+                res["m"] = one()
+            prof, n = counted(lambda: step_breakdown(keep, warm=False))
+            m = res["m"]
+            out["prof"] = prof and (prof[0], prof[1])
+        else:
+            m, n = counted(one)
+        out["losses"].append(m["loss"].item())
+        out["gnorms"].append(m["gnorm"].item())
+        out["step_s"].append(time.perf_counter() - t0)
+        out["launches"].append(n)
+        out["collectives"].append({k: (mesh.calls[k], mesh.bytes[k],
+                                       mesh.seconds[k])
+                                   for k in mesh.calls})
+        if witness and i > 0:
+            got = opt.state_map(mesh.gather_leaf, box["state"]["params"],
+                                st_sh["params"])
+            if ref is not None:
+                (st1, m1) = ref
+                out["witness"].append({
+                    "loss": m1["loss"].item(), "gnorm": m1["gnorm"].item(),
+                    "param_gap": max(_param_gaps(got, st1["params"])
+                                     .values()),
+                    "code_flips": code_flips(got, st1["params"])})
+            del got, ref
+        if ckpt_after is not None and i + 1 == ckpt_after:
+            t0 = time.perf_counter()
+            ckpt.CheckpointManager(DIST_CKPT).save(
+                box["state"], ckpt_after, shardings=st_sh, mesh=mesh)
+            out["save_s"] = time.perf_counter() - t0
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["rank"] = mesh.rank
+    return out
+
+
+def one_device_steps(cfg, dev) -> tuple[list, list]:
+    """DIST_STEPS one-device steps (`make_train_fns`) from the worlds'
+    initial state on their batches: (losses, gradient norms)."""
+    import torch
+    from repro_torch.train import train_step as ts
+    init, step = ts.make_train_fns(cfg, dist_options(), dev)
+    st, losses, gnorms = init(0), [], []
+    for b in dist_batches(cfg, dev):
+        st, m = step(st, b)
+        losses.append(m["loss"].item())
+        gnorms.append(m["gnorm"].item())
+    del st
+    torch.cuda.empty_cache()
+    return losses, gnorms
+
+
+def dist_data_rank(mesh, cfg) -> dict:
+    """One rank of the data=2 world: full width, DIST_LAYERS layers,
+    FSDP."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dist_steps(mesh, cfg, mesh.device, ckpt_after=2, profile=True)
+
+
+def _first_part(gaps: list) -> str | None:
+    """Where a recorder's (input gap, output gap) list over one training
+    forward (each layer's seven GEMMs, then the head) first parts from
+    its reference (an input of wo is the attention's output)."""
+    for i, (gx, gy) in enumerate(gaps):
+        if gx or gy:
+            name = f"layer {i // 7}: {TP_OPS[i % 7]}" \
+                if i < len(gaps) - 1 else "lm_head"
+            return (f"GEMM {i} ({name}), {'input' if gx else 'output'} gap "
+                    f"{max(gx, gy):.3g}")
+    return None
+
+
+def _grad_gaps(a: dict, b: dict) -> dict:
+    """The leaves where two gradient trees part, and by how much; a
+    layer stack's leaves layer by layer ("['layers']['wv'][3]")."""
+    from repro_torch.train import checkpoint as ckpt
+    bb = dict(ckpt._named_leaves(b))
+    gaps = {}
+    for name, t in ckpt._named_leaves(a):
+        per = (t - bb[name]).abs()
+        if name.startswith("['layers']"):
+            for i in range(t.shape[0]):
+                gaps[f"{name}[{i}]"] = per[i].max().item()
+        else:
+            gaps[name] = per.max().item()
+    return {name: g for name, g in gaps.items() if g}
+
+
+def dist_op_witness(mesh, cfg, dev) -> dict:
+    """Step 1 of the world taken apart on this rank, op by op: which axis
+    parts from one device, and at which GEMM.  From the initial params:
+
+    * model axis: the rank's rows under the mesh's rules against one
+      device on the same rows (every GEMM's input and whole output; the
+      loss; every leaf of the rank's gradient before the data sum);
+    * rows: one device on the rank's rows against one device on the
+      whole batch, that batch's GEMM rows sliced to the rank's;
+    * data sum: the rank-row gradients of one device summed over the
+      data axis (the world's all-reduce; two ranks add once, in either
+      order alike) against one device's whole-batch gradient."""
+    import gc
+
+    import torch
+    from repro_torch.models import api
+    from repro_torch.sharding import ctx, rules
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    t0 = time.perf_counter()
+    opts = dist_options()
+    spec = api.make_spec(cfg, device=dev)
+    params = api.init_params(cfg, 0, dev)
+    b = dist_batches(cfg, dev, 1)[0]
+    dp_axes, ndp, di = ts._dp_split(mesh)
+    rows = b["tokens"].shape[0] // ndp
+    mine = {k: v.narrow(0, di * rows, rows) for k, v in b.items()}
+    weight = api.loss_mask(mine).sum() / torch.clamp(
+        api.loss_mask(b).sum(), min=1.0)
+
+    def loss(p, mb):
+        return api.loss_fn(p, mb, cfg, spec)[0]
+
+    def run(mb, w):
+        return ts._accumulate(loss, params, [mb], opts,
+                              None if w is None else [w])
+
+    # the forward's GEMMs: the backward's recompute (remat) stops early,
+    # where the first saved tensor it needs is back, so its calls differ
+    n_fwd = len(TP_OPS) * cfg.n_layers + 1
+    with gemm_recorder() as whole_rec:
+        l_one, g_one = run(b, None)
+    sliced = [tuple(t.narrow(0, di * (t.shape[0] // ndp), t.shape[0] // ndp)
+                    for t in xy) for xy in whole_rec[:n_fwd]]
+    del whole_rec
+    with gemm_recorder() as want:
+        l_rows, g_rows = run(mine, weight)
+    del want[n_fwd:]
+    # the same one-device run again: what parts between two runs alike
+    noise = _grad_gaps(run(mine, weight)[1], g_rows)
+    rows_gaps = [((x - sx).abs().max().item(), (y - sy).abs().max().item())
+                 for (x, y), (sx, sy) in zip(want, sliced)]
+    del sliced
+    with ctx.use_rules(mesh, rules.logical_rules(mesh)), \
+            gemm_recorder(want) as got:
+        l_world, g_world = run(mine, weight)
+    del want
+    model_grad = _grad_gaps(g_world, g_rows)
+    del g_world
+    summed = opt.tree_map(lambda t: mesh.all_reduce(t, dp_axes), g_rows)
+    data_grad = _grad_gaps(summed, g_one)
+    l_sum = mesh.all_reduce(l_rows.clone(), dp_axes).item()
+    assert len(got) == len(rows_gaps) == n_fwd, (len(got), len(rows_gaps))
+    out = {"rank": mesh.rank, "rows": rows, "gemms": n_fwd,
+           "model_first": _first_part(got),
+           "model_loss": (l_world.item(), l_rows.item()),
+           "model_grad": model_grad, "noise": noise,
+           "rows_first": _first_part(rows_gaps),
+           "data_loss": (l_sum, l_one.item()), "data_grad": data_grad}
+    del params, g_rows, g_one, summed
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_kernels_vs_plain(mesh, dev) -> dict:
+    """One step at DIST_CHECK_LAYERS layers through the kernels and one
+    through the plain versions from the same state, under trunc2x2 and
+    pareto:0.01, on this rank: loss, gradient norm and every whole param
+    gap (limit 0)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
+                             kernel_policy="pallas", attn_impl="chunked",
+                             dtype="float32", n_layers=DIST_CHECK_LAYERS)
+    b = dist_batches(cfg, dev, 1)[0]
+    gaps = {}
+    for mult in (MULT, CNN_MULT):
+        res = {}
+        for policy in ("pallas", "xla"):
+            c = dataclasses.replace(cfg, mult=mult, kernel_policy=policy)
+            init, step, st_sh = ts.make_train_step(c, dist_options(), mesh)
+            st, m = step(init(1), b)
+            res[policy] = (opt.state_map(mesh.gather_leaf, st["params"],
+                                         st_sh["params"]), m)
+        (pk, mk), (px, mx) = res["pallas"], res["xla"]
+        g = _param_gaps(pk, px)
+        gaps[mult] = {"loss": abs(mk["loss"].item() - mx["loss"].item()),
+                      "gnorm": abs(mk["gnorm"].item() - mx["gnorm"].item()),
+                      "param": max(g.values())}
+    return gaps
+
+
+def dist_compress_pipeline(mesh, dev) -> dict:
+    """The compressed all-reduce and 8 error-feedback steps over the data
+    axis on CUDA tensors, and `pipeline_apply` over a stage=2 mesh of
+    these ranks whose stage is tanh(AL.gemm(x, w_i, trunc2x2)) at d 2048
+    (the kernels inside the pipeline), against the sequential stack."""
+    import torch
+    from repro_torch.approx import gemm as G
+    from repro_torch.approx import layers as AL
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.sharding import compress, pipeline
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+    n = mesh.axis_size("data")
+    r = mesh.axis_index("data")
+    xs = torch.randn((n, 1 << 16), generator=gen, device=dev)
+    got = compress.compressed_allreduce(xs[r], mesh, "data")
+    want = xs.sum(0)
+    out = {"sum_err": (got - want).abs().max().item(),
+           "sum_tol": 0.05 * want.abs().max().item(),
+           "sum": got.cpu()}
+    g = torch.randn((n, 1 << 14), generator=gen, device=dev)
+    e = torch.zeros_like(g[r])
+    acc = torch.zeros_like(g[r], dtype=torch.float64)
+    for _ in range(8):
+        o, e = compress.ef_compressed_allreduce(g[r], e, mesh, "data")
+        acc += o.double()
+    want = 8 * g.sum(0).double()
+    out["ef_rel"] = ((acc - want).abs().mean() /
+                     (want.abs().mean() + 1e-6)).item()
+    stage = meshmod.mesh_from_axes((("stage", 2),
+                                    ("data", mesh.size // 2)))
+    spec = G.spec_from_name(MULT).with_policy("pallas").to(dev)
+    w = torch.randn((2, 2048, 2048), generator=gen, device=dev) * 2048 ** -.5
+    x = torch.randn((4, 64, 2048), generator=gen, device=dev)
+
+    def stage_fn(wi, h):
+        return torch.tanh(AL.gemm(h, wi, spec))
+
+    piped, n_k = counted(lambda: pipeline.pipeline_apply(stage_fn, w, x,
+                                                         stage))
+    seq = x
+    for i in range(2):
+        seq = stage_fn(w[i], seq)
+    out["pipeline_equal"] = bool(torch.equal(piped, seq))
+    out["pipeline_launches"] = n_k
+    return out
+
+
+def dist_grid_rank(mesh, cfg) -> dict:
+    """One rank of the model=2,data=2 world: DIST_GRID_LAYERS layers at
+    full width, FSDP, step 1 taken apart first; the kernels-vs-plain
+    check; the compressed all-reduce and the pipeline on CUDA tensors;
+    the train CLI for 2 steps with --mesh model=2,data=2 (rank 0's
+    output)."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.launch import train as launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    out = {"op_witness": dist_op_witness(mesh, cfg, dev)}
+    out["steps"] = dist_steps(mesh, cfg, dev, witness=True)
+    out["check"] = dist_kernels_vs_plain(mesh, dev)
+    out["compress"] = dist_compress_pipeline(mesh, dev)
+    argv = ["--arch", "tinyllama-1.1b", "--mult", MULT, "--kernel-policy",
+            "pallas", "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--log-every", "1", "--n-layers",
+            str(DIST_GRID_LAYERS), "--mesh", "model=2,data=2"]
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc, n = counted(lambda: launch.main(argv))
+    out["cli"] = {"rc": rc, "launches": n, "text": text.getvalue(),
+                  "s": time.perf_counter() - t0, "argv": argv}
+    return out
+
+
+def _leaf_gaps(gaps: dict) -> str:
+    """How many leaves part, and the largest few gaps."""
+    top = sorted(gaps.items(), key=lambda x: -x[1])[:4]
+    return f"{len(gaps)}" + (" (" + ", ".join(
+        f"{n} {g:.3g}" for n, g in top) + ")" if top else "")
+
+
+def _coll(c: dict) -> str:
+    return ", ".join(f"{k} {n} calls {b / 1e9:.3f} GB {t:.2f} s"
+                     for k, (n, b, t) in c.items() if n)
+
+
+def dist_train_phase(dev, card: str) -> dict:
+    """Sharded training on the card: worlds of ranks sharing it over gloo
+    (`launch.mesh.spawn`, as the tp phase's).  data=2 with FSDP at full
+    width and DIST_LAYERS layers (the train phase's options, seed and
+    global 8 x 128 batches), 3 steps: step 1's loss and gradient norm
+    within rtol 1e-6 / 1e-5 of one device's, steps 2-3 within 2e-4;
+    each rank's launches per step equal `train_want(cfg, 1)`; per rank
+    peak memory, s/step, collectives per step and the last step's device
+    ms by kind.  Rank 0 saves after step 2; this process restores it on
+    one device (elastic, 2 ranks to 1), takes step 3, and holds its loss
+    to the world's within 2e-4.  Then model=2,data=2 at DIST_GRID_LAYERS
+    layers: step 1 taken apart op by op on every rank (`dist_op_witness`:
+    the model axis, the rows and the data sum each against one device),
+    step 1 held to one device on the same tolerances, steps 2-3's loss
+    within 2e-4 and to one device's step from the world's state (the
+    free-running gradient norms part by int8 code flips: logged); its
+    kernels-vs-plain check (gap 0 per rank), the compressed
+    all-reduce and the pipeline on CUDA tensors, and the CLI on the
+    world.  Returns each rank's launches in the data=2 run."""
+    import dataclasses
+    import gc
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("tinyllama-1.1b", mult=MULT,
+                             kernel_policy="pallas", attn_impl="chunked",
+                             dtype="float32", n_layers=DIST_LAYERS)
+    one_l, one_g = one_device_steps(cfg, dev)
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = meshmod.spawn(dist_data_rank, "data=2", device=dev.type,
+                          timeout_s=DIST_TIMEOUT_S, args=(cfg,))
+    world_s = time.perf_counter() - t0
+    want1 = train_want(cfg, 1)
+    for r in ranks:
+        log(f"[dist] data=2 rank {r['rank']} (FSDP, {cfg.n_layers} of 22 "
+            f"layers, global {TRAIN_BATCH} x {TRAIN_SEQ}, ranks sharing "
+            f"{card}): losses {r['losses']} (one device {one_l}), gnorms "
+            f"{r['gnorms']} (one device {one_g}); s/step "
+            f"{[round(x, 2) for x in r['step_s']]}; peak "
+            f"{r['peak_gb']:.2f} GB; save {r.get('save_s', 0):.1f}s")
+        for i, c in enumerate(r["collectives"]):
+            log(f"[dist] data=2 rank {r['rank']} step {i + 1}: {_coll(c)}")
+        if r["prof"] is not None:
+            total, kinds = r["prof"]
+            log(f"[dist] data=2 rank {r['rank']} step {DIST_STEPS} device "
+                f"{total:.1f} ms: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in kinds.items()) + " ms")
+        else:
+            log(f"[dist] data=2 rank {r['rank']}: device time not measured "
+                f"(the profiler saw no device time)")
+        np.testing.assert_allclose(r["losses"][0], one_l[0], rtol=1e-6)
+        np.testing.assert_allclose(r["gnorms"][0], one_g[0], rtol=1e-5)
+        np.testing.assert_allclose(r["losses"][1:], one_l[1:], rtol=2e-4)
+        np.testing.assert_allclose(r["gnorms"][1:], one_g[1:], rtol=2e-4)
+        for n in r["launches"]:
+            assert n == want1, (r["rank"], n, want1)
+    launches = [{k: sum(n[k] for n in r["launches"]) for k in want1}
+                for r in ranks]
+    # elastic: the world's step-2 checkpoint onto one device, step 3
+    init, step = ts.make_train_fns(cfg, dist_options(), dev)
+    t0 = time.perf_counter()
+    state, at = ckpt.CheckpointManager(DIST_CKPT).restore(init(0))
+    load_s = time.perf_counter() - t0
+    assert at == 2
+    _, m = step(state, dist_batches(cfg, dev)[2])
+    one3 = m["loss"].item()
+    log(f"[dist] elastic restore of the data=2 world's step 2 on one "
+        f"device ({load_s:.1f}s): step 3 loss {one3} vs the world's "
+        f"{ranks[0]['losses'][2]} (rtol 2e-4)")
+    np.testing.assert_allclose(one3, ranks[0]["losses"][2], rtol=2e-4)
+    del state, m, init, step
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dist] data=2 world {world_s:.1f}s; phase so far "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+    # model=2,data=2 at DIST_GRID_LAYERS layers, against one device there
+    grid_cfg = dataclasses.replace(cfg, n_layers=DIST_GRID_LAYERS)
+    one = list(zip(*one_device_steps(grid_cfg, dev)))
+    t0 = time.perf_counter()
+    grid = meshmod.spawn(dist_grid_rank, "model=2,data=2", device=dev.type,
+                         timeout_s=DIST_TIMEOUT_S, args=(grid_cfg,))
+    grid_s = time.perf_counter() - t0
+    want_g = train_want(grid_cfg, 1)
+    for r in grid:
+        s = r["steps"]
+        log(f"[dist] model=2,data=2 rank {s['rank']} ({DIST_GRID_LAYERS} of "
+            f"22 layers, FSDP): losses {s['losses']} (one device "
+            f"{[x[0] for x in one]}), gnorms {s['gnorms']} (one device "
+            f"{[x[1] for x in one]}); s/step "
+            f"{[round(x, 2) for x in s['step_s']]}; peak "
+            f"{s['peak_gb']:.2f} GB; step 1 {_coll(s['collectives'][0])}; "
+            f"kernels vs plain {r['check']}")
+        np.testing.assert_allclose(s["losses"][0], one[0][0], rtol=1e-6)
+        np.testing.assert_allclose(s["gnorms"][0], one[0][1], rtol=1e-5)
+        np.testing.assert_allclose(s["losses"][1:], [x[0] for x in one[1:]],
+                                   rtol=2e-4)
+        for i, w in enumerate(s["witness"], 1):
+            # each step against one device's step from the world's state
+            log(f"[dist] model=2,data=2 step {i + 1} against one device's "
+                f"step from the world's state: loss {s['losses'][i]} vs "
+                f"{w['loss']}, gnorm {s['gnorms'][i]} vs {w['gnorm']}, "
+                f"largest param gap {w['param_gap']:.3g}, int8 weight "
+                f"codes that differ {w['code_flips']}")
+            np.testing.assert_allclose(s["losses"][i], w["loss"], rtol=1e-6)
+            np.testing.assert_allclose(s["gnorms"][i], w["gnorm"], rtol=1e-5)
+        assert len(s["witness"]) == (DIST_STEPS - 1 if s["rank"] == 0
+                                     else 0)
+        for n in s["launches"]:
+            assert n == want_g, (s["rank"], n, want_g)
+        for mult, gap in r["check"].items():
+            assert gap == {"loss": 0.0, "gnorm": 0.0, "param": 0.0}, (
+                s["rank"], mult, gap)
+        w = r["op_witness"]
+        log(f"[dist] model=2,data=2 rank {w['rank']} step 1 taken apart "
+            f"({w['gemms']} GEMMs recorded, {w['s']:.1f}s): model axis (the world against "
+            f"one device on the rank's {w['rows']} rows): first part "
+            f"{w['model_first']}, loss {w['model_loss'][0]!r} vs "
+            f"{w['model_loss'][1]!r}, gradient leaves that part "
+            f"{_leaf_gaps(w['model_grad'])}; one device run twice on those "
+            f"rows: gradient leaves that part {_leaf_gaps(w['noise'])}; "
+            f"rows (one device on {w['rows']} rows against the whole "
+            f"batch's): first part {w['rows_first']}; data sum (the "
+            f"rank-row gradients summed against one device's whole batch): "
+            f"loss {w['data_loss'][0]!r} vs {w['data_loss'][1]!r}, gradient "
+            f"leaves that part {_leaf_gaps(w['data_grad'])}")
+        # the model axis gives one device's bits: forward and gradients
+        assert w["model_first"] is None and w["model_grad"] == {} and \
+            w["model_loss"][0] == w["model_loss"][1], w
+        c = r["compress"]
+        log(f"[dist] model=2,data=2 rank {s['rank']}: compressed all-reduce "
+            f"over data on CUDA tensors max |err| {c['sum_err']:.4g} "
+            f"(bound {c['sum_tol']:.4g}); 8 error-feedback steps' running "
+            f"sum rel {c['ef_rel']:.4g} (bound 0.02); pipeline over stage=2 "
+            f"(trunc2x2 GEMMs at d 2048) equal to the sequential stack "
+            f"{c['pipeline_equal']}, launches {c['pipeline_launches']}")
+        assert c["sum_err"] < c["sum_tol"] and c["ef_rel"] < 0.02, c
+        assert c["pipeline_equal"], c
+        assert c["pipeline_launches"]["approx_qgemm_plane0"] > 0, c
+    # ranks m and 2 + m form model index m's data group: one sum each
+    for m in range(2):
+        assert np.array_equal(grid[m]["compress"]["sum"],
+                              grid[2 + m]["compress"]["sum"]), m
+    cli = grid[0]["cli"]
+    for line in cli["text"].splitlines():
+        log(f"[dist] cli: {line}")
+    bf16 = configs.get_config("tinyllama-1.1b", mult=MULT,
+                              kernel_policy="pallas",
+                              n_layers=DIST_GRID_LAYERS)
+    losses = [float(x) for x in re.findall(r"loss\s+(\S+) gnorm",
+                                           cli["text"])]
+    assert all(r["cli"]["rc"] == 0 for r in grid)
+    assert cli["launches"] == train_want(bf16, 2), cli["launches"]
+    assert len(losses) == 2 and _finite(losses), cli["text"]
+    assert all(r["cli"]["text"] == "" for r in grid[1:]), "ranks > 0 printed"
+    log(f"[dist] cli: python -m repro_torch.launch.train "
+        f"{' '.join(cli['argv'])} on each of 4 ranks: {cli['s']:.1f}s, "
+        f"launches {cli['launches']}; model=2,data=2 world {grid_s:.1f}s; "
+        f"phase {time.perf_counter() - t_phase:.1f}s")
+    return launches
 
 
 def attention_witness(runs: dict, tokens, true_len, ex: dict) -> None:
@@ -4378,6 +4959,12 @@ def main() -> int:
         tp_hold_mamba(tp)
         log(f"[done] --tp-only {time.perf_counter() - t_start:.1f}s")
         return 0
+    if sys.argv[1:] == ["--dist-only"]:
+        # the train phase (its one-device losses) and the dist_train phase
+        train_phase(dev, card)
+        dist_train_phase(dev, card)
+        log(f"[done] --dist-only {time.perf_counter() - t_start:.1f}s")
+        return 0
     errs, stacked_launches = check_kernels(dev)
     table = time_kernels(dev, cfg, errs)
     log(f"[kernels] {time.perf_counter() - t_start:.1f}s")
@@ -4403,6 +4990,8 @@ def main() -> int:
     train_launches = train_phase(dev, card)
     train_check_phase(dev)
     log(f"[train] {time.perf_counter() - t_start:.1f}s")
+    dist_launches = dist_train_phase(dev, card)
+    log(f"[dist] {time.perf_counter() - t_start:.1f}s")
     check_phase(dev, cfg, MULT, "flash")
     check_phase(dev, cfg, CNN_MULT, "chunked")
     log(f"[serve+check] {time.perf_counter() - t_start:.1f}s")
@@ -4426,6 +5015,7 @@ def main() -> int:
         row["moe_launches"] = {
             arch: n[row["name"]] for arch, n in moe_launches.items()}
         row["train_launches"] = train_launches[row["name"]]
+        row["dist_train_launches"] = [r[row["name"]] for r in dist_launches]
         row["tp_launches"] = [r[row["name"]] for r in tp["launches"]]
         row["autotune_launches"] = autotune_launches[row["name"]]
     assert_untuned(untuned)

@@ -310,6 +310,13 @@ def _tp_mesh(n: int):
     return mesh, _split(mesh, n)
 
 
+def block_grad(g: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole gradient of a column-parallel output from the rank's
+    block of it, gathered over `mesh`'s model axis; `g` itself where
+    `mesh` is None (the output was whole)."""
+    return g if mesh is None else mesh.all_gather(g.contiguous())
+
+
 #: Profiler label of the per-call weight prep in training's forward: the
 #: int8 quantize of a raw float weight and its K-major copy for the
 #: kernels (a prepared weight keeps both, so serving runs neither).
@@ -353,12 +360,16 @@ def _approx_forward(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
 
 class _ApproxMatmul(torch.autograd.Function):
     """Forward through the approximate multiplier; straight-through
-    backward on the float operands."""
+    backward on the float operands.  A column-parallel call that returns
+    the rank's block (`gather=False`) gets the block's gradient: the
+    backward gathers it whole over the model group and computes one
+    device's dx and dw from the whole g, x and w (`block_grad`)."""
 
     @staticmethod
     def forward(ctx, x, w, spec, gather=True):
         ctx.save_for_backward(x, w)
         mesh, split = _tp_mesh(w.shape[-1])
+        ctx.block_of = mesh if split > 1 and not gather else None
         with torch.profiler.record_function(WEIGHT_PREP):
             # per-column scales: the rank's block quantizes to the bits
             # of the whole weight's block
@@ -371,6 +382,7 @@ class _ApproxMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        g = block_grad(g, ctx.block_of)
         gf, xf, wf = g.float(), x.float(), w.float()
         dx = torch.einsum("...n,kn->...k", gf, wf).to(x.dtype)
         dw = torch.einsum("...k,...n->kn", xf, gf).to(w.dtype)

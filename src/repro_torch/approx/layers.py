@@ -51,6 +51,51 @@ def gather_cols(y: torch.Tensor, split: int) -> torch.Tensor:
     return ctx.active_mesh().all_gather(y)
 
 
+class _ColumnMatmul(torch.autograd.Function):
+    """The exact GEMM run column-parallel: x times the rank's column
+    block of the float weight, gathered unless `gather` is False.  The
+    backward takes the whole gradient (`gemm_mod.block_grad`) and runs
+    one device's matmul backward on the whole x and w, so dx and dw have
+    one device's bits."""
+
+    @staticmethod
+    def forward(ctx, x, wf, mesh, gather):
+        ctx.save_for_backward(x, wf)
+        ctx.block_of = None if gather else mesh
+        y = torch.matmul(x, mesh.shard_cols(wf).to(x.dtype))
+        return mesh.all_gather(y) if gather else y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wf = ctx.saved_tensors
+        g = gemm_mod.block_grad(g, ctx.block_of)
+        xd = x.detach().requires_grad_(ctx.needs_input_grad[0])
+        wd = wf.detach().requires_grad_(ctx.needs_input_grad[1])
+        wanted = [t for t in (xd, wd) if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(
+                torch.matmul(xd, wd.to(xd.dtype)), wanted, g))
+        return (next(grads) if xd.requires_grad else None,
+                next(grads) if wd.requires_grad else None, None, None)
+
+
+class _BlockBias(torch.autograd.Function):
+    """y (the rank's column block of a column-parallel output) plus the
+    rank's block of the whole bias b; b's gradient is one device's: the
+    whole gradient summed to b's shape."""
+
+    @staticmethod
+    def forward(ctx, y, b, mesh):
+        ctx.mesh, ctx.b_meta = mesh, (tuple(b.shape), b.dtype)
+        return y + mesh.shard_cols(b)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype = ctx.b_meta
+        whole = gemm_mod.block_grad(g, ctx.mesh)
+        return g, whole.sum_to_size(shape).to(dtype), None
+
+
 def gemm(x: torch.Tensor, w, spec: gemm_mod.MultSpec | None = None,
          policy: str | None = None, gather: bool = True) -> torch.Tensor:
     """x (..., k) @ w (k, n), approximate if the spec says so.  `policy`
@@ -60,14 +105,16 @@ def gemm(x: torch.Tensor, w, spec: gemm_mod.MultSpec | None = None,
     axis runs column-parallel, each rank on its block of columns, exact
     and approximate alike; the output is all-gathered, or, with
     `gather=False`, the rank's block comes back (`column_split` says
-    which)."""
+    which).  Gradients are one device's either way."""
     if spec is None or spec.is_exact:
         wf = _as_weight(w, x.dtype)
         mesh, split = gemm_mod._tp_mesh(_out_dim(w))
-        if split > 1 and not (gemm_mod.is_prepared(w) and w.tp > 1):
-            wf = mesh.shard_cols(wf)
-        y = torch.matmul(x, wf.to(x.dtype))
-        return gather_cols(y, split) if gather else y
+        if split > 1 and gemm_mod.is_prepared(w) and w.tp > 1:
+            y = torch.matmul(x, wf.to(x.dtype))   # `w` is the rank's block
+            return gather_cols(y, split) if gather else y
+        if split > 1:
+            return _ColumnMatmul.apply(x, wf, mesh, gather)
+        return torch.matmul(x, wf.to(x.dtype))
     if policy is not None:
         spec = spec.with_policy(policy)
     if gemm_mod.is_prepared(w):
@@ -82,12 +129,12 @@ def dense(x: torch.Tensor, w, b: torch.Tensor | None = None,
     MAC multipliers; accumulators/adders are exact).  With `gather=False`
     a column-parallel output takes the rank's block of the bias."""
     y = gemm(x, w, spec, policy, gather)
-    if b is not None:
-        if not gather and column_split(w) > 1:
-            from repro_torch.sharding import ctx
-            b = ctx.active_mesh().shard_cols(b)
-        y = y + b
-    return y
+    if b is None:
+        return y
+    if not gather and column_split(w) > 1:
+        from repro_torch.sharding import ctx
+        return _BlockBias.apply(y, b, ctx.active_mesh())
+    return y + b
 
 
 def _im2col(x: torch.Tensor, r: int, s: int, stride: int, padding: int

@@ -1,10 +1,11 @@
 """The port's device mesh: named axes over the ranks of a
 `torch.distributed` process group, one process per rank.
 
-A `Mesh` has named dims ("data", "model", and "pod" where asked), the
-size of each, this rank's coordinate on each, and one process group per
-axis (the ranks that differ only along it).  Ranks are laid out row-major
-over (pod, data, model): the ranks of a model group are consecutive.
+A `Mesh` has named dims ("data", "model", and "pod" or a pipeline's
+"stage" where asked), the size of each, this rank's coordinate on each,
+and one process group per axis (the ranks that differ only along it).
+Ranks are laid out row-major over (stage, pod, data, model): the ranks
+of a model group are consecutive.
 The sharding rules (`sharding/rules.py`) read only `shape` and
 `axis_names`, so `make_abstract_mesh` gives them a mesh with no group.
 
@@ -18,11 +19,31 @@ process group's world size.  A world is launched with `torchrun
 Backend: gloo on the CPU, and wherever ranks share a CUDA device (NCCL
 refuses two ranks on one device); NCCL only where each rank of a host has
 a device of its own, a layout no machine of this project's has tested.
-`all_gather` is the one collective helper of the serving path; it counts
-its calls and their host seconds.  Gloo gathers CUDA tensors itself (it
-stages them through host memory inside the collective, and an H100's
-ranks were seen to take that path), so the helper hands it the device
-tensors.  Nothing falls back to one device or the CPU when a group or a
+
+Collectives are methods of the mesh, each counting its calls, bytes
+moved and host seconds per kind (`calls`, `bytes`, `seconds`; `gathers`
+and `collective_s` are the all-gather count and the total seconds the
+serving engines read):
+
+* `all_gather` concatenates the ranks' blocks along a dim; under
+  autograd its backward hands each rank its block of the incoming
+  gradient (every op after a gather runs alike on each rank of the
+  axis, so each holds the same whole gradient);
+* `all_reduce` sums over one axis or a tuple of axes (the train step's
+  gradients over (pod, data));
+* `gather_leaf` / `block` turn a leaf sharded by a spec (`sharding.rules`)
+  into the whole tensor and back;
+* `ppermute` sends each rank's tensor to its partner along an axis, as
+  `lax.ppermute` does (ranks with no source get zeros).
+
+Gloo gathers and reduces CUDA tensors itself (it stages them through
+host memory inside the collective; an H100's ranks were seen to take
+that path), so those helpers hand it the device tensors.  Its
+point-to-point send and receive are CPU-only (torch.distributed's
+backend table), so `ppermute` under gloo always stages a device tensor
+through host memory explicitly.  There is no reduce-scatter: gloo has
+none, and the train step all-reduces and keeps the rank's block.
+Nothing falls back to one device or the CPU when a group or a
 collective fails: the error propagates.
 
 `make_production_mesh` (the JAX package's 256/512-chip pod layouts)
@@ -48,6 +69,29 @@ import torch.distributed as dist
 from repro_torch.core.target import MESH_AXIS_NAMES, parse_mesh_spec
 
 MESH_ENV_VAR = "REPRO_MESH"
+#: The mesh's axes, outermost first: a pipeline's "stage" axis leads the
+#: serving target's (`core.target.MESH_AXIS_NAMES`).  A stage axis is a
+#: mesh axis, not a die layout, so `HardwareTarget` never names one.
+AXIS_NAMES = ("stage", *MESH_AXIS_NAMES)
+
+
+def parse_spec(spec: str | None) -> tuple[tuple[str, int], ...]:
+    """(name, size) pairs of a ``"stage=4"`` or ``"model=2,data=2"`` spec:
+    `core.target.parse_mesh_spec`'s grammar plus a leading stage axis."""
+    parts = [p for p in (spec or "").split(",") if p.strip()]
+    stage = [p for p in parts if p.partition("=")[0].strip() == "stage"]
+    axes = parse_mesh_spec(",".join(p for p in parts if p not in stage))
+    if len(stage) > 1:
+        raise ValueError(f"duplicate mesh axis 'stage' in {spec!r}")
+    if stage:
+        try:
+            n = int(stage[0].partition("=")[2])
+        except ValueError:
+            raise ValueError(f"bad size for mesh axis 'stage' in {spec!r}")
+        if n < 1:
+            raise ValueError(f"mesh axis 'stage' must be >= 1, got {n}")
+        axes = (("stage", n), *axes)
+    return axes
 
 
 def _world() -> tuple[int, int]:
@@ -56,6 +100,25 @@ def _world() -> tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+class _AllGather(torch.autograd.Function):
+    """`Mesh.all_gather` under autograd: the backward keeps this rank's
+    block of the whole gradient (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.block = (mesh.axis_index(axis), x.shape[dim], dim)
+        return mesh._gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, width, dim = ctx.block
+        return g.narrow(dim, i * width, width), None, None, None
+
+
+#: the kinds of collective a mesh counts
+KINDS = ("all_gather", "all_reduce", "ppermute")
 
 
 class Mesh:
@@ -75,12 +138,31 @@ class Mesh:
         self.groups = groups or {}
         self.backend = backend
         self.device = device
-        #: all-gathers run and their host seconds (`all_gather`)
-        self.gathers = 0
-        self.collective_s = 0.0
+        self.reset_counts()
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
+
+    def reset_counts(self) -> None:
+        """Zero the collectives' calls, bytes and host seconds."""
+        self.calls = dict.fromkeys(KINDS, 0)
+        self.bytes = dict.fromkeys(KINDS, 0)
+        self.seconds = dict.fromkeys(KINDS, 0.0)
+
+    @property
+    def gathers(self) -> int:
+        """All-gathers run (the serving engines' count)."""
+        return self.calls["all_gather"]
+
+    @property
+    def collective_s(self) -> float:
+        """Host seconds in every collective."""
+        return sum(self.seconds.values())
+
+    def _count(self, kind: str, nbytes: int, t0: float) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += int(nbytes)
+        self.seconds[kind] += time.perf_counter() - t0
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -100,18 +182,94 @@ class Mesh:
     def all_gather(self, x: torch.Tensor, axis: str = "model",
                    dim: int = -1) -> torch.Tensor:
         """Concatenate every rank's `x` along `dim`, in the axis's rank
-        order (the blocks `shard_cols` hands out)."""
-        n = self.axis_size(axis)
-        if n == 1:
+        order (the blocks `shard_cols` hands out); differentiable."""
+        if self.axis_size(axis) == 1:
             return x
+        return _AllGather.apply(x, self, axis, dim % x.ndim)
+
+    def _gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        n = self.axis_size(axis)
         t0 = time.perf_counter()
         src = x.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=self.groups[axis])
         out = torch.cat(parts, dim=dim)
-        self.gathers += 1
-        self.collective_s += time.perf_counter() - t0
+        self._count("all_gather", src.numel() * src.element_size() * n, t0)
         return out
+
+    def all_reduce(self, x: torch.Tensor, axes="data") -> torch.Tensor:
+        """The sum of every rank's `x` over `axes` (an axis name or a
+        tuple of them), a new tensor; `x` is left as it was."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in axes if self.axis_size(a) > 1)
+        if not axes:
+            return x
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        for axis in axes:
+            t0 = time.perf_counter()
+            dist.all_reduce(out, group=self.groups[axis])
+            self._count("all_reduce", out.numel() * out.element_size(), t0)
+        return out
+
+    def _spec_axes(self, spec, ndim: int):
+        """(dim, axes along it, innermost first) of every dim `spec`
+        shards over an axis of size > 1."""
+        for dim, ax in enumerate(tuple(spec)[:ndim]):
+            names = () if ax is None else (
+                (ax,) if isinstance(ax, str) else tuple(ax))
+            names = tuple(a for a in names if self.axis_size(a) > 1)
+            if names:
+                yield dim, names[::-1]
+
+    def block(self, x: torch.Tensor, spec, copy: bool = True
+              ) -> torch.Tensor:
+        """This rank's block of a whole tensor under `spec` (a copy, or a
+        view with `copy` False): a dim sharded over a tuple of axes splits
+        row-major over them."""
+        for dim, names in self._spec_axes(spec, x.ndim):
+            for axis in names[::-1]:
+                n = self.axis_size(axis)
+                width = x.shape[dim] // n
+                x = x.narrow(dim, self.axis_index(axis) * width, width)
+        return x.clone() if copy else x
+
+    def gather_leaf(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """The whole tensor from every rank's block under `spec` (the
+        inverse of `block`)."""
+        for dim, names in self._spec_axes(spec, x.ndim):
+            for axis in names:
+                x = self._gather(x, axis, dim)
+        return x
+
+    def ppermute(self, x: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        """`lax.ppermute` over `axis`: the rank at index i sends `x` to
+        index j for each (i, j) of `perm`; a rank receives its source's
+        tensor, or zeros where no pair names it.  Under gloo a device
+        tensor goes through host memory (module docstring)."""
+        n = self.axis_size(axis)
+        me = self.axis_index(axis)
+        dst = [j for i, j in perm if i == me]
+        src = [i for i, j in perm if j == me]
+        if n == 1:
+            return x.clone() if src else torch.zeros_like(x)
+        t0 = time.perf_counter()
+        group = self.groups[axis]
+        staged = self.backend == "gloo" and x.device.type != "cpu"
+        send = x.detach().contiguous()
+        if staged:
+            send = send.cpu()
+        recv = torch.zeros_like(send)
+        ops = [dist.P2POp(dist.isend, send,
+                          dist.get_global_rank(group, j), group)
+               for j in dst]
+        ops += [dist.P2POp(dist.irecv, recv,
+                           dist.get_global_rank(group, i), group)
+                for i in src]
+        for work in dist.batch_isend_irecv(ops) if ops else ():
+            work.wait()
+        self._count("ppermute", send.numel() * send.element_size() *
+                    len(dst), t0)
+        return recv.to(x.device) if staged else recv
 
     def all_reduce_max(self, values) -> list[float]:
         """Elementwise max of a list of floats over every rank of the
@@ -141,13 +299,13 @@ def mesh_from_axes(axes: tuple[tuple[str, int], ...]) -> Mesh:
     other than the group's world size.  Every rank must call it with the
     same axes (it creates the axis groups, a collective act)."""
     for name, _ in axes:
-        if name not in MESH_AXIS_NAMES:
+        if name not in AXIS_NAMES:
             raise ValueError(f"unknown mesh axis {name!r}; expected axes "
-                             f"from {MESH_AXIS_NAMES}")
+                             f"from {AXIS_NAMES}")
     d = dict(axes)
     d.setdefault("data", 1)
     d.setdefault("model", 1)
-    names = tuple(n for n in MESH_AXIS_NAMES if n in d)
+    names = tuple(n for n in AXIS_NAMES if n in d)
     full = tuple((n, int(d[n])) for n in names)
     need = math.prod(s for _, s in full)
     world, rank = _world()
@@ -200,11 +358,12 @@ def make_host_mesh(model: int | None = None) -> Mesh:
 
 
 def make_mesh_from_spec(spec: str | None = None) -> Mesh:
-    """Mesh from a ``"model=4,data=2"`` spec; precedence is the explicit
+    """Mesh from a ``"model=4,data=2"`` spec (or one with a ``stage``
+    axis, `parse_spec`); precedence is the explicit
     argument, then $REPRO_MESH, then the host-mesh default."""
     spec = spec if spec not in (None, "") else os.environ.get(
         MESH_ENV_VAR, "")
-    axes = parse_mesh_spec(spec)
+    axes = parse_spec(spec)
     if not axes:
         return make_host_mesh()
     return mesh_from_axes(axes)
@@ -310,7 +469,7 @@ def spawn(fn: Callable, spec: str, *,
 
     from repro_torch.device import resolve_device
     device = resolve_device(device).type
-    world = math.prod(s for _, s in parse_mesh_spec(spec)) or 1
+    world = math.prod(s for _, s in parse_spec(spec)) or 1
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_mesh_")
     results = ctx.Queue()

@@ -1,7 +1,17 @@
-"""End-to-end training entry point of the port, on one device.
+"""End-to-end training entry point of the port, on one device or a mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/run1
+
+`--mesh data=2` (or $REPRO_MESH, then the host mesh over torchrun's
+ranks) trains on a mesh, one process per rank (`train_step.
+make_train_step`: data-parallel over "data", the model axis
+column-parallel, FSDP where the options or the config ask for it); a
+checkpoint written on one mesh restores onto any other, or onto one
+device; only rank 0 prints and writes:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --mesh data=2 --reduced --steps 20 --device cpu
 
 Synthetic deterministic data (`data.synthetic.batch_for`, a pure function
 of (seed, step)), async checkpoints every `--ckpt-every` steps with
@@ -31,22 +41,37 @@ from repro_torch.train import train_step as ts
 def train(cfg: ModelConfig, options: ts.StepOptions, *, steps: int,
           batch: int = 8, seq: int = 128, seed: int = 0,
           ckpt_dir: str = "", ckpt_every: int = 50, log_every: int = 10,
-          device=None, guard: fault.PreemptionGuard | None = None) -> dict:
+          device=None, guard: fault.PreemptionGuard | None = None,
+          mesh=None) -> dict:
     """Train `cfg` from step 0, or from the newest checkpoint in
-    `ckpt_dir`, to `steps`.  Returns {"state", "start_step", "losses",
-    "gnorms", "step_s"} (one entry per step run; step_s on the host clock
-    after the step's loss is read back)."""
-    dev = resolve_device(device)
-    init_fn, step_fn = ts.make_train_fns(cfg, options, dev)
+    `ckpt_dir`, to `steps`, on `device` or, on every rank of a `mesh` of
+    more than one, through `make_train_step` on the mesh's device (the
+    state is then the rank's blocks).  Returns {"state", "start_step", "losses", "gnorms",
+    "step_s"} (one entry per step run; step_s on the host clock after the
+    step's loss is read back)."""
+    sharded = mesh is not None and mesh.size > 1
+    dev = mesh.device if sharded else resolve_device(device)
+    st_sh = None
+    if sharded:
+        init_fn, step_fn, st_sh = ts.make_train_step(cfg, options, mesh)
+    else:
+        init_fn, step_fn = ts.make_train_fns(cfg, options, dev)
+    lead = not sharded or mesh.rank == 0
+
+    def say(msg: str) -> None:
+        if lead:
+            print(msg, flush=True)
+
+    where = {"shardings": st_sh, "mesh": mesh if sharded else None}
     watchdog = fault.StragglerWatchdog(
-        on_straggler=lambda s, d, m: print(
+        on_straggler=lambda s, d, m: say(
             f"[fault] straggler at step {s}: {d:.3f}s vs median {m:.3f}s"))
     mgr = ckpt.CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     state = init_fn(seed)
     if mgr is not None and mgr.latest_step() is not None:
-        state, start_step = mgr.restore(state)
-        print(f"[train] resumed from step {start_step}")
+        state, start_step = mgr.restore(state, **where)
+        say(f"[train] resumed from step {start_step}")
     losses, gnorms, step_s = [], [], []
     t_start = time.perf_counter()
     for step in range(start_step, steps):
@@ -62,25 +87,29 @@ def train(cfg: ModelConfig, options: ts.StepOptions, *, steps: int,
         watchdog.step_end(step)
         if step % log_every == 0 or step == steps - 1:
             dt = time.perf_counter() - t_start
-            print(f"[train] step {step:5d} loss {loss:8.4f} "
-                  f"gnorm {gnorms[-1]:8.3f} "
-                  f"({dt / max(step - start_step + 1, 1):.2f}s/step)",
-                  flush=True)
+            say(f"[train] step {step:5d} loss {loss:8.4f} "
+                f"gnorm {gnorms[-1]:8.3f} "
+                f"({dt / max(step - start_step + 1, 1):.2f}s/step)")
         if mgr is not None and (step + 1) % ckpt_every == 0:
-            mgr.save(state, step + 1, blocking=False)
-        if guard is not None and guard.preempted:
-            print("[train] preemption requested: checkpointing + exit")
+            mgr.save(state, step + 1, blocking=False, **where)
+        preempted = guard is not None and guard.preempted
+        if sharded:   # every rank stops at the same step
+            preempted = mesh.all_reduce_max([preempted])[0] > 0
+        if preempted:
+            say("[train] preemption requested: checkpointing + exit")
             if mgr is not None:
-                mgr.save(state, step + 1, blocking=True)
+                mgr.save(state, step + 1, blocking=True, **where)
             break
     else:
         if mgr is not None:
-            mgr.save(state, steps, blocking=True)
+            mgr.save(state, steps, blocking=True, **where)
+    if mgr is not None:
+        mgr.wait()
     if losses:
         first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
-        print(f"[train] done: loss {first:.4f} -> "
-              f"{np.mean(losses[-5:]):.4f} "
-              f"({len(watchdog.flagged)} straggler steps flagged)")
+        say(f"[train] done: loss {first:.4f} -> "
+            f"{np.mean(losses[-5:]):.4f} "
+            f"({len(watchdog.flagged)} straggler steps flagged)")
     return {"state": state, "start_step": start_step, "losses": losses,
             "gnorms": gnorms, "step_s": step_s}
 
@@ -115,6 +144,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n-layers", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--mesh", default="",
+                    help="mesh spec, e.g. 'data=2' or 'model=2,data=2' "
+                         "(default: $REPRO_MESH, then the host mesh over "
+                         "torchrun's ranks); one rank trains on one device")
     args = ap.parse_args(argv)
 
     over = {}
@@ -133,12 +166,15 @@ def main(argv=None) -> int:
         accum_steps=args.accum, optimizer=args.optimizer,
         moment_dtype=args.moment_dtype, lr=args.lr,
         total_steps=args.steps, warmup_steps=max(10, args.steps // 20))
-    dev = resolve_device(args.device)
+    from repro_torch.launch import mesh as meshmod
+    meshmod.init_from_env(args.device)
+    mesh = meshmod.make_mesh_from_spec(args.mesh)
+    dev = mesh.device or resolve_device(args.device)
     with fault.PreemptionGuard() as guard:
         train(cfg, options, steps=args.steps, batch=args.batch,
               seq=args.seq, seed=args.seed, ckpt_dir=args.ckpt_dir,
               ckpt_every=args.ckpt_every, log_every=args.log_every,
-              device=dev, guard=guard)
+              device=dev, guard=guard, mesh=mesh)
     return 0
 
 

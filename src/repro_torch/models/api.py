@@ -66,9 +66,11 @@ def make_spec(cfg: ModelConfig, mult: str | None = None,
 
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: str | torch.device | None = None) -> Params:
-    """Random params from a seeded `torch.Generator` on `device`."""
+    """Random params from a seeded `torch.Generator` on `device`; on the
+    "meta" device (no generator there) the shapes and dtypes alone."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     return family_module(cfg).init_params(cfg, gen, dev)
 
 
@@ -132,13 +134,21 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig, spec=None
     labels = batch.get("labels")
     if labels is None:
         labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    ce = C.softmax_xent(logits, labels, loss_mask(batch))
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def loss_mask(batch: dict) -> torch.Tensor:
+    """The positions `loss_fn` averages over: the batch's "mask", else
+    ones with the last position off (over the labels' shape, the
+    tokens' where there are none)."""
     mask = batch.get("mask")
     if mask is None:
-        mask = torch.ones(labels.shape, dtype=torch.float32,
-                          device=tokens.device)
+        shape = batch.get("labels", batch["tokens"]).shape
+        mask = torch.ones(shape, dtype=torch.float32,
+                          device=batch["tokens"].device)
         mask[:, -1] = 0.0
-    ce = C.softmax_xent(logits, labels, mask)
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    return mask
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -22,13 +22,15 @@ Under a mesh (`sharding.ctx`) whose model axis divides `n_kv_heads` (and
 so `n_heads`), self-attention runs on the rank's heads: the q/k/v GEMMs
 keep the rank's column blocks, which are whole heads (its query heads
 map to its kv heads), the K/V cache holds those heads only
-(`sharding.rules.cache_pspec`), and the attention output is gathered
-before `wo`.  Otherwise q/k/v are gathered and attention is replicated
+(`sharding.rules.cache_pspec`), the attention runs them among zero
+heads of the whole count (`_whole_heads`: one device's shapes, so one
+device's bits), and its output is gathered before `wo`.  Otherwise q/k/v are gathered and attention is replicated
 (the reference's divisibility drop).  Cross-attention stays replicated.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -212,8 +214,9 @@ def _self_attention(h, lp, cfg: ModelConfig, spec, positions):
     x = C.rmsnorm(h, lp["ln1"])
     split = head_split(cfg)
     q, k, v = _qkv(x, lp, cfg, spec, positions, split)
-    attn = C.attention(q, k, v, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
-                       policy=spec.policy if spec is not None else None)
+    attn = _whole_heads(functools.partial(
+        C.attention, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
+        policy=spec.policy if spec is not None else None), split, q, k, v)
     attn = AL.gather_cols(attn.reshape(b, s, -1), split)
     return h + AL.dense(attn, lp["wo"], None, spec), k, v
 
@@ -338,17 +341,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def _decode_attention(q, ck, cv, length, split: int):
-    """`C.decode_attention` on the rank's heads (`split` > 1: q holds
-    n_heads / split of them, ck / cv n_kv_heads / split), bit for bit as
-    one device computes them.  The rank's heads are placed at their own
-    offsets among zero heads of the whole count and attend there: the
-    batched products then have one device's shapes (cuBLAS picks its
-    kernel by the batch count, rows x kv heads, and another kernel rounds
-    differently), and the zero heads' outputs are dropped.  The rank pays
-    one device's attention products and a padded copy of its K/V."""
+def _whole_heads(attend, split: int, q, *kv):
+    """`attend(q, *kv)` on the rank's heads (`split` > 1: q holds
+    n_heads / split of them, each of `kv` n_kv_heads / split), bit for
+    bit as one device computes them, forward and backward.  The rank's
+    heads are placed at their own offsets among zero heads of the whole
+    count and attend there: the batched products then have one device's
+    shapes (cuBLAS picks its kernel by the batch count, rows x kv heads,
+    and another kernel rounds differently: the decode attention's
+    products and the blockwise attention's backward did), and the zero
+    heads' outputs are dropped (their gradients are zero).  The rank
+    pays one device's attention and a padded copy of its q, K and V."""
     if split == 1:
-        return C.decode_attention(q, ck, cv, length)
+        return attend(q, *kv)
     r = ctx.active_mesh().axis_index("model")
 
     def whole(x):
@@ -358,7 +363,7 @@ def _decode_attention(q, ck, cv, length, split: int):
         return out
 
     h = q.shape[2]
-    o = C.decode_attention(whole(q), whole(ck), whole(cv), length)
+    o = attend(whole(q), *(whole(x) for x in kv))
     return o[:, :, r * h:(r + 1) * h]
 
 
@@ -371,7 +376,9 @@ def _decode_block(h, lp, ck, cv, lengths, cfg: ModelConfig, spec):
     q, k, v = _qkv(x, lp, cfg, spec, lengths[:, None], split)
     C.rowwise_cache_update(ck, k, lengths)
     C.rowwise_cache_update(cv, v, lengths)
-    attn = _decode_attention(q, ck, cv, lengths + 1, split)
+    attn = _whole_heads(
+        lambda q, ck, cv: C.decode_attention(q, ck, cv, lengths + 1),
+        split, q, ck, cv)
     attn = AL.gather_cols(attn.reshape(b, 1, -1), split)
     h = h + AL.dense(attn, lp["wo"], None, spec)
     x = C.rmsnorm(h, lp["ln2"])

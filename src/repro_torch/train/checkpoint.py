@@ -13,7 +13,12 @@ Layout:  <dir>/step_<N>/proc_<k>.npz  +  <dir>/step_<N>/manifest.json
 * verified: restore checks every CRC and shape, and a corrupt or
   truncated checkpoint is skipped for the previous one;
 * async: `save(blocking=False)` copies the state to the host on the
-  calling thread and writes it on a background thread.
+  calling thread and writes it on a background thread;
+* elastic: under a mesh (`make_train_step`'s ranks) `save` gathers every
+  sharded leaf whole on every rank (a collective), rank 0 writes the same
+  files one device would, and a blocking save ends at a barrier;
+  `restore` reads the whole leaves and keeps each rank's block by the
+  current mesh's specs, whatever mesh (or one device) wrote them.
 """
 
 from __future__ import annotations
@@ -28,22 +33,27 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.train.optimizer import QMoment
+from repro_torch.sharding.rules import Attr
+from repro_torch.train.optimizer import state_map_with_path
 
 _FORMAT_VERSION = 1
-_FIELDS = ("q", "scale")
 
 
-def _named_leaves(state: Any, prefix: str = "") -> list[tuple[str, Any]]:
+def _keystr(path: tuple) -> str:
+    """The JAX package's `keystr` of a `state_map_with_path` path."""
+    return "".join(f".{p}" if isinstance(p, Attr) else f"[{p!r}]"
+                   for p in path)
+
+
+def _named_leaves(state: Any) -> list[tuple[str, Any]]:
     """(keystr name, tensor) of every leaf, in the reference's leaf order
     (dict keys sorted, a `QMoment`'s fields in declaration order)."""
-    if isinstance(state, dict):
-        return [x for k in sorted(state)
-                for x in _named_leaves(state[k], f"{prefix}[{k!r}]")]
-    if isinstance(state, QMoment):
-        return [(f"{prefix}.{f}", getattr(state, f)) for f in _FIELDS]
-    return [(prefix, state)]
+    leaves: list = []
+    state_map_with_path(lambda path, t: leaves.append((path, t)), state)
+    return [(_keystr(path), t) for path, t in
+            sorted(leaves, key=lambda x: x[0])]
 
 
 def leaf_names(state: Any) -> list[str]:
@@ -68,7 +78,7 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-#: One process writes everything: the port trains on one device.
+#: One process writes everything (rank 0 of a mesh).
 _PAYLOAD = "proc_0.npz"
 
 
@@ -87,14 +97,27 @@ class CheckpointManager:
         return self.directory / f"step_{step:08d}"
 
     # --- save -----------------------------------------------------------
-    def save(self, state: Any, step: int, blocking: bool = True) -> None:
+    def save(self, state: Any, step: int, blocking: bool = True, *,
+             shardings: Any = None, mesh=None) -> None:
         """Checkpoint `state` (nested dicts of tensors and `QMoment`s) as
         step `step`.  The device-to-host copy happens here; with
-        `blocking=False` the write runs on a thread (`wait` joins it)."""
+        `blocking=False` the write runs on a thread (`wait` joins it).
+        Under a `mesh`, `state` is the rank's blocks by `shardings`:
+        every rank must call (module docstring)."""
         self.wait()
+        sync = mesh is not None and mesh.size > 1
         named = _named_leaves(state)
-        flat = {name: _to_numpy(t) for name, t in named}
-        dtypes = {name: _dtype_name(t) for name, t in named}
+        specs = dict(_named_leaves(shardings)) if sync else {}
+        flat, dtypes = {}, {}
+        for name, t in named:   # one leaf whole on the device at a time
+            if sync:
+                t = mesh.gather_leaf(t, specs[name])
+            if not sync or mesh.rank == 0:
+                flat[name], dtypes[name] = _to_numpy(t), _dtype_name(t)
+        if sync and mesh.rank != 0:
+            if blocking:
+                dist.barrier()
+            return
 
         def work():
             tmp = self.directory / f"step_{step:08d}.tmp"
@@ -117,6 +140,8 @@ class CheckpointManager:
 
         if blocking:
             work()
+            if sync:
+                dist.barrier()
             return
 
         def guarded():
@@ -172,12 +197,15 @@ class CheckpointManager:
         return out
 
     def restore(self, target: Any, step: int | None = None,
-                device: str | torch.device | None = None
-                ) -> tuple[Any, int]:
+                device: str | torch.device | None = None, *,
+                shardings: Any = None, mesh=None) -> tuple[Any, int]:
         """Restore into the structure of `target` (a state of the same
         layout: its leaves give the shapes, dtypes and, unless `device` is
         given, the device) from `step`, or from the newest checkpoint that
-        reads back intact.  Returns (state, step)."""
+        reads back intact.  Under a `mesh`, `target` holds the rank's
+        blocks by `shardings` and each leaf read whole keeps that block.
+        Returns (state, step)."""
+        specs = None if mesh is None else dict(_named_leaves(shardings))
         candidates = self.all_steps() if step is None else [step]
         for s in reversed(candidates):
             try:
@@ -191,22 +219,15 @@ class CheckpointManager:
                 if name not in flat:
                     raise KeyError(f"checkpoint missing leaf {name}")
                 t = flat[name]
+                if specs is not None:
+                    t = mesh.block(t, specs[name])
                 if tuple(t.shape) != tuple(leaf.shape):
                     raise ValueError(f"shape mismatch for {name}: "
                                      f"{tuple(t.shape)} vs "
                                      f"{tuple(leaf.shape)}")
                 return t.to(device or leaf.device, leaf.dtype)
 
-            def build(tree, prefix=""):
-                if isinstance(tree, dict):
-                    return {k: build(v, f"{prefix}[{k!r}]")
-                            for k, v in tree.items()}
-                if isinstance(tree, QMoment):
-                    return dataclasses.replace(tree, **{
-                        f: load(f"{prefix}.{f}", getattr(tree, f))
-                        for f in _FIELDS})
-                return load(prefix, tree)
-
-            return build(target), s
+            return state_map_with_path(
+                lambda path, leaf: load(_keystr(path), leaf), target), s
         raise FileNotFoundError(f"no restorable checkpoint in "
                                 f"{self.directory}")

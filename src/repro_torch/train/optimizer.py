@@ -16,10 +16,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Callable
+from typing import Any, Callable, ClassVar
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.rules import Attr
 
 BLOCK = 128
 #: f32(1 / 127): compiled JAX folds the divide by 127 into this multiply.
@@ -46,6 +48,32 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def state_map_with_path(fn: Callable, state: Any, *rest: Any,
+                        path: tuple = ()) -> Any:
+    """`fn(path, leaf, *rest_leaves)` over every tensor of a train state
+    (nested dicts of tensors and `QMoment`s) and the matching leaves of
+    trees of its layout, such as its `train_step.state_shardings` specs.
+    A path holds dict keys as str and a `QMoment`'s fields as
+    `rules.Attr`, as the JAX package's paths hold its attribute keys; the
+    result keeps the state's `QMoment`s, `fn`'s results in their
+    fields."""
+    if isinstance(state, dict):
+        return {k: state_map_with_path(fn, v, *(r[k] for r in rest),
+                                       path=(*path, k))
+                for k, v in state.items()}
+    if isinstance(state, QMoment):
+        return dataclasses.replace(state, **{
+            f: fn((*path, Attr(f)), getattr(state, f),
+                  *(getattr(r, f) for r in rest))
+            for f in QMoment.FIELDS})
+    return fn(path, state, *rest)
+
+
+def state_map(fn: Callable, state: Any, *rest: Any) -> Any:
+    """`state_map_with_path` without the path: `fn(leaf, *rest_leaves)`."""
+    return state_map_with_path(lambda _, *leaves: fn(*leaves), state, *rest)
+
+
 # --- block-quantized tensor state --------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +86,9 @@ class QMoment:
     scale: torch.Tensor
     shape: tuple
     pad: int
+
+    #: the tensor fields, in the JAX package's leaf order
+    FIELDS: ClassVar[tuple[str, ...]] = ("q", "scale")
 
 
 def _quantize_block(x: torch.Tensor) -> QMoment:
@@ -157,14 +188,17 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
                                 device=tree_leaves(params)[0].device)}
 
 
-def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig
-                 ) -> tuple[Any, dict]:
+def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                 gnorm: torch.Tensor | None = None) -> tuple[Any, dict]:
     """One AdamW step: clip by global norm, bias-corrected moments,
-    decoupled weight decay, the warmup-cosine learning rate."""
+    decoupled weight decay, the warmup-cosine learning rate.  `gnorm`
+    is the norm to clip by, where `grads` are a rank's blocks of a whole
+    tree (default: `grads`' own)."""
     step = state["step"] + 1
     stepf = step.float()
     lr = warmup_cosine(step, cfg.lr, cfg.warmup_steps, cfg.total_steps)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     c1 = 1 - torch.pow(cfg.b1, stepf)

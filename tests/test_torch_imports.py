@@ -49,6 +49,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert "repro_torch.train.fault" in res["modules"]
     assert "repro_torch.launch.fleet" in res["modules"]
     for name in ("sharding", "sharding.rules", "sharding.ctx",
+                 "sharding.compress", "sharding.pipeline",
                  "launch.mesh", "launch.serve"):
         assert f"repro_torch.{name}" in res["modules"]
     for name in ("train", "train.optimizer", "train.train_step",
