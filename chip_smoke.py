@@ -73,9 +73,10 @@ outside autotune came from a cache.
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
                  tokens, every kernel's launch counter read around the run;
-  6. paged     — the same model through the paged engine on a ten-request
-                 trace (the six prompts above, two seeded sampled requests,
-                 two sharing a 64-token prefix), each run token-identical
+  6. paged     — the same model through the paged engine on the paged
+                 trace (five requests: the first of the six prompts above,
+                 two seeded sampled requests, two sharing a 64-token
+                 prefix; `PAGED_KEEP`), each run token-identical
                  to a slot engine of its capacity: P (paged, capacity 4,
                  pages of 16, prefix cache), PC (+ chunked prefill, 32),
                  PS (+ speculation drafted by trunc2x2 itself, k 4,
@@ -94,20 +95,28 @@ outside autotune came from a cache.
                  model=2 rank's shapes against their plain versions
                  (skinny at m = 4 and 32, plane 0 at M = 128 on
                  TinyLlama's n / 2, fused under pareto:0.01, flash over
-                 16 heads); then a world of model=2 (the TP GEMM bit-equal
-                 to one device; the serve phase's requests, tokens equal
-                 to its, the logit gap against one device held to 0, with
-                 a witness naming the first GEMM where the runs part,
-                 launches equal
-                 to one device's formula, 89 all-gathers per decode step;
-                 S4, P and PS on five of the paged trace's requests
-                 (both sampled, both sharing a prefix), P and PS equal
-                 to S4; mamba2 at 4 layers, held to the recurrent phase's S4
-                 once it has run; calibrate_serving(model=2)) and of
-                 model=2,data=2 (the serving check); per rank: ms per
-                 decode step, its collectives' share, device ms per
-                 profiled step, prepared int8, float and K/V bytes;
-  8. fleet     — the carbon-aware fleet on the same model: a metered
+                 16 heads); then a world of model=2 at TP_MODEL2_LAYERS
+                 of the 22 layers (cut for the time limit: the TP GEMM
+                 bit-equal to one device; the serve phase's requests,
+                 tokens equal to one device's at that depth, the logit
+                 gap against one device held to 0, with a witness naming
+                 the first GEMM where the runs part, launches equal to
+                 one device's formula, 4 all-gathers a layer and one per
+                 decode step; S4, P and PS on the paged trace, P and PS
+                 equal to S4; mamba2 at 4 layers, held to the recurrent
+                 phase's S4
+                 once it has run; calibrate_serving(model=2)), of data=2
+                 (each data rank serves 2 of the 4 slots: a witness holds
+                 its rows' logits to one device's capacity-4 step, gap
+                 0; the serving check, one data all-gather per decode
+                 step; S4, P and PS again, the pools equal on every rank)
+                 and of model=2,data=2 (both witnesses and the serving
+                 check); per rank: ms per decode step, its collectives'
+                 share on each axis, device ms per profiled step,
+                 prepared int8, float and K/V bytes, serving peak memory;
+  8. fleet     — the carbon-aware fleet on the same model at
+                 FLEET_LAYERS of its 22 layers (cut for the time limit):
+                 a metered
                  two-replica fleet (us-west and eu-west on the diurnal
                  trace, capacity 2, trunc2x2, 12 Poisson requests of 104
                  tokens x 16, replica 0 killed at its step 5), Joules
@@ -116,6 +125,11 @@ outside autotune came from a cache.
                  slot engine, launches equal to `fleet_want`'s formula
                  over the meters' counts, every tick decision equal to the
                  same fleet on the CPU at the reduced size; the seeded
+                 metered fleet again in a world of two ranks sharing the
+                 card, us-west on a one-die target (data-parallel) and
+                 eu-west on a two-die one (tensor-parallel): every rank's
+                 decisions and tokens equal to the one-process fleet's;
+                 the seeded
                  chaos campaign (seed 7, tiers exact/trunc2x2/trunc4x4, 16
                  requests): five invariants, report equal to its CPU tick
                  twin, every death an injected one; the total-carbon
@@ -124,25 +138,27 @@ outside autotune came from a cache.
   9. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
                  stays well inside its time limit: the engines' steps are
                  host-bound and scale with depth) and then
-                 recurrentgemma-9b (38 layers, 10.4B params) at full
-                 width, the 9B at full depth, trunc2x2, f32, random
+                 recurrentgemma-9b (5 of its 38 layers: a superblock and
+                 the 2-layer tail, cut for the time limit) at full
+                 width, trunc2x2, f32, random
                  weights from a seeded CUDA generator, through
                  the slot and paged engines on the paged trace (tokens in
-                 each model's vocabulary): S4, P, PS and PC against S4,
-                 but mamba2's PC against C4, a slot engine admitting
+                 each model's vocabulary): S4, P and PS against S4, PC
+                 against C4, a slot engine admitting
                  through the same chunked prefill (under trunc2x2 its
                  chunked prefill parts from the whole one by int8 codes
                  that flip and grow with depth: C4's agreement with S4 is
-                 reported), and its PD against C8 (the 9B runs no PD: its
-                 trunc4x4 draft would prepare a second 17 GB int8 copy);
+                 reported), and mamba2's PD against C8 (the 9B runs no
+                 PD: at full depth its trunc4x4 draft would prepare a
+                 second 17 GB int8 copy);
                  the chunked prefill held to the whole one under exact
                  (gap at most 1e-3, greedy tokens equal); the 9B's
                  params prepared once and shared by every engine; each
                  paged run token-identical to its slot engine, audit
                  clean, no live page, launches equal to `paged_want`'s
                  formula over
-                 `step_launches` (17 GEMMs per mamba2 decode step, 241
-                 per hybrid step, no flash); ms per prefill, decode step,
+                 `step_launches` (17 GEMMs per mamba2 decode step at 4
+                 layers, no flash); ms per prefill, decode step,
                  chunk step and spec step, one profiled decode step's
                  device busy share, and the peak device memory;
  10. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
@@ -185,7 +201,7 @@ outside autotune came from a cache.
                  flash's outputs): logits compared, greedy tokens equal,
                  the plain run launching nothing; the whole prefill held
                  to the chunked one under exact;
- 13. moe       — grok-1-314b (2 of its 64 layers: every layer MoE, 8
+ 13. moe       — grok-1-314b (1 of its 64 layers: every layer MoE, 8
                  experts, top-2) and llama4-maverick-400b-a17b (1 of its
                  24 superblocks: a dense layer and an MoE layer with its
                  shared expert; 32 of its 128 experts, top-1: at 128 one
@@ -250,7 +266,7 @@ outside autotune came from a cache.
                  step's device ms by kind; rank 0 saves after step 2 and
                  this process restores it on one device (2 ranks to 1)
                  and holds step 3 to the world's; then model=2,data=2 at
-                 4 of 22 layers (cut for memory and time: four ranks on
+                 2 of 22 layers (cut for memory and time: four ranks on
                  one card): step 1 held to one device at that depth,
                  steps 2-3's loss within 2e-4, and steps 2-3's loss and
                  gradient norm to one device's step from the world's own
@@ -305,7 +321,8 @@ forward; `path` names the run its launches come from,
 conditioned and MoE model's runs, summed; `train_launches` those of the
 train phase's 6 steps; `autotune_launches` those of the autotune phase's
 runs under its tuned cache; `tp_launches` each model=2 rank's in the tp
-phase's serving run; `dist_train_launches` each data=2 rank's in the
+phase's serving run (at TP_MODEL2_LAYERS); `dp_launches` each rank's of
+the data=2 and model=2,data=2 worlds'; `dist_train_launches` each data=2 rank's in the
 dist_train phase's 3 steps);
 the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
 without the repository around it, the script fails and prints no result.
@@ -1418,6 +1435,7 @@ def serve_phase(dev, cfg) -> tuple[dict, dict]:
     from repro_torch.serving import Engine
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     params = api.init_params(cfg, seed=0, device=dev)
     eng = Engine(cfg, params, capacity=4, max_len=256,
                  prefill_buckets=(128,), device=dev)
@@ -1440,6 +1458,10 @@ def serve_phase(dev, cfg) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     done, launches = counted(eng.run_until_complete)
     wall = time.perf_counter() - t0
+    kv = sum(t.numel() * t.element_size()
+             for k, t in eng._arena.cache.items() if k in ("k", "v"))
+    log(f"[serve] peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.3f}"
+        f" GB (K/V arena {kv / 1e9:.4f} GB)")
 
     assert len(done) == 6, [c.request_id for c in done]
     for c in done:
@@ -1466,6 +1488,29 @@ def serve_phase(dev, cfg) -> tuple[dict, dict]:
     return launches, tokens
 
 
+def one_device_tokens(dev, cfg) -> dict:
+    """The serve phase's six requests through one device's slot engine at
+    `cfg`: each request's tokens (the reference of a world that serves
+    another depth than the serve phase's)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving import Engine
+
+    params = api.init_params(cfg, seed=0, device=dev)
+    eng = Engine(cfg, params, capacity=4, max_len=256,
+                 prefill_buckets=(128,), device=dev)
+    for req in serve_requests(cfg, np.random.default_rng(0)):
+        eng.submit(req)
+    tokens = {c.request_id: c.tokens for c in eng.run_until_complete()}
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return tokens
+
+
 #: The paged phase's trace: the serve phase's six greedy prompts, two
 #: seeded sampled requests and two greedy requests sharing a 64-token
 #: prefix (lengths and arrival ticks).
@@ -1473,6 +1518,12 @@ PAGED_GREEDY = [(40, 0), (128, 0), (77, 0), (100, 0), (64, 3), (115, 5)]
 PAGED_SAMPLED = [(48, 1, 1001), (96, 4, 1002)]
 PAGED_SHARED = [(16, 2), (16, 6)]
 PAGED_NEW = 16
+#: The requests every phase serves of them: the first greedy one, both
+#: sampled ones and both that share a prefix (so the prefix cache is hit).
+#: The other five greedy ones are cut for the script's time limit: with
+#: all ten the whole script took 1066.1 s on an H100 80GB HBM3 at 700 W,
+#: most of it the chunked runs' token-by-token prefill.
+PAGED_KEEP = ("g0", "s0", "s1", "h0", "h1")
 
 
 def seeded_extras(cfg, batch: int, step: int) -> dict:
@@ -1488,11 +1539,11 @@ def seeded_extras(cfg, batch: int, step: int) -> dict:
 
 
 def paged_trace(cfg) -> list:
-    """Ten requests, tokens in the model's vocabulary: six greedy, two
-    sampled, two sharing a 64-token prefix.  Where the config takes
-    conditioning, each request carries its own seeded frames or image
-    embeddings (`seeded_extras`), and the prefix-sharing pair the same
-    ones, so their prefix pages are shared."""
+    """`PAGED_KEEP`'s five of ten requests drawn in order, tokens in the
+    model's vocabulary: six greedy, two sampled, two sharing a 64-token
+    prefix.  Where the config takes conditioning, each request carries its
+    own seeded frames or image embeddings (`seeded_extras`), and the
+    prefix-sharing pair the same ones, so their prefix pages are shared."""
     import dataclasses
 
     import numpy as np
@@ -1515,7 +1566,7 @@ def paged_trace(cfg) -> list:
              for i, r in enumerate(out)]
     return [dataclasses.replace(r, extras={
         k: v[0] for k, v in seeded_extras(cfg, 1, step).items()} or None)
-        for r, step in zip(out, steps)]
+        for r, step in zip(out, steps) if r.request_id in PAGED_KEEP]
 
 
 def gemm_rows(cfg, b: int, s: int, prefill: bool) -> list[int]:
@@ -1898,10 +1949,17 @@ def profile_decode(eng, rng, cfg, steps: int = 4,
 # sharing the one card over gloo (NCCL refuses two ranks on one device)
 # ---------------------------------------------------------------------------
 
-#: The tp phase's meshes: every check runs in the model=2 world, the
-#: serving check also in model=2,data=2 (four ranks)
-TP_SPECS = ("model=2", "model=2,data=2")
+#: The tp phase's meshes: every check runs in the model=2 world; data=2
+#: and model=2,data=2 (four ranks) split the serving rows over data, and
+#: data=2 also serves the paged runs
+TP_SPECS = ("model=2", "data=2", "model=2,data=2")
 TP_TIMEOUT_S = 420.0
+#: The model=2 world's depth, of 22: its steps wait on 4 all-gathers a
+#: layer over the host, and at 22 layers its serving and paged checks
+#: took 88.3 s of the world's 106.3 s (H100 80GB HBM3, 700 W).  Its
+#: tokens are held to one device's at that depth; the model=2,data=2
+#: world holds the model axis at full depth.
+TP_MODEL2_LAYERS = 6
 #: TinyLlama's GEMM (k, n) per layer and its head, whose n / 2 a model=2
 #: rank runs: wq, wk / wv, wo, w_gate / w_up, w_down, lm_head
 TP_GEMMS = [(2048, 2048), (2048, 256), (2048, 5632), (5632, 2048),
@@ -2021,6 +2079,26 @@ def tp_steps(exec_params, cfg, spec, prompt: list[int], dev,
     return out
 
 
+def first_parting(gaps: list, cfg, first_step: int = 0) -> str | None:
+    """The first GEMM whose input or output parts among `gemm_recorder`'s
+    (input gap, output gap) pairs, steps counted from `first_step` (step
+    0 is the prefill): its step, layer and op (an input of wo that parts
+    first is the attention's output, of wq the first norm's)."""
+    per_step = 7 * cfg.n_layers + 1
+    for i, (gx, gy) in enumerate(gaps):
+        if gx or gy:
+            step, j = divmod(i, per_step)
+            step += first_step
+            layer, op = divmod(j, 7)
+            name = "lm_head" if j == per_step - 1 else TP_OPS[op]
+            where = ("the input of " if gx else "the output of ") + name
+            if gx and name == "wo":
+                where += " (the attention's output)"
+            return (f"step {step} ({'prefill' if step == 0 else 'decode'})"
+                    f", layer {layer}: {where}, gap {max(gx, gy):.3g}")
+    return None
+
+
 def tp_witness(mesh, cfg, params, dev) -> dict | None:
     """The largest logit gap between the mesh and one device on the serve
     phase's 128-token prompt (its prefill and two decode steps); rank 0
@@ -2052,22 +2130,99 @@ def tp_witness(mesh, cfg, params, dev) -> dict | None:
     if mesh.rank != 0:
         return None
     gap = max((a - b).abs().max().item() for a, b in zip(tp, one))
-    per_step = 7 * cfg.n_layers + 1
-    first = None
-    for i, (gx, gy) in enumerate(got):
-        if gx or gy:
-            step, j = divmod(i, per_step)
-            layer, op = divmod(j, 7)
-            name = "lm_head" if j == per_step - 1 else TP_OPS[op]
-            where = ("the input of " if gx else "the output of ") + name
-            if gx and name == "wo":
-                where += " (the attention's output)"
-            first = (f"step {step} ({'prefill' if step == 0 else 'decode'})"
-                     f", layer {layer}: {where}, gap {max(gx, gy):.3g}")
-            break
-    return {"gap": gap, "first": first, "gemms": len(got),
+    return {"gap": gap, "first": first_parting(got, cfg), "gemms": len(got),
             "argmax_equal": all(torch.equal(a.argmax(-1), b.argmax(-1))
                                 for a, b in zip(tp, one))}
+
+
+def dp_witness(mesh, cfg, params, dev) -> dict:
+    """A data rank's rows of a capacity-4 arena against the same rows of
+    one device: the serve phase's first four prompts prefilled at bucket
+    128 into a max_len-256 arena, then two greedy decode steps; the
+    largest logit gap over the rank's rows with the norms and decode
+    attention among zero rows of the whole capacity (`ctx.whole_rows`,
+    the engines' path) and on the rank's rows alone, each with the first decode GEMM
+    whose input or output rows part (`gemm_recorder`).  Every rank runs
+    the one-device arena too."""
+    import contextlib
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serving.arena import SlotArena
+    from repro_torch.sharding import ctx, rules
+
+    spec = api.make_spec(cfg, device=dev)
+    reqs = serve_requests(cfg, np.random.default_rng(0))[:4]
+    cap = len(reqs)
+    rows = mesh.block(torch.arange(cap), rules.batch_pspec("slots", (cap,),
+                                                           mesh), copy=False)
+    lo, n = int(rows[0]), rows.numel()
+
+    def run(exec_params, split: bool, padded: bool, record) -> tuple:
+        arena = SlotArena(cfg, cap, 256, dev, split_rows=split)
+        first = []
+        for i, r in enumerate(reqs):
+            tokens = torch.zeros((1, 128), dtype=torch.int64, device=dev)
+            tokens[0, :len(r.tokens)] = torch.tensor(r.tokens)
+            lg, cache = api.prefill(
+                exec_params, tokens, cfg, spec, max_len=256,
+                true_len=torch.tensor([len(r.tokens)], dtype=torch.int32,
+                                      device=dev))
+            first.append(int(lg.argmax(-1)[0]))
+            if not split:
+                arena.insert(cache, i)
+            elif lo <= i < lo + n:
+                arena.insert(cache, i - lo)
+        tok = torch.tensor(first, device=dev)[:, None]
+        if split:
+            tok = tok[lo:lo + n]
+        out = []
+        with record as gemms:
+            for _ in range(2):
+                with (ctx.whole_rows(lo, cap) if padded
+                      else contextlib.nullcontext()):
+                    lg, arena.cache = api.decode_step(
+                        exec_params, arena.cache, tok, cfg, spec)
+                out.append(lg[:, -1].clone())
+                tok = lg[:, -1].argmax(-1)[:, None]
+        return out, gemms
+
+    whole = api.prepare_params(params, cfg, spec)
+    one, want = run(whole, False, False, gemm_recorder())
+    one = [lg[lo:lo + n] for lg in one]
+    want = [(x[lo:lo + n], y[lo:lo + n]) for x, y in want]
+    del whole
+    local = api.prepare_params(params, cfg, spec, mesh=mesh)
+    res = {"rows": (lo, n)}
+    with ctx.use_rules(mesh, rules.logical_rules(mesh)):
+        for name, padded in (("", True), ("alone_", False)):
+            got, gaps = run(local, True, padded, gemm_recorder(want))
+            res[name + "gap"] = max((a - b).abs().max().item()
+                                    for a, b in zip(got, one))
+            res[name + "argmax_equal"] = all(
+                torch.equal(a.argmax(-1), b.argmax(-1))
+                for a, b in zip(got, one))
+            res[name + "first"] = first_parting(gaps, cfg, first_step=1)
+    del local, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pool_digests(eng) -> dict:
+    """sha1 of every paged pool's pages past the trash page (page 0, a
+    write sink whose bits no valid position reads), by leaf."""
+    import hashlib
+
+    import torch
+    out = {}
+    for key, axis in eng._arena.paged.items():
+        pool = eng._arena.cache[key].movedim(axis, 0)[eng.page_size:]
+        raw = pool.contiguous().reshape(-1).view(torch.uint8).cpu()
+        out[key] = hashlib.sha1(raw.numpy().tobytes()).hexdigest()
+    return out
 
 
 def _nbytes(tree) -> dict:
@@ -2119,8 +2274,11 @@ def tp_gemm_check(mesh, dev) -> int:
 def tp_serve(mesh, cfg, params, dev, who: str) -> dict:
     """The serve phase's six requests through the slot engine on the mesh:
     tokens, launches (= the serve phase's formula: each GEMM one launch
-    per rank), all-gathers per step (= `tp_gathers`), bytes, ms per
-    decode step on the host clock and the device ms of profiled steps."""
+    per rank, whatever its rows), the model axis's all-gathers per step
+    (= `tp_gathers` where it is > 1) and the data axis's (one, the
+    sampled tokens, where it splits the rows), the rank's rows, bytes, ms
+    per decode step on the host clock and the device ms of profiled
+    steps."""
     import gc
 
     import numpy as np
@@ -2128,6 +2286,7 @@ def tp_serve(mesh, cfg, params, dev, who: str) -> dict:
     from repro_torch.serving import Engine
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     eng = Engine(cfg, params, capacity=4, max_len=256,
                  prefill_buckets=(128,), device=dev, mesh=mesh)
     torch.cuda.synchronize()
@@ -2138,13 +2297,19 @@ def tp_serve(mesh, cfg, params, dev, who: str) -> dict:
     t0 = time.perf_counter()
     done, launches = counted(eng.run_until_complete)
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
     tokens = {c.request_id: c.tokens for c in done}
     st = eng.stats()
     assert launches == serve_want(cfg, st), (who, launches)
     tp = st["tp"]
-    per = tp_gathers(cfg)
+    per = tp_gathers(cfg) if mesh.axis_size("model") > 1 else 0
     assert tp["decode_all_gathers"] == per * st["decode_steps"], (who, tp)
     assert tp["all_gathers"] == per * (st["decode_steps"] + st["admitted"])
+    data = mesh.axis_size("data")
+    assert tp["rows_per_rank"] == 4 // data, (who, tp)
+    split = data > 1
+    assert tp["data"]["decode_all_gathers"] == tp["data"]["all_gathers"] \
+        == (st["decode_steps"] if split else 0), (who, tp["data"])
     nb = _nbytes(eng.exec_params)
     kv = sum(t.numel() * t.element_size()
              for k, t in eng._arena.cache.items() if k in ("k", "v"))
@@ -2157,9 +2322,14 @@ def tp_serve(mesh, cfg, params, dev, who: str) -> dict:
            "gathers_per_step": tp["all_gathers_per_decode_step"],
            "decode_collective_ms": tp["decode_collective_s"]
            / st["decode_steps"] * 1e3,
+           "rows": tp["rows_per_rank"],
+           "data_gathers_per_step": tp["data"]["all_gathers_per_decode_step"],
+           "decode_data_ms": tp["data"]["decode_collective_s"]
+           / st["decode_steps"] * 1e3,
            "collective_s": tp["collective_s"],
            "prepared_gb": nb["prepared"] / 1e9,
            "float_gb": _nbytes(eng.params)["float"] / 1e9, "kv_gb": kv / 1e9,
+           "peak_gb": peak / 1e9,
            "device_ms": None if prof is None else
            sum(e.self_device_time_total for e in prof[0]) / 1e3 / 2,
            "profiled_wall_ms": None if prof is None else prof[1] * 1e3}
@@ -2169,25 +2339,18 @@ def tp_serve(mesh, cfg, params, dev, who: str) -> dict:
     return out
 
 
-def tp_paged_trace(cfg) -> list:
-    """Five of the paged trace's ten requests: its first greedy one, both
-    sampled ones and both that share a prefix (so the prefix cache is
-    hit); the paged trace whole took 80 s on a model=2 world whose steps
-    are host-bound in their all-gathers."""
-    keep = ("g0", "s0", "s1", "h0", "h1")
-    return [r for r in paged_trace(cfg) if r.request_id in keep]
-
-
 def tp_paged(mesh, cfg, params, dev, who: str) -> dict:
-    """S4, P and PS (drafting with trunc2x2 itself) on `tp_paged_trace`,
+    """S4, P and PS (drafting with trunc2x2 itself) on `paged_trace`,
     sampled requests included, at the mesh: P and PS token-identical to
     S4, every draft accepted, audit clean, launches = `paged_want`'s
-    formula.  Returns each run's tokens and P's launches."""
+    formula.  Returns each run's tokens, launches, the pools' digests
+    (`pool_digests`, to hold equal across the ranks) and the data axis's
+    all-gathers per decode step."""
     import gc
 
     import torch
 
-    trace = tp_paged_trace(cfg)
+    trace = paged_trace(cfg)
     runs = paged_runs(False)
     res = {}
     for name in ("S4", "P", "PS"):
@@ -2206,7 +2369,11 @@ def tp_paged(mesh, cfg, params, dev, who: str) -> dict:
         if name == "PS":
             assert st["spec"]["acceptance_rate"] == 1.0, (who, st["spec"])
         res[name] = {"tokens": {c.request_id: c.tokens for c in done},
-                     "launches": launches}
+                     "launches": launches,
+                     "data_gathers_per_step":
+                         st["tp"]["data"]["all_gathers_per_decode_step"]}
+        if name != "S4":
+            res[name]["pools"] = pool_digests(eng)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2217,6 +2384,7 @@ def tp_paged(mesh, cfg, params, dev, who: str) -> dict:
 
 def tp_rank(mesh, cfg, mamba_cfg) -> dict:
     """One rank of the tp phase (`tp_phase`)."""
+    import dataclasses
     import gc
 
     import torch
@@ -2230,7 +2398,10 @@ def tp_rank(mesh, cfg, mamba_cfg) -> dict:
     spec = ",".join(f"{k}={v}" for k, v in mesh.shape.items())
     who = f"[tp {spec} rank {mesh.rank}]"
     full = mesh.axis_size("data") == 1
-    out = {"rank": mesh.rank, "device": str(dev)}
+    tp = mesh.axis_size("model") > 1
+    if full:
+        cfg = dataclasses.replace(cfg, n_layers=TP_MODEL2_LAYERS)
+    out = {"rank": mesh.rank, "device": str(dev), "coords": mesh.coords}
     x = torch.full((4,), float(mesh.rank), device=dev)
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     try:
@@ -2253,11 +2424,15 @@ def tp_rank(mesh, cfg, mamba_cfg) -> dict:
         lap("gemm")
     params = api.init_params(cfg, seed=0, device=dev)
     lap("init")
-    out["witness"] = tp_witness(mesh, cfg, params, dev)
-    lap("witness")
+    if tp:
+        out["witness"] = tp_witness(mesh, cfg, params, dev)
+        lap("witness")
+    if not full:
+        out["dp_witness"] = dp_witness(mesh, cfg, params, dev)
+        lap("dp_witness")
     out["serve"] = tp_serve(mesh, cfg, params, dev, who)
     lap("serve")
-    if full:
+    if full or not tp:
         out["paged"] = tp_paged(mesh, cfg, params, dev, who)
         lap("paged")
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -2294,15 +2469,20 @@ def tp_rank(mesh, cfg, mamba_cfg) -> dict:
 
 
 def tp_phase(dev, cfg, card: str, serve_tokens: dict) -> dict:
-    """Tensor-parallel serving on the card: the kernels at a rank's
-    shapes (`tp_kernels`), then worlds of `TP_SPECS` ranks sharing the card
-    over gloo (`repro_torch.launch.mesh.spawn`): every rank's tokens
-    equal to the serve phase's, the logit gap against one device with its
-    witness, launches and all-gathers equal to their formulas; in the
-    model=2 world also the TP GEMM, the paged engine, mamba2 (held to
-    the recurrent phase's S4 once it has run: `tp_hold_mamba`) and
-    `calibrate_serving`.  Returns the ranks' launches of the model=2
-    serving run and mamba2's tokens."""
+    """Tensor- and data-parallel serving on the card: the kernels at a
+    model=2 rank's shapes (`tp_kernels`), then worlds of `TP_SPECS` ranks
+    sharing the card over gloo (`repro_torch.launch.mesh.spawn`): every
+    rank's tokens equal to the serve phase's (the model=2 world's, at
+    TP_MODEL2_LAYERS, to one device's there), launches and all-gathers
+    equal to their formulas; on a model axis the logit gap against one
+    device with its witness (`tp_witness`), on a data axis each rank's
+    rows against one device's (`dp_witness`); the paged engine in the
+    model=2 and data=2 worlds, its pools equal on every rank; in the
+    model=2 world also the TP GEMM, mamba2 (held to the recurrent
+    phase's S4 once it has run: `tp_hold_mamba`) and `calibrate_serving`.
+    Returns the ranks' launches of each world's serving run and mamba2's
+    tokens."""
+    import dataclasses
     import gc
 
     import torch
@@ -2313,6 +2493,11 @@ def tp_phase(dev, cfg, card: str, serve_tokens: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     tp_kernels(dev)
+    cut = dataclasses.replace(cfg, n_layers=TP_MODEL2_LAYERS)
+    depth = {spec: cfg.n_layers for spec in TP_SPECS}
+    depth["model=2"] = cut.n_layers
+    want_tokens = {spec: serve_tokens for spec in TP_SPECS}
+    want_tokens["model=2"] = one_device_tokens(dev, cut)
     mamba_cfg = configs.get_config(
         "mamba2-370m", mult=MULT, kernel_policy="pallas", dtype="float32",
         n_layers=RECURRENT_DEPTH["mamba2-370m"])
@@ -2322,60 +2507,103 @@ def tp_phase(dev, cfg, card: str, serve_tokens: dict) -> dict:
         ranks = meshmod.spawn(tp_rank, spec, device=dev.type,
                               timeout_s=TP_TIMEOUT_S, args=(cfg, mamba_cfg))
         took = time.perf_counter() - t0
-        w = ranks[0]["witness"]
         s = [r["serve"] for r in ranks]
-        log(f"[tp] {spec}: {len(ranks)} ranks on {ranks[0]['device']} "
+        log(f"[tp] {spec}: {len(ranks)} ranks at {depth[spec]} layers on "
+            f"{ranks[0]['device']} "
             f"({card}; the ranks share one card, so these are each rank's "
-            f"work, not a TP speed-up); gloo on CUDA tensors "
+            f"work, not a speed-up); gloo on CUDA tensors "
             f"{ranks[0]['gloo_cuda']}; world {took:.1f}s, rank 0's seconds "
             f"by part {ranks[0]['times']}")
-        log(f"[tp] {spec}: logit gap against one device {w['gap']:.3g} "
-            f"over prefill + 2 decode steps ({w['gemms']} GEMMs recorded; "
-            f"argmax equal {w['argmax_equal']}); first parting: "
-            f"{w['first'] or 'none'}")
-        # the design holds a rank's every product to one device's bits
-        # (column-parallel GEMMs over the full K, decode attention at one
-        # device's shapes): any gap is a fault, logged above with its op
-        assert w["gap"] == 0 and w["first"] is None, (spec, w)
+        if "witness" in ranks[0]:
+            w = ranks[0]["witness"]
+            log(f"[tp] {spec}: logit gap against one device {w['gap']:.3g} "
+                f"over prefill + 2 decode steps ({w['gemms']} GEMMs "
+                f"recorded; argmax equal {w['argmax_equal']}); first "
+                f"parting: {w['first'] or 'none'}")
+            # the design holds a rank's every product to one device's bits
+            # (column-parallel GEMMs over the full K, decode attention at
+            # one device's shapes): any gap is a fault, logged above
+            assert w["gap"] == 0 and w["first"] is None, (spec, w)
+        for r in ranks:
+            if "dp_witness" not in r:
+                continue
+            w = r["dp_witness"]
+            log(f"[tp] {spec} rank {r['rank']}: data witness, rows "
+                f"{w['rows'][0]}..{sum(w['rows']) - 1} of 4 against one "
+                f"device's capacity-4 arena over 2 decode steps: logit gap "
+                f"{w['gap']:.3g} with the norms and decode attention among "
+                f"zero rows of the whole capacity (the engines' path; argmax "
+                f"equal "
+                f"{w['argmax_equal']}; first parting: "
+                f"{w['first'] or 'none'}), {w['alone_gap']:.3g} on the "
+                f"rank's rows alone (first parting: "
+                f"{w['alone_first'] or 'none'})")
+            assert w["gap"] == 0, (spec, r["rank"], w)
+        want = want_tokens[spec]
         for r in ranks:
             for rid, toks in r["serve"]["tokens"].items():
-                if toks != serve_tokens[rid]:
-                    log(f"[tp] {spec} rank {r['rank']} {rid} parts from the "
-                        f"serve phase: {toks} vs {serve_tokens[rid]}")
+                if toks != want[rid]:
+                    log(f"[tp] {spec} rank {r['rank']} {rid} parts from one "
+                        f"device at {depth[spec]} layers: {toks} vs "
+                        f"{want[rid]}")
         for r in ranks:
-            assert r["serve"]["tokens"] == serve_tokens, (spec, r["rank"])
+            assert r["serve"]["tokens"] == want, (spec, r["rank"])
+
+        def ms(x):
+            return "not measured" if x is None else f"{x:.2f} ms"
+
         for r, sv in zip(ranks, s):
-            log(f"[tp] {spec} rank {r['rank']}: launches {sv['launches']} "
-                f"(= the one-device formula); {sv['gathers_per_step']:.0f} "
-                f"all-gathers per decode step (= {tp_gathers(cfg)}); "
+            log(f"[tp] {spec} rank {r['rank']}: {sv['rows']} of 4 rows; "
+                f"launches {sv['launches']} (= the one-device formula); "
+                f"all-gathers per decode step {sv['gathers_per_step']:.0f} "
+                f"on the model axis, {sv['data_gathers_per_step']:.0f} on "
+                f"data ({sv['decode_data_ms']:.2f} ms); "
                 f"{sv['decode_ms']:.2f} ms per decode step (host), "
-                f"{sv['decode_collective_ms']:.2f} ms of it in collectives, "
-                f"device {sv['device_ms'] if sv['device_ms'] is None else format(sv['device_ms'], '.2f')}"
-                f" ms per profiled step of {sv['profiled_wall_ms'] if sv['profiled_wall_ms'] is None else format(sv['profiled_wall_ms'], '.2f')} ms wall; "
-                f"prefill {sv['prefill_ms']:.1f} ms; {sv['collective_s']:.3f}"
-                f" s in collectives in all; prepared int8 "
+                f"{sv['decode_collective_ms']:.2f} ms of it in model-axis "
+                f"collectives, device {ms(sv['device_ms'])} per profiled "
+                f"step of {ms(sv['profiled_wall_ms'])} wall; prefill "
+                f"{sv['prefill_ms']:.1f} ms; {sv['collective_s']:.3f} s in "
+                f"model-axis collectives in all; prepared int8 "
                 f"{sv['prepared_gb']:.4f} GB, float params kept whole "
-                f"{sv['float_gb']:.3f} GB, K/V {sv['kv_gb']:.4f} GB; peak "
+                f"{sv['float_gb']:.3f} GB, K/V {sv['kv_gb']:.4f} GB; serving "
+                f"peak {sv['peak_gb']:.3f} GB, the rank's peak "
                 f"{r['peak_gb']:.2f} GB")
+        if "paged" in ranks[0]:
+            r0 = ranks[0]
+            p = r0["paged"]
+            for r in ranks[1:]:
+                # tokens and launches on every rank; every pool's digest
+                # on the ranks that hold the same heads (one model index)
+                same = r["coords"].get("model") == r0["coords"].get("model")
+                for name, run in r["paged"].items():
+                    want = p[name] if same else {
+                        k: v for k, v in p[name].items() if k != "pools"}
+                    got = run if same else {
+                        k: v for k, v in run.items() if k != "pools"}
+                    assert got == want, (spec, r["rank"], name)
+            log(f"[tp] {spec}: paged P and PS token-identical to S4 on the "
+                f"paged trace's {len(PAGED_KEEP)} requests at "
+                f"{depth[spec]} layers, launches {p['P']['launches']} (P, "
+                f"= paged_want); data all-gathers per decode step P "
+                f"{p['P']['data_gathers_per_step']:.0f}, PS "
+                f"{p['PS']['data_gathers_per_step']:.0f}; pools equal on "
+                f"every rank of rank 0's heads: P {p['P']['pools']}")
         if spec == "model=2":
             r0 = ranks[0]
             out["launches"] = [sv["launches"] for sv in s]
             out["mamba"] = [r["mamba"]["tokens"] for r in ranks]
             for r in ranks[1:]:
                 assert r["mamba"]["tokens"] == out["mamba"][0], r["rank"]
-                assert r["paged"] == r0["paged"], r["rank"]
                 assert r["calibrate"] == r0["calibrate"], r["rank"]
-            p = r0["paged"]
             log(f"[tp] model=2: TP GEMM bit-equal to one device on "
-                f"{r0['gemm_held']} GEMMs; paged P and PS token-identical "
-                f"to S4 on 5 requests of the paged trace (both sampled "
-                f"and both prefix-sharing ones), "
-                f"launches {p['P']['launches']} (P, = paged_want); mamba2 "
+                f"{r0['gemm_held']} GEMMs; mamba2 "
                 f"({mamba_cfg.n_layers} layers) launches "
                 f"{r0['mamba']['launches']}, "
                 f"{r0['mamba']['gathers_per_step']:.0f} all-gathers per "
                 f"decode step; calibrate_serving(model=2): "
                 f"{r0['calibrate']}")
+        else:
+            out[f"launches {spec}"] = [sv["launches"] for sv in s]
     log(f"[tp] phase {time.perf_counter() - t_phase:.1f}s")
     return out
 
@@ -2404,6 +2632,11 @@ def tp_hold_mamba(tp: dict) -> None:
 FLEET_PROMPT, FLEET_GEN, FLEET_MAX_LEN = 104, 16, 128
 FLEET_REQUESTS, CHAOS_REQUESTS, FLEET_KILL = 12, 16, 5
 FLEET_SLO = 32.0
+#: The fleet phase's depth, of TinyLlama's 22 layers, cut for the script's
+#: time limit: at 22 its world of two took 41.0-70.3 s, its eu-west
+#: replica's steps waiting on 4 all-gathers a layer (H100 80GB HBM3,
+#: 700 W).  Its decisions read ticks and token counts, not the depth.
+FLEET_LAYERS = 6
 CHAOS_SEED, CHAOS_TIERS = 7, ("exact", "trunc2x2", "trunc4x4")
 #: the traces are drawn at TinyLlama's vocab on both sides, so that the
 #: reduced CPU twin sees the same arrivals (its prompts taken mod 512)
@@ -2471,16 +2704,17 @@ def _fleet_requests(vocab: int, n: int, deadlines: bool) -> list:
     return out
 
 
-def metered_fleet(cfg, params, dev, tdp_w: float):
+def metered_fleet(cfg, params, dev, tdp_w: float, targets=None):
     """`build_fleet` on the bench's defaults (us-west and eu-west on the
     diurnal trace, capacity 2, SLO 32 ticks, 1800 s per tick, seed 0), one
-    trunc2x2 tier, 12 Poisson requests, replica 0 killed at its step 5."""
+    trunc2x2 tier, 12 Poisson requests, replica 0 killed at its step 5;
+    `targets` gives the replicas meshes of their own (`fleet_rank`)."""
     from repro_torch.fleet.meter import DevicePowerModel
     from repro_torch.launch.fleet import build_fleet
     fleet = build_fleet(cfg, trace="diurnal", capacity=2,
                         max_len=FLEET_MAX_LEN, seed=0,
                         ttft_slo_ticks=FLEET_SLO, seconds_per_tick=1800.0,
-                        params=params, tiers=(MULT,),
+                        params=params, tiers=(MULT,), targets=targets,
                         power=DevicePowerModel(tdp_w=tdp_w), device=dev)
     reqs = _fleet_requests(cfg.vocab, FLEET_REQUESTS, deadlines=False)
     for r in reqs:
@@ -2515,6 +2749,79 @@ def chaos_campaign(cfg, params, dev, tdp_w: float):
     return fleet, ChaosCampaign(fleet, reqs, schedule)
 
 
+#: The fleet world's seconds: two ranks sharing the card over gloo
+FLEET_WORLD_TIMEOUT_S = 420.0
+
+
+def fleet_rank(mesh, cfg, tdp_w: float) -> dict:
+    """One rank of the fleet world (`fleet_phase`): `metered_fleet` with a
+    one-die replica (us-west: no mesh axes, so in a world of two it
+    serves data-parallel, one of its two slots per rank) and a two-die
+    one (eu-west: tensor-parallel), every rank running the same router
+    loop.  Returns its decisions (`fleet_ticks`), tokens, launches
+    (= `fleet_want` over the rank's meters), its meters' Joules and the
+    ranks' maximum."""
+    import torch
+    from repro_torch.core import accelerator as acc
+    from repro_torch.core import target as tg
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    die = acc.nvdla_default(256, 7)
+    targets = (tg.HardwareTarget(die),
+               tg.HardwareTarget(die, n_dies=2, mesh_axes=(("model", 2),)))
+    params = api.init_params(cfg, seed=0, device=dev)
+    fleet, _ = metered_fleet(cfg, params, dev, tdp_w, targets=targets)
+    t0 = time.perf_counter()
+    comps, launches = counted(fleet.run_until_complete)
+    wall = time.perf_counter() - t0
+    summed = {k: sum(r.carbon_summary()[k] for r in fleet.replicas)
+              for k in ("prefill_calls", "decode_steps")}
+    assert launches == fleet_want(cfg, summed), (mesh.rank, launches)
+    joules = [r.carbon_summary()["energy_j"] for r in fleet.replicas]
+    return {"ticks": fleet_ticks(fleet), "wall_s": wall,
+            "tokens": {c.request_id: c.tokens for c in comps},
+            "launches": launches, "joules": joules,
+            "joules_max": mesh.all_reduce_max(joules),
+            "meshes": [r.engine.stats()["mesh"] for r in fleet.replicas],
+            "rows": [r.engine.stats()["tp"]["rows_per_rank"]
+                     for r in fleet.replicas],
+            "lost": fleet.stats()["lost"]}
+
+
+def fleet_world(dev, cfg, card: str, ticks: dict, tokens: dict) -> None:
+    """The metered fleet over a world of two ranks sharing the card
+    (`fleet_rank`): every rank's decisions equal to the one-process
+    fleet's `ticks`, its tokens to `tokens`."""
+    from repro_torch.launch import mesh as meshmod
+    t0 = time.perf_counter()
+    ranks = meshmod.spawn(fleet_rank, "data=2", device=dev.type,
+                          timeout_s=FLEET_WORLD_TIMEOUT_S,
+                          args=(cfg, card_tdp_w(card)))
+    took = time.perf_counter() - t0
+    for i, r in enumerate(ranks):
+        assert r["lost"] == [], (i, r["lost"])
+        assert r["meshes"] == [{"data": 2, "model": 1},
+                               {"data": 1, "model": 2}], r["meshes"]
+        assert r["rows"] == [1, 2], r["rows"]
+        assert r["ticks"] == ticks, f"rank {i} decided otherwise"
+        assert r["tokens"] == tokens, f"rank {i}'s tokens part"
+        assert r["joules_max"] == ranks[0]["joules_max"]
+    r0 = ranks[0]
+    log(f"[fleet] world of 2 ranks sharing the card ({card}): us-west on "
+        f"a one-die target (data=2, 1 of 2 slots per rank), eu-west on a "
+        f"two-die one (model=2); every rank's routes, requeues, "
+        f"admissions and completions equal to the one-process fleet's, "
+        f"tokens too; world {took:.1f}s, rank 0's run "
+        f"{r0['wall_s']:.2f}s, launches {r0['launches']} (= fleet_want); "
+        f"Joules by replica: rank 0 "
+        + ", ".join(f"{j:.3f}" for j in r0["joules"]) + ", max over ranks "
+        + ", ".join(f"{j:.3f}" for j in r0["joules_max"])
+        + " (the power model on host-timed seconds)")
+
+
 def _deaths_injected(fleet, applied: list[dict]) -> None:
     """Every failover (a replica death) answers an injected death of that
     replica at or before its tick: a kernel that failed to build or
@@ -2544,8 +2851,10 @@ def _design_held(got: dict, want: dict) -> bool:
 
 
 def fleet_phase(dev, cfg, card: str) -> dict:
-    """The carbon-aware fleet at full width on the card.  Returns the
-    metered fleet's kernel launches."""
+    """The carbon-aware fleet at full width and FLEET_LAYERS layers on the
+    card.  Returns the metered fleet's kernel launches."""
+    import dataclasses
+
     import torch
     from repro_torch import configs
     from repro_torch.core import codesign as cd
@@ -2556,6 +2865,7 @@ def fleet_phase(dev, cfg, card: str) -> dict:
 
     t_phase = time.perf_counter()
     tdp_w = card_tdp_w(card)
+    cfg = dataclasses.replace(cfg, n_layers=FLEET_LAYERS)
     params = api.init_params(cfg, seed=0, device=dev)
     rcfg = configs.reduced(configs.get_config("tinyllama-1.1b"), mult=MULT,
                            kernel_policy="pallas", attn_impl="flash",
@@ -2592,7 +2902,8 @@ def fleet_phase(dev, cfg, card: str) -> dict:
     n_routes = len(fleet.routes)
     share = {r.name: sum(rec.replica == r.name for rec in fleet.routes)
              / n_routes for r in fleet.replicas}
-    log(f"[fleet] metered fleet, 2 replicas x capacity 2 ({MULT}), "
+    log(f"[fleet] metered fleet at {cfg.n_layers} layers, 2 replicas x "
+        f"capacity 2 ({MULT}), "
         f"{FLEET_REQUESTS} requests x {FLEET_GEN} tokens, replica us-west "
         f"killed at its step {FLEET_KILL}: {wall:.2f}s, {s['ticks']} ticks, "
         f"requeued {s['requeued']}, lost 0, exactly once; ticks equal to "
@@ -2616,6 +2927,7 @@ def fleet_phase(dev, cfg, card: str) -> dict:
         f"{t['energy_j_per_token']:.4f} J/token over {t['tokens']} tokens "
         "(the power model applied to host-timed step seconds, not a "
         "measured draw)")
+    fleet_world(dev, cfg, card, ticks, alone)
     del fleet, twin, comps
     torch.cuda.empty_cache()
 
@@ -2689,15 +3001,18 @@ def fleet_phase(dev, cfg, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: The recurrent phase's models, in order.  recurrentgemma-9b runs no PD:
-#: its trunc4x4 draft tier would prepare a second 17 GB int8 copy.
+#: at full depth its trunc4x4 draft tier would prepare a second 17 GB int8
+#: copy.
 RECURRENT_ARCHS = ("mamba2-370m", "recurrentgemma-9b")
-#: Their depths in the recurrent phase.  mamba2's is cut from 48 layers:
-#: at full depth the phase took 268-430 s of the script's 1200 s, at 8
-#: layers mamba2 alone 39-44 s.  The 9B
-#: keeps its 38: at 14, its trunc2x2 top-1 margins fall below what the
-#: chunked prefill's flipped int8 codes move, and its PC parts from S4
-#: (PERF.md).
-RECURRENT_DEPTH = {"mamba2-370m": 4, "recurrentgemma-9b": 38}
+#: Their depths in the recurrent phase, cut for the script's time limit
+#: (both are host-bound: their steps scale with depth).  mamba2's from 48
+#: layers: at full depth the phase took 268-430 s of the script's 1200 s,
+#: at 8 layers mamba2 alone 39-44 s.  The 9B's from 38 to a superblock
+#: and the 2-layer tail: at 38 its PC alone took 61 s (H100 80GB HBM3,
+#: 700 W).  Below 38 its trunc2x2 top-1 margins fall below what the
+#: chunked prefill's flipped int8 codes move (at 14 its PC parted from
+#: S4, PERF.md), so both models' PC is held to C4.
+RECURRENT_DEPTH = {"mamba2-370m": 4, "recurrentgemma-9b": 5}
 #: The conditioned phase's models, in the order it serves them (the
 #: largest last).
 CONDITIONED_ARCHS = ("whisper-medium", "starcoder2-7b",
@@ -2712,14 +3027,16 @@ CONDITIONED_CUT = {"llama-3.2-vision-11b": dict(n_layers=5),
                    "whisper-medium": dict(n_layers=4, n_enc_layers=4),
                    "starcoder2-7b": dict(n_layers=8)}
 #: The MoE phase's models, in order, and their cuts: full width, grok-1
-#: at 2 of its 64 layers (every layer MoE, 8 experts, top-2),
+#: at 1 of its 64 layers (every layer MoE, 8 experts, top-2; 2 layers
+#: until the tp phase's data=2 world and the fleet world pushed the whole
+#: script to 1113.7 s on an H100 80GB HBM3 at 700 W),
 #: llama4-maverick at 1 of its 24 superblocks (a dense and an MoE layer,
 #: the shared expert) with 32 of its 128 experts (top-1): at 128 one MoE
 #: layer's experts hold 64.4 GB in f32, about 97 GB once prepared, more
 #: than the card.  The expert cut moves llama4's expert capacity in a
 #: bucket-128 prefill from 1 to 5; at decode it stays 1.
 MOE_ARCHS = ("grok-1-314b", "llama4-maverick-400b-a17b")
-MOE_CUT = {"grok-1-314b": dict(n_layers=2),
+MOE_CUT = {"grok-1-314b": dict(n_layers=1),
            "llama4-maverick-400b-a17b": dict(n_layers=2, n_experts=32)}
 #: The moe-check phase's cuts: one MoE layer of each kind.
 MOE_CHECK_CUT = {"grok-1-314b": dict(n_layers=1),
@@ -2903,8 +3220,8 @@ S4_TOKENS: dict = {}
 
 def model_serving(dev, cfg, card: str, names: list[str],
                   tag: str = "recurrent") -> dict:
-    """One model at full width and depth through the slot and paged
-    engines on `paged_trace`'s ten requests (with their conditioning,
+    """One model at full width through the slot and paged
+    engines on `paged_trace`'s five requests (with their conditioning,
     where the model takes any), the runs of `names` held as
     `serve_and_hold` says.  Where PC runs, the chunked prefill is held to
     the whole one under exact (`prefill_gap`).  An MoE model's rows share
@@ -3139,10 +3456,10 @@ def recurrent_phase(dev, card: str) -> dict:
         cfg = configs.get_config(arch, mult=MULT, kernel_policy="pallas",
                                  dtype="float32",
                                  n_layers=RECURRENT_DEPTH[arch])
-        # mamba2's chunked prefill parts from its whole one under
-        # trunc2x2 (PERF.md): its PC and PD are held to C4 / C8
+        # the chunked prefill parts from the whole one under trunc2x2
+        # (PERF.md): PC is held to C4, and mamba2's PD to C8
         names = (["S4", "P", "PS", "C4", "PC", "C8", "PD"]
-                 if arch == "mamba2-370m" else ["S4", "P", "PS", "PC"])
+                 if arch == "mamba2-370m" else ["S4", "P", "PS", "C4", "PC"])
         out[arch] = model_serving(dev, cfg, card, names)
     log(f"[recurrent] phase {time.perf_counter() - t_phase:.1f}s")
     return out
@@ -3335,7 +3652,7 @@ def conditioned_check_phase(dev) -> None:
 def moe_phase(dev, card: str) -> dict:
     """The MoE family on the card, after the conditioned phases' tensors
     are freed, one model at a time (`MOE_ARCHS`, cut as `MOE_CUT` says):
-    grok-1 (2 layers, 8 experts, top-2) and llama4-maverick (a dense and
+    grok-1 (1 layer, 8 experts, top-2) and llama4-maverick (a dense and
     an MoE layer with its shared expert, 32 experts, top-1) at full
     width, trunc2x2, flash, f32, random weights from a seeded CUDA
     generator, prepared once (the expert stacks per expert matrix) and
@@ -3718,10 +4035,13 @@ DIST_TIMEOUT_S = 600.0
 #: the worlds' depths, of 22 layers at full width: data=2 cut to 6 for
 #: the script's time limit (on an H100 80GB HBM3 at 700 W its 3 steps,
 #: the save and the restore of 13.2 GB took 115-162 s at 22 layers, 92 s
-#: at 11: ranks sharing the card move every byte through the host),
-#: model=2,data=2 to 4 for memory and time (four ranks on one card), and
-#: the kernels-vs-plain check's
-DIST_LAYERS, DIST_GRID_LAYERS, DIST_CHECK_LAYERS = 6, 4, 2
+#: at 11: ranks sharing the card move every byte through the host; at 3
+#: its free-running step-3 gradient norm parted from one device's by
+#: 2.03e-4, past the 2e-4 that holds it),
+#: model=2,data=2 to 2 for memory and time (four ranks on one card; 4
+#: until the data-parallel serving worlds pushed the whole script past
+#: its limit), and the kernels-vs-plain check's
+DIST_LAYERS, DIST_GRID_LAYERS, DIST_CHECK_LAYERS = 6, 2, 2
 DIST_CKPT = ROOT / "build" / "dist_train_ckpt"
 
 
@@ -4949,9 +5269,11 @@ def main() -> int:
                              kernel_policy="pallas", attn_impl="flash",
                              dtype="float32")
     if sys.argv[1:] == ["--tp-only"]:
-        # the serve phase (its tokens), the tp phase and mamba2's S4 only
+        # the serve phase (its tokens), the tp phase, the fleet phase (its
+        # world of ranks) and mamba2's S4 only
         _, serve_tokens = serve_phase(dev, cfg)
         tp = tp_phase(dev, cfg, card, serve_tokens)
+        fleet_phase(dev, cfg, card)
         model_serving(dev, configs.get_config(
             "mamba2-370m", mult=MULT, kernel_policy="pallas",
             dtype="float32", n_layers=RECURRENT_DEPTH["mamba2-370m"]),
@@ -5017,6 +5339,9 @@ def main() -> int:
         row["train_launches"] = train_launches[row["name"]]
         row["dist_train_launches"] = [r[row["name"]] for r in dist_launches]
         row["tp_launches"] = [r[row["name"]] for r in tp["launches"]]
+        row["dp_launches"] = {
+            spec: [r[row["name"]] for r in tp[f"launches {spec}"]]
+            for spec in TP_SPECS if spec != "model=2"}
         row["autotune_launches"] = autotune_launches[row["name"]]
     assert_untuned(untuned)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

@@ -141,9 +141,12 @@ class HardwareTarget:
 
     def make_mesh(self):
         """The serving mesh of this target (`launch.mesh.Mesh`) over the
-        process group's ranks: its axes, or `n_dies` ranks on the model
-        axis when it names none (lazy import: `core` consumers that only
-        want the carbon model never touch torch.distributed)."""
+        process group's ranks: its axes, or, when it names none, `n_dies`
+        ranks on the model axis and the world's other ranks on data (a
+        one-die target in a world of two serves data-parallel, as the
+        reference's does on a host of two devices).  Lazy import: `core`
+        consumers that only want the carbon model never touch
+        torch.distributed."""
         from repro_torch.launch import mesh as meshmod
         if not self.mesh_axes:
             return meshmod.make_host_mesh(model=self.n_dies)

@@ -1,10 +1,16 @@
 """One fleet replica: a serving Engine pinned to a region.
 
 A fork of the JAX package's `fleet/replica.py` over the port's engines.
-A `Replica` owns an `Engine` or a `PagedEngine` (with its own one-die
+A `Replica` owns an `Engine` or a `PagedEngine` (with its own
 `HardwareTarget`, so a fleet can price different accelerator designs), a
 grid-intensity provider for its region, an `EnergyMeter`, and the fault
-hooks from `train/fault.py`:
+hooks from `train/fault.py`.  Inside a world of ranks every rank builds
+the same replicas and steps them alike (SPMD): a replica's engine serves
+over its target's mesh (`HardwareTarget.make_mesh`: a two-die target
+tensor-parallel, a one-die target with no mesh axes data-parallel over
+the world's ranks) or over the `mesh` it is given, and `restart()`
+rebuilds it over the same mesh.  Its decisions read ticks, tokens and
+seeded draws alone; its meter prices the rank's own host-timed seconds.
 
   * a `StragglerWatchdog` times every replica step **on the replica's
     virtual clock** (`seconds_per_tick`, stretched by injected
@@ -74,8 +80,9 @@ class Replica:
       grid: region grid-intensity provider (default: static us-east).
       power: device power model (default: derived from `target` when one
         is given, else the generic edge-TDP default).
-      target: optional one-die `HardwareTarget`; forwarded to the Engine
-        (which keeps it; a multi-die target raises there) and to
+      target: optional `HardwareTarget`; forwarded to the Engine (which
+        serves over its mesh unless `mesh` is given; a mesh over more
+        ranks than the process group has raises there) and to
         `DevicePowerModel.for_target`.
       seconds_per_tick: virtual-clock scale — grid lookups AND the
         straggler watchdog run on this clock (the meter uses measured
@@ -86,7 +93,7 @@ class Replica:
         failover keeps the replica's serving mode).
       engine_kwargs: forwarded to `engine_cls(...)` (capacity, max_len,
         seed, prefill_buckets, tiers, device, and for the paged engine
-        page_size, prefill_chunk, draft_tier, ...).
+        page_size, prefill_chunk, draft_tier, ...; `mesh`).
     """
 
     def __init__(self, name: str, cfg, *, grid: GridProvider | None = None,

@@ -9,6 +9,17 @@ routing, mid-trace failover.
 The replicas serve on the CUDA device; `--device cpu` runs the plain
 PyTorch versions of the kernels instead (use `--reduced` there).
 
+Under torchrun every rank runs the same fleet and router loop (SPMD):
+each replica's engine serves over the mesh `--mesh` names (or
+$REPRO_MESH, then the host mesh over the world's ranks), and `targets`
+give replicas meshes of their own (`HardwareTarget.make_mesh`).  Routing,
+degradation and failover read only ticks, tokens and seeded draws, so
+every rank decides alike; each rank's meter prices its own host-timed
+seconds, and rank 0 prints its Joules beside the ranks' maximum:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.fleet \
+      --reduced --device cpu --mesh data=2 --kill 3
+
 Builds a small fleet (default two replicas in different-intensity
 regions, each its own Engine + EnergyMeter), replays a Poisson arrival
 trace through the carbon-aware router, and reports where traffic went,
@@ -62,7 +73,8 @@ def build_fleet(cfg, *, regions: tuple[str, ...] = DEFAULT_REGIONS,
     ignored when it is passed.  `power` prices every replica's Joules
     (default: from its target, else the edge default); `device` is where
     the engines run (None: the CUDA device, raising when there is
-    none)."""
+    none).  Inside a world of ranks, every rank calls this alike: `mesh`
+    serves every replica over one mesh, `targets` each over its own."""
     replicas = []
     for i, region in enumerate(regions):
         if trace == "diurnal":
@@ -129,7 +141,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
+    ap.add_argument("--mesh", default="",
+                    help="mesh spec every replica serves over under "
+                         "torchrun, e.g. 'data=2' (default: $REPRO_MESH, "
+                         "then the host mesh over the world's ranks)")
     args = ap.parse_args(argv)
+
+    from repro_torch.launch import mesh as meshmod
+    meshmod.init_from_env(args.device)
+    mesh = meshmod.make_mesh_from_spec(args.mesh)
 
     cfg = configs.apply_overrides(configs.get_config(args.arch),
                                   reduced=args.reduced)
@@ -139,6 +159,7 @@ def main(argv=None) -> int:
                         capacity=args.capacity, max_len=max_len,
                         seed=args.seed, ttft_slo_ticks=args.slo_ticks,
                         seconds_per_tick=args.seconds_per_tick,
+                        mesh=mesh if mesh.size > 1 else None,
                         device=args.device)
     reqs = poisson_requests(args.requests, args.prompt_len, args.gen,
                             cfg.vocab, seed=args.seed)
@@ -155,6 +176,11 @@ def main(argv=None) -> int:
             comps = fleet.run_until_complete()
 
     s = fleet.stats()
+    joules = [r.carbon_summary()["energy_j"] for r in fleet.replicas]
+    joules_max = mesh.all_reduce_max(joules)
+    lost = s["lost"]
+    if mesh.rank != 0:
+        return 0 if not lost else 1
     print(f"[fleet] {len(regions)} replicas on "
           f"{fleet.replicas[0].engine.device}, trace={args.trace}, "
           f"slo={args.slo_ticks:.0f} ticks, kill="
@@ -165,6 +191,11 @@ def main(argv=None) -> int:
               f"routed={rs['routed']:3d} done={rs['completed']:3d} "
               f"ci_now={rs['g_per_kwh_now']:6.1f} g/kWh  "
               f"energy={c['energy_j']:8.2f} J  co2e={c['co2e_g']:.3e} g")
+    if mesh.size > 1:
+        print(f"[fleet] mesh {dict(mesh.shape)}: energy per replica, "
+              f"rank 0 " + ", ".join(f"{j:.2f}" for j in joules)
+              + " J; max over ranks "
+              + ", ".join(f"{j:.2f}" for j in joules_max) + " J")
     # routed share per half of the route log: under a diurnal trace the
     # cleaner region flips, and so should the majority share
     recs = fleet.routes
@@ -187,7 +218,6 @@ def main(argv=None) -> int:
     t = s["totals"]
     print(f"[fleet] totals: {t['energy_j']:.2f} J, {t['co2e_g']:.3e} gCO2e, "
           f"{t['co2e_g_per_token']:.3e} g/token over {t['tokens']} tokens")
-    lost = s["lost"]
     print(f"[fleet] submitted={s['submitted']} completed={s['completed']} "
           f"requeued={s['requeued']} lost={len(lost)} "
           f"{'(ZERO-LOST OK)' if not lost else f'LOST: {lost}'}")

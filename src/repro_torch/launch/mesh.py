@@ -25,7 +25,9 @@ moved and host seconds per kind (`calls`, `bytes`, `seconds`; `gathers`
 and `collective_s` are the all-gather count and the total seconds the
 serving engines read):
 
-* `all_gather` concatenates the ranks' blocks along a dim; under
+* `all_gather` concatenates the ranks' blocks along a dim (counted per
+  axis too, `gathers_on`: the serving engines report the model axis's
+  and the data axes' apart); under
   autograd its backward hands each rank its block of the incoming
   gradient (every op after a gather runs alike on each rank of the
   axis, so each holds the same whole gradient);
@@ -148,6 +150,9 @@ class Mesh:
         self.calls = dict.fromkeys(KINDS, 0)
         self.bytes = dict.fromkeys(KINDS, 0)
         self.seconds = dict.fromkeys(KINDS, 0.0)
+        #: all-gathers and their host seconds per axis
+        self.axis_gathers: dict[str, int] = {}
+        self.axis_gather_s: dict[str, float] = {}
 
     @property
     def gathers(self) -> int:
@@ -158,6 +163,13 @@ class Mesh:
     def collective_s(self) -> float:
         """Host seconds in every collective."""
         return sum(self.seconds.values())
+
+    def gathers_on(self, axes) -> tuple[int, float]:
+        """(all-gathers, their host seconds) over `axes` (an axis name or
+        a tuple of them): the serving engines' count per axis."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return (sum(self.axis_gathers.get(a, 0) for a in axes),
+                sum(self.axis_gather_s.get(a, 0.0) for a in axes))
 
     def _count(self, kind: str, nbytes: int, t0: float) -> None:
         self.calls[kind] += 1
@@ -195,6 +207,9 @@ class Mesh:
         dist.all_gather(parts, src, group=self.groups[axis])
         out = torch.cat(parts, dim=dim)
         self._count("all_gather", src.numel() * src.element_size() * n, t0)
+        self.axis_gathers[axis] = self.axis_gathers.get(axis, 0) + 1
+        self.axis_gather_s[axis] = (self.axis_gather_s.get(axis, 0.0)
+                                    + time.perf_counter() - t0)
         return out
 
     def all_reduce(self, x: torch.Tensor, axes="data") -> torch.Tensor:

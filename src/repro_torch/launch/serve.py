@@ -17,9 +17,11 @@ frames and the vision model's synthetic image embeddings
 there).
 
 `--mesh model=2` (or $REPRO_MESH) serves tensor-parallel, one process per
-rank, under torchrun; only rank 0 prints:
+rank, under torchrun; `--mesh data=2` gives each data rank its block of
+the slots (where the data axis divides the capacity), and
+`model=2,data=2` both; only rank 0 prints:
 
-  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh model=2 \
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh data=2 \
       --arch tinyllama-1.1b --mult trunc2x2 --kernel-policy pallas
 """
 
@@ -104,9 +106,13 @@ def main(argv=None) -> int:
           f"batch={args.batch} device={stats['device']} "
           f"mesh={stats['mesh']}")
     if "tp" in stats:
-        print(f"[serve] all-gathers per decode step "
-              f"{stats['tp']['all_gathers_per_decode_step']:.1f}, "
-              f"{stats['tp']['collective_s']:.3f}s in collectives")
+        tp, data = stats["tp"], stats["tp"]["data"]
+        print(f"[serve] all-gathers per decode step: model axis "
+              f"{tp['all_gathers_per_decode_step']:.1f} "
+              f"({tp['collective_s']:.3f}s), data axes "
+              f"{data['all_gathers_per_decode_step']:.1f} "
+              f"({data['collective_s']:.3f}s); "
+              f"{tp['rows_per_rank']} of {eng.capacity} slots per rank")
     print(f"[serve] prefill {args.prompt_len} toks: "
           f"{stats['prefill_s']:.3f}s; decode: {toks_per_s:.1f} tok/s")
     print(f"[serve] sample continuation ids: "

@@ -152,18 +152,35 @@ def loss_mask(batch: dict) -> torch.Tensor:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: str | torch.device | None = None, mesh=None) -> dict:
+               device: str | torch.device | None = None, mesh=None,
+               split_rows: bool = False) -> dict:
     """The decode cache at `batch` rows and `max_len` positions.  Under a
     `mesh` (or the active one, `sharding.ctx`) a family that runs its
     attention on the rank's heads keeps the rank's block of each K/V leaf
-    by `sharding.rules.cache_pspec`'s model-axis rule."""
+    by `sharding.rules.cache_pspec`'s model-axis rule.  With `split_rows`
+    every leaf also keeps this data rank's rows where `cache_pspec` puts
+    its batch dim on the dp axes (they divide `batch`): the leaf's block
+    by `rules.local_shape` over those axes.  Every family's cache starts
+    at zero."""
+    from repro_torch.sharding import ctx, rules
     fam = family_module(cfg)
     dev = resolve_device(device)
-    if mesh is None:
+    if mesh is not None:
+        with ctx.use_rules(mesh, rules.logical_rules(mesh)):
+            return init_cache(cfg, batch, max_len, dev,
+                              split_rows=split_rows)
+    mesh = ctx.active_mesh()
+    if not split_rows or mesh is None:
         return fam.init_cache(cfg, batch, max_len, dev)
-    from repro_torch.sharding import ctx, rules
-    with ctx.use_rules(mesh, rules.logical_rules(mesh)):
-        return fam.init_cache(cfg, batch, max_len, dev)
+    dp = rules.dp_axes(mesh)
+    out = {}
+    for key, leaf in fam.init_cache(cfg, batch, max_len,
+                                    torch.device("meta")).items():
+        shape = tuple(leaf.shape)
+        shape = rules.local_shape(shape, rules.cache_pspec(key, shape, mesh),
+                                  mesh, axes=dp)
+        out[key] = torch.zeros(shape, dtype=leaf.dtype, device=dev)
+    return out
 
 
 @torch.no_grad()

@@ -21,6 +21,7 @@ import torch.utils.checkpoint
 from repro_torch.approx import gemm as gemm_mod
 from repro_torch.approx import layers as AL
 from repro_torch.models import attention as A
+from repro_torch.sharding import ctx
 
 MultSpec = gemm_mod.MultSpec
 Params = dict[str, Any]
@@ -60,8 +61,39 @@ def unstack(tree: Params, depth: int) -> Params:
 
 # --- norms ------------------------------------------------------------------
 
+def on_whole_rows(fn, *xs: torch.Tensor) -> torch.Tensor:
+    """`fn(*xs)` on a data rank's rows (dim 0 of each x) as one device
+    computes them.  Inside `sharding.ctx.whole_rows` (a data rank's
+    decode step on b of the slots) the rows sit at their own offsets
+    among zero rows of the whole count and the other rows of the output
+    are dropped, so `fn`'s kernels see one device's shapes: on the card
+    cuBLAS picks its batched products' kernel by the batch count, and
+    torch's row reductions their split by the row count, and another
+    kernel or split rounds otherwise (as `transformer._whole_heads` found
+    for heads).  Elsewhere `fn(*xs)`."""
+    block = ctx.row_block()
+    if block is None or block[1] == xs[0].shape[0]:
+        return fn(*xs)
+    first, whole = block
+    n = xs[0].shape[0]
+
+    def pad(x):
+        out = x.new_zeros((whole, *x.shape[1:]))
+        out[first:first + n] = x
+        return out
+
+    return fn(*(pad(x) for x in xs))[first:first + n]
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim in f32 with a (1 + scale) gain; a data
+    rank's decode rows reduce as one device's (`on_whole_rows`)."""
+    return on_whole_rows(lambda x: _rmsnorm(x, scale, eps), x)
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
@@ -71,7 +103,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm in f32 with a (1 + scale) gain and a bias, as the JAX
-    package's."""
+    package's; a data rank's decode rows reduce as one device's
+    (`on_whole_rows`)."""
+    return on_whole_rows(lambda x: _layernorm(x, scale, bias, eps), x)
+
+
+def _layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
@@ -181,7 +219,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      length: torch.Tensor) -> torch.Tensor:
     """Single-token attention against a cache.
 
-    q (b,1,h,d); k/v_cache (b,smax,kv,d); length (b,) current cache fill."""
+    q (b,1,h,d); k/v_cache (b,smax,kv,d); length (b,) current cache fill.
+    A data rank's decode rows attend as one device's (`on_whole_rows`:
+    the batched products' batch count is rows x kv heads)."""
+    return on_whole_rows(_decode_attention, q, k_cache, v_cache, length)
+
+
+def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor,
+                      length: torch.Tensor) -> torch.Tensor:
     b, _, h, d = q.shape
     smax = k_cache.shape[1]
     qg, _ = _gqa_shape(q, k_cache.shape[2])                 # (b,1,kv,g,d)

@@ -333,7 +333,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     mesh = ctx.active_mesh()
     if mesh is not None:
         shape = rules.local_shape(shape, rules.cache_pspec("k", shape, mesh),
-                                  mesh)
+                                  mesh, axes=("model",))
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

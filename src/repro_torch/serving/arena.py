@@ -14,8 +14,11 @@ lengths) stays a dense per-slot leaf.
 Under a mesh the engines build their arena inside the mesh's rules, so
 `api.init_cache` (and the meta probes) give each rank its heads of the
 K/V leaves: slot leaves and pools hold the rank's kv heads, the split
-`sharding.rules.cache_pspec` / `paged_pool_pspec` describe, while page
-tables and lengths are whole on every rank.
+`sharding.rules.cache_pspec` / `paged_pool_pspec` describe.  With
+`split_rows` (a data rank serving its block of the slots) every slot
+leaf and the lengths hold the rank's `rows` only (`cache_pspec`'s batch
+dim on the dp axes), while the pools keep every page row
+(`paged_pool_pspec`): tables index them with any slot's pages.
 """
 
 from __future__ import annotations
@@ -24,14 +27,26 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import api
+from repro_torch.sharding import ctx, rules
 
 
-def _probe(cfg: ModelConfig, batch: int, length: int) -> dict:
+def _rows(capacity: int, split_rows: bool) -> int:
+    """The slots an arena of `capacity` holds: this data rank's block
+    under the active mesh with `split_rows`, else all of them."""
+    mesh = ctx.active_mesh()
+    if not split_rows or mesh is None:
+        return capacity
+    return rules.local_rows(capacity, mesh)
+
+
+def _probe(cfg: ModelConfig, batch: int, length: int,
+           split_rows: bool = False) -> dict:
     """The decode cache's shapes at `batch` and `length`, on the meta
-    device, with the per-slot (batch,) length the arenas keep."""
+    device, with the per-slot (rows,) length the arenas keep."""
     meta = torch.device("meta")
-    cache = api.init_cache(cfg, batch, length, meta)
-    cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=meta)
+    cache = api.init_cache(cfg, batch, length, meta, split_rows=split_rows)
+    cache["length"] = torch.zeros((_rows(batch, split_rows),),
+                                  dtype=torch.int32, device=meta)
     return cache
 
 
@@ -45,20 +60,25 @@ def _slot_axes(cfg: ModelConfig, max_len: int) -> dict[str, int]:
 
 
 class SlotArena:
-    """The batched decode cache; `cache["length"]` is per-slot."""
+    """The batched decode cache; `cache["length"]` is per-slot.  With
+    `split_rows` it holds this data rank's `rows` slots (module
+    docstring), indexed from 0."""
 
     def __init__(self, cfg: ModelConfig, capacity: int, max_len: int,
-                 device: torch.device):
+                 device: torch.device, split_rows: bool = False):
         self.cfg, self.capacity, self.max_len = cfg, capacity, max_len
-        cache = api.init_cache(cfg, capacity, max_len, device)
-        cache["length"] = torch.zeros((capacity,), dtype=torch.int32,
+        self.rows = _rows(capacity, split_rows)
+        cache = api.init_cache(cfg, capacity, max_len, device,
+                               split_rows=split_rows)
+        cache["length"] = torch.zeros((self.rows,), dtype=torch.int32,
                                       device=device)
         self.cache = cache
         self.slot_axes = _slot_axes(cfg, max_len)
 
     def insert(self, req_cache: dict, slot: int) -> None:
         """Copy every leaf of a 1-row prefill cache (built with
-        max_len=self.max_len and a true_len vector) into `slot`."""
+        max_len=self.max_len and a true_len vector) into `slot` (a row of
+        this arena)."""
         for key, c in self.cache.items():
             dst = c.narrow(self.slot_axes[key], slot, 1)
             dst.copy_(req_cache[key].reshape(dst.shape))
@@ -107,13 +127,15 @@ class PagedArena:
     TRASH_FLAT = 0   # flat row 0 == page 0: the write sink
 
     def __init__(self, cfg: ModelConfig, capacity: int, max_len: int,
-                 page_size: int, n_pages: int, device: torch.device):
+                 page_size: int, n_pages: int, device: torch.device,
+                 split_rows: bool = False):
         self.cfg, self.capacity, self.max_len = cfg, capacity, max_len
         self.page_size, self.n_pages = page_size, n_pages
         self.device = device
+        self.rows = _rows(capacity, split_rows)
         self.max_pages = -(-max_len // page_size)  # table width
         self.slot_axes = _slot_axes(cfg, max_len)
-        dense = _probe(cfg, capacity, max_len)
+        dense = _probe(cfg, capacity, max_len, split_rows)
         two, big = _probe(cfg, 2, max_len), _probe(cfg, 2, 2 * max_len)
         if not set(dense) == set(self.slot_axes) == set(big):
             raise ValueError("cache keys depend on batch/max_len")
@@ -160,34 +182,45 @@ class PagedArena:
         return torch.where(ok, page * ps + p % ps,
                            torch.full_like(page, self.TRASH_FLAT))
 
+    def rows_at(self, view: dict, pos: torch.Tensor) -> dict:
+        """Each lane's view row at `pos` (lanes,) of every paged leaf, the
+        lanes leading: {key: (lanes, ...)}."""
+        p = torch.clamp(pos, 0, self.max_len - 1).long()
+        lanes = torch.arange(pos.shape[0], device=pos.device)
+        return {key: view[key].movedim((axis, axis + 1), (0, 1))[lanes, p]
+                for key, axis in self.paged.items()}
+
+    def put_rows(self, cache: dict, flat: torch.Tensor, rows: dict) -> None:
+        """Write `rows` ({key: (n, ...)}, `rows_at`'s layout) to the pool
+        rows `flat` (n,), in place.  Several of them may be the trash row
+        (which one lands is unspecified, and only there); a live row is
+        written at most once."""
+        for key, axis in self.paged.items():
+            r = rows[key].movedim(0, axis)            # lanes at the rows axis
+            cache[key].index_copy_(axis, flat, r.to(cache[key].dtype))
+
     def scatter_rows(self, cache: dict, view: dict, table: torch.Tensor,
                      pos: torch.Tensor, valid: torch.Tensor) -> None:
         """Commit, per slot, the single view row at `pos` (capacity,) into
         the pools, in place; slots with `valid` False write the trash page
-        instead.  Several lanes may write the trash row in one call (which
-        one lands is unspecified, and only there); a live row is written
-        at most once.  Only paged leaves change."""
-        flat = self.flat_rows(table, pos, valid)
-        p = torch.clamp(pos, 0, self.max_len - 1).long()
-        lanes = torch.arange(table.shape[0], device=table.device)
-        for key, axis in self.paged.items():
-            v = view[key].movedim((axis, axis + 1), (0, 1))
-            rows = v[lanes, p].movedim(0, axis)        # lanes at the rows axis
-            cache[key].index_copy_(axis, flat, rows.to(cache[key].dtype))
+        instead.  Only paged leaves change."""
+        self.put_rows(cache, self.flat_rows(table, pos, valid),
+                      self.rows_at(view, pos))
 
-    def insert(self, req_cache: dict, slot: int,
+    def insert(self, req_cache: dict, slot: int | None,
                flat_idx: torch.Tensor) -> None:
         """Admit a 1-row prefill/workspace cache: paged leaves scatter
         their `max_len` rows to `flat_idx` (host-built: prefix-shared and
         unwritten positions point at the trash page, so read-only pages
         are never touched and fresh pages stay zero past the prompt); slot
-        leaves copy into `slot`."""
+        leaves copy into `slot`, a row of this arena (None: another data
+        rank holds the slot, and only the pools change)."""
         for key, c in self.cache.items():
             r = req_cache[key]
             if key in self.paged:
                 axis = self.paged[key]
                 c.index_copy_(axis, flat_idx, r.squeeze(axis).to(c.dtype))
-            else:
+            elif slot is not None:
                 c.narrow(self.slot_axes[key], slot, 1).copy_(r)
 
     def copy_pages(self, src, dst) -> None:

@@ -36,10 +36,29 @@ this same engine loop (SPMD), one process per rank.  Each rank keeps its
 column block of every approximate GEMM weight (`api.prepare_params`) and
 its heads of the K/V cache (`api.init_cache`), and every model call runs
 under the mesh's rules (`sharding.ctx`): the GEMMs run column-parallel and
-all-gather what a later op needs whole.  The data axis is replicated:
-every data rank computes every row.  Admission, eviction and sampling
-read only ticks, tokens and each request's seeded generator, all equal
-on every rank because the logits are; host clocks feed only `stats()`.
+all-gather what a later op needs whole.  Admission, eviction and
+sampling read only ticks, tokens and each request's seeded generator,
+all equal on every rank because the logits are; host clocks feed only
+`stats()`.
+
+Data parallelism: where the mesh's dp axes divide `capacity`
+(`sharding.rules.batch_pspec`), data rank d holds slots [d * c / D,
+(d + 1) * c / D), as the reference's `NamedSharding` lays dim 0 out:
+its arena (`api.init_cache(split_rows=True)`), lengths, last tokens,
+idle mask and image embeddings hold those rows alone, and its decode
+step runs on them.  Prefill (batch 1, which the rule leaves whole) runs
+on every rank, and every rank draws the first token from the request's
+generator, so admission, eviction and the scheduler stay the same on
+every rank with no exchange; only the slot's owner inserts the row.
+The norms and decode attention run a rank's rows among zero rows of the
+whole capacity (`sharding.ctx.whole_rows`, `models.common.on_whole_rows`),
+so their kernels see one device's shapes and round as one device's do.
+After each decode step the ranks all-gather their sampled tokens over
+the dp axes (one int64 vector), and every rank's host loop emits every
+slot's token.  Rows stay whole (every rank computes every row) where the
+capacity does not divide, and for an MoE config: capacity couples a
+call's rows, so a rank's routing of its own rows would not be the
+whole batch's.
 """
 
 from __future__ import annotations
@@ -149,6 +168,7 @@ class Engine:
         self.cfg, self.seed = cfg, seed
         self.capacity, self.max_len = capacity, max_len
         self.buckets = tuple(sorted(prefill_buckets or (max_len,)))
+        self._lo, self._rows, self._row_spec = self._row_block()
         self.on_token = on_token
         self.tiers = tuple(tiers) if tiers else (cfg.mult or "exact",)
         if len(set(self.tiers)) != len(self.tiers):
@@ -184,6 +204,8 @@ class Engine:
         self._decode_s = 0.0
         self._decode_gathers = 0
         self._decode_collective_s = 0.0
+        self._decode_data_gathers = 0
+        self._decode_data_s = 0.0
         # the mesh's collectives before this engine ran any
         self._mark0 = self._mark()
         self._queue_wait_ticks = 0.0
@@ -198,31 +220,81 @@ class Engine:
         from repro_torch.sharding import ctx, rules
         return ctx.use_rules(self.mesh, rules.logical_rules(self.mesh))
 
-    def _mark(self) -> tuple[float, int, float]:
-        """(host time, the mesh's all-gathers and collective seconds so
-        far): a step's accounting reads its deltas from this mark."""
+    def _mark(self) -> tuple[float, int, float, int, float]:
+        """(host time, the mesh's all-gathers and their seconds on the
+        model axis, then on the dp axes, so far): a step's accounting
+        reads its deltas from this mark."""
         if self.mesh is None:
-            return time.perf_counter(), 0, 0.0
-        return (time.perf_counter(), self.mesh.gathers,
-                self.mesh.collective_s)
+            return time.perf_counter(), 0, 0.0, 0, 0.0
+        from repro_torch.sharding import rules
+        return (time.perf_counter(), *self.mesh.gathers_on("model"),
+                *self.mesh.gathers_on(rules.dp_axes(self.mesh)))
+
+    def _row_block(self) -> tuple[int, int, tuple | None]:
+        """(first slot, slot count, spec of the slot dim) of this rank's
+        rows (module docstring): its block of the slots over the dp axes
+        where they divide the capacity, else every slot, as for an MoE
+        config."""
+        if self.mesh is None or self.cfg.is_moe:
+            return 0, self.capacity, None
+        from repro_torch.sharding import rules
+        spec = rules.batch_pspec("slots", (self.capacity,), self.mesh)
+        rows = self.mesh.block(torch.arange(self.capacity), spec,
+                               copy=False)
+        return int(rows[0]), rows.numel(), spec
+
+    @property
+    def split_rows(self) -> bool:
+        """Whether this rank holds a block of the slots, not all."""
+        return self._rows < self.capacity
+
+    def _lane(self, slot_id: int) -> int | None:
+        """`slot_id`'s row among this rank's rows; None where another
+        data rank holds it."""
+        lane = slot_id - self._lo
+        return lane if 0 <= lane < self._rows else None
+
+    def _row_steps(self):
+        """The context of a decode step on this rank's rows: where they
+        are a block of the slots, the norms and decode attention run them
+        among zero rows of the whole capacity (`sharding.ctx.whole_rows`)."""
+        if not self.split_rows:
+            return contextlib.nullcontext()
+        from repro_torch.sharding import ctx
+        return ctx.whole_rows(self._lo, self.capacity)
+
+    def _all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of `x` (this rank's rows first on dim 0),
+        all-gathered over the dp axes in slot order; `x` itself where
+        the rows are whole."""
+        if not self.split_rows:
+            return x
+        return self.mesh.gather_leaf(x, self._row_spec)
+
+    def _lane_sampling(self) -> tuple[list, list, list]:
+        """Temperatures, top-ks and generators of this rank's rows."""
+        hi = self._lo + self._rows
+        return (self._temps[self._lo:hi], self._topks[self._lo:hi],
+                self._gens[self._lo:hi])
 
     def _build_state(self) -> None:
         """The decode arena and the per-lane sampling state."""
         self._arena = SlotArena(self.cfg, self.capacity, self.max_len,
-                                self.device)
+                                self.device, split_rows=self.split_rows)
         self._init_lanes()
 
     def _init_lanes(self) -> None:
-        """Per-lane state: last token, temperature, top-k and generator of
-        every slot, and, for a cross-attention model, its image
-        embeddings (capacity, n_img_tokens, d) in the model's dtype."""
-        capacity, cfg = self.capacity, self.cfg
-        self._tok = torch.zeros((capacity, 1), dtype=torch.int64,
+        """Per-lane state: last token of this rank's rows, temperature,
+        top-k and generator of every slot (host lists), and, for a
+        cross-attention model, the rows' image embeddings (rows,
+        n_img_tokens, d) in the model's dtype."""
+        capacity, rows, cfg = self.capacity, self._rows, self.cfg
+        self._tok = torch.zeros((rows, 1), dtype=torch.int64,
                                 device=self.device)
         # lanes that emit no token at the next decode step (free, or
         # prefilling in the paged engine); set as a lane joins decode and
         # leaves it, read by `_quiet_idle_lanes`
-        self._idle = torch.ones((capacity,), dtype=torch.bool,
+        self._idle = torch.ones((rows,), dtype=torch.bool,
                                 device=self.device)
         self._temps = [0.0] * capacity
         self._topks = [0] * capacity
@@ -230,7 +302,7 @@ class Engine:
         self._img = None
         if cfg.cross_every:
             self._img = torch.zeros(
-                (capacity, cfg.n_img_tokens, cfg.d_model),
+                (rows, cfg.n_img_tokens, cfg.d_model),
                 dtype=getattr(torch, cfg.dtype), device=self.device)
 
     def _decode_extras(self) -> dict:
@@ -238,9 +310,18 @@ class Engine:
         return {} if self._img is None else {"img_embeds": self._img}
 
     def _set_lane_extras(self, slot_id: int, extras: dict) -> None:
-        """Keep an admitted request's image embeddings in its slot."""
-        if self._img is not None:
-            self._img[slot_id] = extras["img_embeds"][0].to(self._img.dtype)
+        """Keep an admitted request's image embeddings in its slot's row
+        (on the rank that holds it)."""
+        lane = self._lane(slot_id)
+        if self._img is not None and lane is not None:
+            self._img[lane] = extras["img_embeds"][0].to(self._img.dtype)
+
+    def _join(self, slot_id: int, first_tok: int) -> None:
+        """The slot's row joins decode with its first token."""
+        lane = self._lane(slot_id)
+        if lane is not None:
+            self._tok[lane, 0] = first_tok
+            self._idle[lane] = False
 
     # --- degradation tiers ------------------------------------------------
 
@@ -358,9 +439,9 @@ class Engine:
         self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._admitted += 1
 
-        self._arena.insert(req_cache, slot_id)
+        if (lane := self._lane(slot_id)) is not None:
+            self._arena.insert(req_cache, lane)
         self._set_lane_extras(slot_id, extras)
-        self._tok[slot_id, 0] = first_tok
         self._temps[slot_id] = sp.temperature
         self._topks[slot_id] = sp.top_k
         self._gens[slot_id] = gen
@@ -368,7 +449,7 @@ class Engine:
         slot = _Slot(request, n, self._tick, ready_wall, self._admitted)
         slot.first_wall = time.perf_counter()
         self._slots[slot_id] = slot
-        self._idle[slot_id] = False
+        self._join(slot_id, first_tok)
         self._emit(slot_id, first_tok)
 
     def _note_prefill(self, request_id: str, dt: float) -> None:
@@ -420,7 +501,8 @@ class Engine:
             tier_tokens=dict(slot.tier_tokens)))
         self._slots[slot_id] = None
         self._gens[slot_id] = None
-        self._idle[slot_id] = True
+        if (lane := self._lane(slot_id)) is not None:
+            self._idle[lane] = True
         self._free.append(slot_id)
 
     def _shed(self, request: Request) -> None:
@@ -476,14 +558,15 @@ class Engine:
         return {s.request.request_id for s in self._slots if s is not None}
 
     def _decode(self) -> np.ndarray:
-        logits, cache = api.decode_step(self.exec_params, self._arena.cache,
-                                        self._tok, self.cfg, self._spec,
-                                        self._decode_extras())
+        """Decode and sample this rank's rows; every slot's token."""
+        with self._row_steps():
+            logits, cache = api.decode_step(
+                self.exec_params, self._arena.cache, self._tok, self.cfg,
+                self._spec, self._decode_extras())
         self._arena.cache = cache
-        tok = sampling.sample_tokens(logits[:, -1], self._temps,
-                                     self._topks, self._gens)
+        tok = sampling.sample_tokens(logits[:, -1], *self._lane_sampling())
         self._tok = tok[:, None]
-        return tok.cpu().numpy()              # syncs the step
+        return self._all_rows(tok).cpu().numpy()   # syncs the step
 
     def step(self) -> None:
         """One engine tick: shed dead-on-arrival requests, admit due
@@ -531,7 +614,8 @@ class Engine:
         paged engine, whose idle lanes otherwise hold different stale
         state (a freed slot's K/V here, the trash page there).  In a model
         whose rows do not share a capacity an idle row changes no live
-        one, and nothing is reset."""
+        one, and nothing is reset.  An MoE config keeps its rows whole
+        on every rank (`_row_block`), so lanes are slots here."""
         if not self.cfg.is_moe or len(lanes) == self.capacity:
             return
         self._tok = self._tok.masked_fill(self._idle[:, None], 0)
@@ -555,12 +639,14 @@ class Engine:
         """Book a synced decode step over `lanes` that started at `mark`
         (`_mark`).  The meter is charged BEFORE the lanes emit: a request
         evicted at this step carries its share of the step's energy."""
-        t0, gathers, coll_s = self._mark()
+        t0, gathers, coll_s, data_gathers, data_s = self._mark()
         dt = t0 - mark[0]
         self._decode_steps += 1
         self._decode_s += dt
         self._decode_gathers += gathers - mark[1]
         self._decode_collective_s += coll_s - mark[2]
+        self._decode_data_gathers += data_gathers - mark[3]
+        self._decode_data_s += data_s - mark[4]
         if self.meter is not None:
             self.meter.on_decode(
                 dt, [self._slots[i].request.request_id for i in lanes],
@@ -599,12 +685,23 @@ class Engine:
                            "model": self.mesh.axis_size("model")}
         if self.mesh is not None and self.mesh.size > 1:
             steps = self._decode_steps
-            _, gathers, coll_s = self._mark()
+            _, gathers, coll_s, data_gathers, data_s = self._mark()
+            # the model axis's all-gathers, then the dp axes' (each rank's
+            # sampled tokens; the paged engine's written K/V rows)
             out["tp"] = {
                 "all_gathers": gathers - self._mark0[1],
                 "collective_s": coll_s - self._mark0[2],
                 "decode_all_gathers": self._decode_gathers,
                 "decode_collective_s": self._decode_collective_s,
                 "all_gathers_per_decode_step":
-                    self._decode_gathers / steps if steps else 0.0}
+                    self._decode_gathers / steps if steps else 0.0,
+                "rows_per_rank": self._rows,
+                "data": {
+                    "all_gathers": data_gathers - self._mark0[3],
+                    "collective_s": data_s - self._mark0[4],
+                    "decode_all_gathers": self._decode_data_gathers,
+                    "decode_collective_s": self._decode_data_s,
+                    "all_gathers_per_decode_step":
+                        self._decode_data_gathers / steps if steps
+                        else 0.0}}
         return out

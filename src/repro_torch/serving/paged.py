@@ -39,6 +39,18 @@ inherited.  Three capabilities stack, each optional but the first:
      step, drawn once from the row's own generator as the slot engine
      draws it, so seeded sampling stays token-identical too.
 
+Data parallelism (the slot engine's row split, `serving/engine.py`): a
+data rank's dense leaves, lengths and table rows are its slots' rows,
+while the pools keep every page row on every rank, as
+`sharding.rules.paged_pool_pspec` says.  Prefill and chunked-prefill
+jobs run whole on every rank, so each rank writes every prompt's pages
+itself (a prefix hit reads the same bits on every rank); a decode,
+draft or verify step runs on the rank's rows, and the K/V rows it
+commits (with their pool rows) are all-gathered over the dp axes before
+the write, so every rank's pools take every lane's rows.  Speculation's
+per-lane results (emitted tokens, counts) are all-gathered likewise,
+and every rank's host loop emits and audits every slot.
+
 Token identity with the slot engine rests on: masked attention lanes
 contribute exactly 0 (-1e30 under softmax; pools only ever hold finite
 K/V), the draft, verify and chunk loops run the same `decode_step` the
@@ -169,14 +181,18 @@ class PagedEngine(Engine):
     def _build_state(self) -> None:
         capacity = self.capacity
         self._arena = PagedArena(self.cfg, capacity, self.max_len,
-                                 self.page_size, self.n_pages, self.device)
-        self._table = torch.zeros((capacity, self._arena.max_pages),
-                                  dtype=torch.int64, device=self.device)
+                                 self.page_size, self.n_pages, self.device,
+                                 split_rows=self.split_rows)
+        # every slot's block table (host-built at admission, alike on
+        # every rank); `_table` is this rank's rows of it, a view
+        self._table_all = torch.zeros((capacity, self._arena.max_pages),
+                                      dtype=torch.int64, device=self.device)
+        self._table = self._table_all[self._lo:self._lo + self._rows]
         # the leaves that do not page and that decode writes, besides the
         # lengths
         self._dense = sorted(set(self._arena.cache) - set(self._arena.paged)
                              - {"length"} - api.static_cache_keys(self.cfg))
-        self._all_lanes = torch.ones((capacity,), dtype=torch.bool,
+        self._all_lanes = torch.ones((self._rows,), dtype=torch.bool,
                                      device=self.device)
         self._init_lanes()
 
@@ -323,12 +339,12 @@ class PagedEngine(Engine):
         registration, slot record, first emit."""
         sp = request.sampling
         n = len(request.tokens)
-        self._arena.insert(req_cache, slot_id, self._flat_idx(lease, n))
+        self._arena.insert(req_cache, self._lane(slot_id),
+                           self._flat_idx(lease, n))
         self._set_lane_extras(slot_id, extras)
-        self._table[slot_id] = 0
-        self._table[slot_id, :len(lease.pages)] = torch.tensor(
+        self._table_all[slot_id] = 0
+        self._table_all[slot_id, :len(lease.pages)] = torch.tensor(
             lease.pages, dtype=torch.int64)
-        self._tok[slot_id, 0] = first_tok
         self._temps[slot_id] = sp.temperature
         self._topks[slot_id] = sp.top_k
         self._gens[slot_id] = gen
@@ -341,7 +357,7 @@ class PagedEngine(Engine):
                               speculating=self.draft_tier is not None)
             self._slots[slot_id] = slot
         slot.prefilling = False
-        self._idle[slot_id] = False
+        self._join(slot_id, first_tok)
         slot.first_wall = time.perf_counter()
         slot.first_tick = self._tick
         if slot.spec_counts is not None:
@@ -417,8 +433,9 @@ class PagedEngine(Engine):
         # neutralize the freed lane: with a zero table row every write it
         # makes lands in the trash page, so reused pages are never
         # corrupted by a stale lane, and it draws from no generator
-        self._arena.cache["length"][slot_id] = 0
-        self._table[slot_id] = 0
+        if (lane := self._lane(slot_id)) is not None:
+            self._arena.cache["length"][lane] = 0
+        self._table_all[slot_id] = 0
         self._temps[slot_id] = 0.0
 
     def _slot_of(self, request_id: str) -> int:
@@ -444,7 +461,7 @@ class PagedEngine(Engine):
             return None
         src, dst = op
         self._arena.copy_pages([src], [dst])
-        self._table[self._slot_of(request_id), index] = dst
+        self._table_all[self._slot_of(request_id), index] = dst
         return op
 
     # --- decode -----------------------------------------------------------
@@ -463,38 +480,51 @@ class PagedEngine(Engine):
             self._spec_step(lanes)
 
     def _decode(self) -> np.ndarray:
-        """Non-speculative paged decode: gather the dense view, run the
-        slot engine's decode and sampling, commit each lane's one new K/V
-        row to its page (idle lanes write the trash page) and the dense
-        leaves whole, as the slot engine keeps them."""
-        cache = self._arena.cache
+        """Non-speculative paged decode: gather the dense view of this
+        rank's rows, run the slot engine's decode and sampling, commit
+        each lane's one new K/V row to its page (idle lanes write the
+        trash page) and the dense leaves whole, as the slot engine keeps
+        them."""
+        arena = self._arena
+        cache = arena.cache
         old_len = cache["length"]
-        view = self._arena.view(cache, self._table)
-        logits, view = api.decode_step(self.exec_params, view, self._tok,
-                                       self.cfg, self._spec,
-                                       self._decode_extras())
-        tok = sampling.sample_tokens(logits[:, -1], self._temps,
-                                     self._topks, self._gens)
-        self._arena.scatter_rows(cache, view, self._table, old_len,
-                                 self._all_lanes)
+        view = arena.view(cache, self._table)
+        with self._row_steps():
+            logits, view = api.decode_step(self.exec_params, view,
+                                           self._tok, self.cfg, self._spec,
+                                           self._decode_extras())
+        tok = sampling.sample_tokens(logits[:, -1], *self._lane_sampling())
+        self._commit_rows(arena.flat_rows(self._table, old_len,
+                                          self._all_lanes),
+                          arena.rows_at(view, old_len))
         for key in self._dense:
             cache[key] = view[key]
         cache["length"] = view["length"]
         self._tok = tok[:, None]
-        return tok.cpu().numpy()              # syncs the step
+        return self._all_rows(tok).cpu().numpy()   # syncs the step
+
+    def _commit_rows(self, flat: torch.Tensor, rows: dict) -> None:
+        """Write K/V `rows` (`PagedArena.rows_at`'s layout) to the pool
+        rows `flat`: every data rank's, all-gathered, where the rows are
+        split (the pools are whole on every rank)."""
+        if self.split_rows:
+            flat = self._all_rows(flat)
+            rows = {key: self._all_rows(r) for key, r in rows.items()}
+        self._arena.put_rows(self._arena.cache, flat, rows)
 
     def _draft_tokens(self) -> torch.Tensor:
-        """Draft `spec_k` greedy tokens per lane on a throwaway view (its
-        dense leaves copied, since the view shares the arena's) — nothing
-        escapes but the proposals, so the draft tier never touches the
-        arena.  Returns (capacity, spec_k)."""
+        """Draft `spec_k` greedy tokens per lane of this rank's rows on a
+        throwaway view (its dense leaves copied, since the view shares
+        the arena's) — nothing escapes but the proposals, so the draft
+        tier never touches the arena.  Returns (rows, spec_k)."""
         view = self._own_dense(
             self._arena.view(self._arena.cache, self._table))
         tok, out = self._tok, []
         for _ in range(self.spec_k):
-            logits, view = api.decode_step(self._draft_exec, view, tok,
-                                           self.cfg, self._draft_spec,
-                                           self._decode_extras())
+            with self._row_steps():
+                logits, view = api.decode_step(
+                    self._draft_exec, view, tok, self.cfg,
+                    self._draft_spec, self._decode_extras())
             tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
             out.append(tok)
         return torch.cat(out, dim=1)
@@ -513,21 +543,22 @@ class PagedEngine(Engine):
         runs on copies of the dense leaves and keeps the lane-selected
         result as a snapshot; each lane's dense state becomes its snapshot
         at its last emitted position (step m - 1; step 0, the frozen
-        state, for a lane that emits nothing).  Returns (emitted
-        (capacity, k), emitted count m, accepted count a)."""
-        arena, k, cap = self._arena, self.spec_k, self.capacity
+        state, for a lane that emits nothing).  Runs on this rank's rows
+        (`draft` and `k_row` are theirs).  Returns (emitted (rows, k),
+        emitted count m, accepted count a)."""
+        arena, k, cap = self._arena, self.spec_k, self._rows
+        temps, topks, gens = self._lane_sampling()
         cache = arena.cache
         old_len = cache["length"]
         kr = torch.from_numpy(k_row).to(self.device)
-        lanes = torch.arange(cap, device=self.device)
         view = arena.view(cache, self._table)
         tok, lgs, rows, snaps = self._tok, [], [], []
         for i in range(k):
             pos = torch.clamp(old_len + i, max=self.max_len - 1).long()
-            logits, new = api.decode_step(self.exec_params,
-                                          self._own_dense(view), tok,
-                                          self.cfg, self._spec,
-                                          self._decode_extras())
+            with self._row_steps():
+                logits, new = api.decode_step(
+                    self.exec_params, self._own_dense(view), tok, self.cfg,
+                    self._spec, self._decode_extras())
             live = kr > i
             new["length"] = torch.where(live, new["length"], view["length"])
             for key in self._dense:
@@ -536,15 +567,13 @@ class PagedEngine(Engine):
             view = new
             snaps.append({key: view[key] for key in self._dense})
             lgs.append(logits[:, -1])
-            rows.append({key: view[key].movedim((ax, ax + 1), (0, 1))[
-                lanes, pos] for key, ax in arena.paged.items()})
+            rows.append(arena.rows_at(view, pos))
             tok = torch.where(live[:, None], draft[:, i:i + 1], tok)
         e = torch.argmax(torch.stack(lgs, dim=1).float(), dim=-1)
-        corr0 = sampling.sample_tokens(lgs[0], self._temps, self._topks,
-                                       self._gens)
+        corr0 = sampling.sample_tokens(lgs[0], temps, topks, gens)
         e, d, corr0 = e.cpu().numpy(), draft.cpu().numpy(), \
             corr0.cpu().numpy()
-        greedy = np.array([t <= 0.0 for t in self._temps])
+        greedy = np.array([t <= 0.0 for t in temps])
         agree = np.cumprod(e == d, axis=1)
         a = np.minimum(np.where(greedy, agree.sum(axis=1), 0), k_row)
         m = np.where(a >= k_row, k_row, a + 1)        # 0 when k_row == 0
@@ -555,9 +584,8 @@ class PagedEngine(Engine):
         mt = torch.from_numpy(m).to(self.device)
         flat = torch.cat([arena.flat_rows(self._table, old_len + i, mt > i)
                           for i in range(k)])
-        for key, ax in arena.paged.items():
-            r = torch.cat([rw[key] for rw in rows]).movedim(0, ax)
-            cache[key].index_copy_(ax, flat, r.to(cache[key].dtype))
+        self._commit_rows(flat, {key: torch.cat([rw[key] for rw in rows])
+                                 for key in arena.paged})
         last = torch.from_numpy(np.maximum(m - 1, 0)).to(self.device)
         for key in self._dense:
             cache[key] = _pick_snap([sn[key] for sn in snaps], last,
@@ -587,7 +615,14 @@ class PagedEngine(Engine):
             else:
                 kr[i] = 1
         mark = self._mark()
-        emitted, mh, ah = self._verify(self._draft_tokens(), kr)
+        hi = self._lo + self._rows
+        emitted, mh, ah = self._verify(self._draft_tokens(), kr[self._lo:hi])
+        if self.split_rows:
+            # every rank's lanes: (emitted | m | a) per lane, one gather
+            packed = np.concatenate([emitted, mh[:, None], ah[:, None]], 1)
+            packed = self._all_rows(torch.from_numpy(packed).to(
+                self.device)).cpu().numpy()
+            emitted, mh, ah = packed[:, :-2], packed[:, -2], packed[:, -1]
         self._spec_steps += 1
         # every decoding lane is charged alike, sampled or greedy
         self._note_decode(decoding, mark)
@@ -611,16 +646,20 @@ class PagedEngine(Engine):
     def debug_kv_rows(self, request_id: str) -> dict:
         """Test/debug surface: the request's dense gathered KV rows per
         paged leaf ((max_len, ...) each), its length, and how many
-        positions its lease reserves — what the no-leak check needs."""
+        positions its lease reserves — what the no-leak check needs.
+        Where the rows are split every rank calls it (it all-gathers the
+        lengths)."""
         slot_id = self._slot_of(request_id)
-        view = self._arena.view(self._arena.cache, self._table)
+        view = self._arena.view(self._arena.cache,
+                                self._table_all[slot_id:slot_id + 1])
         out = {}
         for key, axis in self._arena.paged.items():
             rows = view[key].movedim((axis, axis + 1), (0, 1))
-            out[key] = rows[slot_id].cpu().numpy()
+            out[key] = rows[0].cpu().numpy()
         lease = self._leases[request_id]
+        lengths = self._all_rows(self._arena.cache["length"])
         return {"rows": out,
-                "length": int(self._arena.cache["length"][slot_id]),
+                "length": int(lengths[slot_id]),
                 "reserved": len(lease.pages) * self.page_size,
                 "shared_tokens": lease.hit_tokens}
 

@@ -11,6 +11,12 @@ A rule maps logical axis -> mesh axis (or tuple of mesh axes, or None).
 `spec_for` drops a mapping whenever the dimension is not divisible by the
 mesh axes' total size (e.g. kv_heads=4 on a model=16 axis).
 
+`row_block` names a data rank's rows of a serving step (`whole_rows`):
+the engines enter it around each decode step of a rank that holds a
+block of the slots, and the norms and decode attention run the rows
+among zero rows of the whole count (`models.common.on_whole_rows`), so
+their kernels see one device's shapes.
+
 `hint` returns its input.  In the JAX package it is a sharding
 constraint for the compiler's partitioner; the port has none: every rank
 is a one-device program and placement is explicit (each rank holds its
@@ -25,6 +31,7 @@ import math
 from typing import Any
 
 _ACTIVE: list[tuple[Any, dict[str, Any]]] = []
+_ROWS: list[tuple[int, int]] = []
 
 
 @contextlib.contextmanager
@@ -34,6 +41,22 @@ def use_rules(mesh, rules: dict[str, Any]):
         yield
     finally:
         _ACTIVE.pop()
+
+
+@contextlib.contextmanager
+def whole_rows(first: int, whole: int):
+    """Within: the decode steps run a data rank's rows, which start at
+    row `first` of `whole` (module docstring)."""
+    _ROWS.append((first, whole))
+    try:
+        yield
+    finally:
+        _ROWS.pop()
+
+
+def row_block() -> tuple[int, int] | None:
+    """(first row, whole row count) of the active `whole_rows`, or None."""
+    return _ROWS[-1] if _ROWS else None
 
 
 def active() -> tuple[Any, dict[str, Any]] | None:

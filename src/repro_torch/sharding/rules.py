@@ -17,7 +17,11 @@ rule set valid for all 10 architectures (kv_heads=4 on a model=16 axis,
 What the port places by these rules: `init_cache` keeps the rank's slice
 of every cache leaf `cache_pspec` puts on "model" (the K/V heads of a
 head-sharded attention), and the paged arena's pools follow it
-(`paged_pool_pspec`).  Serving's GEMM weights are split by the GEMM's own
+(`paged_pool_pspec`).  A serving engine whose capacity the dp axes divide
+gives each data rank its block of the slots (`batch_pspec` on the slot
+dim, `local_rows`): every decode-cache leaf keeps the rank's rows by
+`cache_pspec` (`api.init_cache(split_rows=True)`), and so does the
+per-slot sampler state; the pools' page rows stay whole.  Serving's GEMM weights are split by the GEMM's own
 column rule (`approx.gemm`: every approximate GEMM whose output dimension
 divides the model axis runs column-parallel), which is where the JAX
 package's computation puts them whatever `param_pspec` says of storage;
@@ -246,17 +250,27 @@ def paged_pool_pspec(key: str, shape: tuple[int, ...], mesh) -> Spec:
 
 
 def local_shape(shape: tuple[int, ...], spec: Spec, mesh,
-                axes: tuple[str, ...] = ("model",)) -> tuple[int, ...]:
+                axes: tuple[str, ...] | None = None) -> tuple[int, ...]:
     """One rank's block of a tensor of `shape` under `spec`, splitting
-    only over `axes` (the port replicates the data axis: every data rank
-    holds every row)."""
+    over the spec's axes that are among `axes` (None: all of them).  A
+    model family passes ("model",): the rows of the batch it is given are
+    its caller's to split (`api.init_cache`)."""
     sizes = _axis_sizes(mesh)
+    axes = tuple(sizes) if axes is None else axes
     out = []
     for dim, ax in zip(shape, tuple(spec) + (None,) * len(shape)):
         names = ax if isinstance(ax, tuple) else (ax,)
         div = math.prod(sizes[a] for a in names if a in axes)
         out.append(dim // div)
     return tuple(out)
+
+
+def local_rows(batch: int, mesh) -> int:
+    """One data rank's rows of a batch dim of `batch` rows: its block over
+    the dp axes where their size divides `batch` (`batch_pspec`), else
+    every row."""
+    return local_shape((batch,), batch_pspec("rows", (batch,), mesh),
+                       mesh)[0]
 
 
 def should_fsdp(cfg) -> bool:
