@@ -68,12 +68,28 @@ outside autotune came from a cache.
                  bit to their untuned runs, every tuned bucket's plan
                  reading source "tuned"; calibrate_gemm on a tuned plan;
                  the full-width decode step's device ms by kind, static
-                 against tuned;
+                 against tuned; every entry of the tuned cache held to the
+                 plan functions and the card's shared memory (PC405);
   5. serve     — full-width TinyLlama-1.1B (22 layers, random f32 weights
                  from a seeded CUDA generator) under the trunc2x2 multiplier
                  through the port's slot Engine: 6 requests x 16 greedy
                  tokens, every kernel's launch counter read around the run;
-  6. paged     — the same model through the paged engine on the paged
+  6. analysis  — `repro_torch.analysis` on the card, on the serve phase's
+                 weights: the kernel contracts (the Python launch model of
+                 every variant the dispatch picks at the serve, prefill,
+                 chunk, training and VGG16 shapes against the library's
+                 host-only query, PC401; each variant's requested and static
+                 shared memory against the card's opt-in limit, PC403; the
+                 K tail bit-exact for all six kernels, PC404); the step
+                 budgets over a slot engine (S4) and a paged engine (P) on
+                 two of the serve phase's requests: launches per step equal
+                 to the formula (155 quantize_rows + 155 skinny per decode
+                 step), one library build in the process, no plan miss,
+                 scratch growth or first-use attribute call after the first
+                 step, host syncs per step (file and line) equal to the
+                 engine's declared count; the host-sync lint and the
+                 sharding coverage (CPU work); any open finding fails it;
+  7. paged     — the same model through the paged engine on the paged
                  trace (five requests: the first of the six prompts above,
                  two seeded sampled requests, two sharing a 64-token
                  prefix; `PAGED_KEEP`), each run token-identical
@@ -89,7 +105,7 @@ outside autotune came from a cache.
                  gather and scatter on the profiler.  A run that leaves its
                  slot engine fails the phase.  PD runs metered: its
                  per-request Joules must sum to the meter's total;
-  7. tp        — tensor-parallel serving, one process per rank on
+  8. tp        — tensor-parallel serving, one process per rank on
                  torch.distributed, the ranks sharing the card over gloo
                  (NCCL refuses two ranks on one device): the kernels at a
                  model=2 rank's shapes against their plain versions
@@ -114,7 +130,7 @@ outside autotune came from a cache.
                  check); per rank: ms per decode step, its collectives'
                  share on each axis, device ms per profiled step,
                  prepared int8, float and K/V bytes, serving peak memory;
-  8. fleet     — the carbon-aware fleet on the same model at
+  9. fleet     — the carbon-aware fleet on the same model at
                  FLEET_LAYERS of its 22 layers (cut for the time limit):
                  a metered
                  two-replica fleet (us-west and eu-west on the diurnal
@@ -135,7 +151,7 @@ outside autotune came from a cache.
                  twin, every death an injected one; the total-carbon
                  search over the multi-die scenarios on the card, held to
                  the CPU's (rtol 1e-6);
-  9. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
+ 10. recurrent — mamba2-370m (4 of its 48 layers, cut so the script
                  stays well inside its time limit: the engines' steps are
                  host-bound and scale with depth) and then
                  recurrentgemma-9b (5 of its 38 layers: a superblock and
@@ -161,13 +177,13 @@ outside autotune came from a cache.
                  layers, no flash); ms per prefill, decode step,
                  chunk step and spec step, one profiled decode step's
                  device busy share, and the peak device memory;
- 10. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
+11. recurrent-check — mamba2 at 2 layers (512-token prompts: the SSD
                  crosses two 256-token chunks) and the hybrid at 4 layers
                  (window cut to 64 under 128-token prompts: the rings
                  wrap), full width, once through the kernels and once
                  through the plain versions on the card: logits compared,
                  greedy tokens equal, the plain run launching nothing;
- 11. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
+12. conditioned — whisper-medium (4 + 4 of its 24 + 24 layers, 1500
                  frames), starcoder2-7b (8 of its 32 layers, the GELU
                  MLP) and llama-3.2-vision-11b (1 of its 8 superblocks,
                  5 + 1 cross layers; all three cut so the script stays
@@ -192,7 +208,7 @@ outside autotune came from a cache.
                  step and spec step, one profiled decode step's device
                  busy share, device memory after prepare and at peak, and
                  each model's seconds;
- 12. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
+13. conditioned-check — Whisper (2 + 2 layers) and the vision model (2
                  layers in one superblock) at full width, once through the
                  kernels and once through the plain versions on the card,
                  both on the chunked attention (flash's rounding moves
@@ -201,7 +217,7 @@ outside autotune came from a cache.
                  flash's outputs): logits compared, greedy tokens equal,
                  the plain run launching nothing; the whole prefill held
                  to the chunked one under exact;
- 13. moe       — grok-1-314b (1 of its 64 layers: every layer MoE, 8
+14. moe       — grok-1-314b (1 of its 64 layers: every layer MoE, 8
                  experts, top-2) and llama4-maverick-400b-a17b (1 of its
                  24 superblocks: a dense layer and an MoE layer with its
                  shared expert; 32 of its 128 experts, top-1: at 128 one
@@ -228,13 +244,13 @@ outside autotune came from a cache.
                  formula (an MoE layer's expert GEMMs at M = the call's
                  capacity), ms per prefill, decode, chunk and spec step,
                  device busy share, memory after prepare and at peak;
- 14. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
+15. moe-check — grok-1 at 1 layer and llama4-maverick at 1 superblock
                  (32 experts), full width, through the kernels and through
                  the plain versions, both on chunked attention: logit gap
                  0, greedy tokens and every call's routing (expert
                  indices, drop mask) equal, the plain run launching
                  nothing;
- 15. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
+16. train     — full-width TinyLlama-1.1B (22 layers, 1.1B params,
                  random f32 weights from a seeded CUDA generator) trained
                  under trunc2x2 through the kernels, chunked attention
                  (the flash kernel has no backward) and remat: 6 AdamW
@@ -246,7 +262,7 @@ outside autotune came from a cache.
                  profiled step's device busy share and the forward's
                  per-call weight quantize + K-major copy; then the CLI
                  (`launch.train.main`) for 2 steps at the config's bf16;
- 16. train-check — the same model at 2 layers: one train step through
+17. train-check — the same model at 2 layers: one train step through
                  the kernels and one through the plain versions from the
                  same state, under trunc2x2 and pareto:0.01 (fused):
                  loss, gradient norm and every updated param equal (gap
@@ -254,7 +270,7 @@ outside autotune came from a cache.
                  bit-equal into a fresh trainer, steps 3-4 resumed within
                  1e-5 of an uninterrupted run); an int8-moment and an
                  Adafactor step finite;
- 17. dist_train — sharded training, one process per rank sharing the
+18. dist_train — sharded training, one process per rank sharing the
                  card over gloo (`make_train_step`): data=2 with FSDP at
                  full width, 6 of 22 layers (cut for the time limit; the
                  train phase's options, seed and global 8 x 128 batches),
@@ -277,7 +293,7 @@ outside autotune came from a cache.
                  CUDA tensors, the pipeline over stage=2 with trunc2x2
                  GEMMs bit-equal to the sequential stack, and the train
                  CLI with --mesh model=2,data=2 for 2 steps;
- 18. check     — a 2-layer full-width model served once through the kernels
+19. check     — a 2-layer full-width model served once through the kernels
                  and once through the plain versions on the card: logits and
                  greedy tokens compared, under trunc2x2 and under the
                  rank-5 Pareto multiplier pareto:0.01 (low-rank prefill on
@@ -285,7 +301,7 @@ outside autotune came from a cache.
                  the plain attention; flash's o-projection inputs go
                  through the kernel and the plain GEMM, which must agree
                  to the bit, and flash-vs-chunked divergence is printed);
- 19. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
+20. cnn       — full-width VGG16 (224x224, 1000 classes, batch 8, random
                  f32 weights calibrated layer by layer to mean 0, var 1)
                  under pareto:0.01: 13 conv GEMMs on the fused kernel, 3 FC
                  GEMMs on the skinny kernel, launch counters read around
@@ -294,19 +310,19 @@ outside autotune came from a cache.
                  call's device time with its bound and launch plan, and
                  each FC GEMM's device time (the kernel, and the per-call
                  transpose of its weight);
- 20. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
+21. cnn-check — VGG16 and ResNet50 at batch 2 through the kernels and
                  through the plain versions on the card: logits compared,
                  top-1 equal;
- 21. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
+22. accuracy  — `repro_torch.launch.accuracy`: vgg_mini trained 260 steps,
                  top-1 and drop under every truncation and Pareto
                  multiplier, through the kernels and through the plain
                  versions (top-1 equal);
- 22. codesign  — the co-design core on the card: the VGG16 7 nm space's
+23. codesign  — the co-design core on the card: the VGG16 7 nm space's
                  FPS lattice and every genome's metrics held to the CPU's
                  (rtol 1e-6, same inf places and feasible mask); the
                  paper's reproduction (`repro_torch.launch.codesign`:
                  VGG16 at 7/14/28 nm under drops measured through the
-                 kernels on phase 21's vgg_mini), each GA design within
+                 kernels on phase 22's vgg_mini), each GA design within
                  1e-4 of `exhaustive_best`; `calibrate_gemm` (plane 0 and
                  fused) and `calibrate_serving` (quantize, plane 0,
                  skinny) with their launches counted; the multi-die
@@ -1358,6 +1374,15 @@ def autotune_phase(dev, cfg_full, card: str) -> dict:
             f"{kinds['tuned']} ({card})")
         del eng, params
         torch.cuda.empty_cache()
+        from repro_torch.analysis import contracts
+        optin = contracts.smem_optin(dev)
+        poisoned = contracts.check_tuning_cache(
+            tuned_path, running=(torch.cuda.get_device_name(dev), optin))
+        assert not poisoned, [f.render() for f in poisoned]
+        log(f"[autotune] PC405: the tuned cache's "
+            f"{len(autotune.load_cache(tuned_path)['entries'])} entries "
+            f"pass the plan functions at their buckets and fit {optin} B "
+            f"of shared memory")
     finally:
         if saved is None:
             os.environ.pop(var, None)
@@ -1426,8 +1451,9 @@ def serve_want(cfg, st: dict) -> dict:
             "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
 
 
-def serve_phase(dev, cfg) -> tuple[dict, dict]:
-    """Returns (the kernels' launches, each request's tokens)."""
+def serve_phase(dev, cfg) -> tuple[dict, dict, dict]:
+    """Returns (the kernels' launches, each request's tokens, the params,
+    which the analysis phase serves again)."""
     import numpy as np
     import torch
     from repro_torch.approx import gemm as G
@@ -1483,9 +1509,105 @@ def serve_phase(dev, cfg) -> tuple[dict, dict]:
     log(f"[serve] r0 tokens {done[0].tokens}")
     tokens = {c.request_id: c.tokens for c in done}
     profile_decode(eng, rng, cfg)
-    del eng, params
+    del eng
     torch.cuda.empty_cache()
-    return launches, tokens
+    return launches, tokens, params
+
+
+# ---------------------------------------------------------------------------
+# analysis: repro_torch.analysis on the card
+# ---------------------------------------------------------------------------
+
+#: The serve phase's requests the analysis phase's engines serve.
+ANALYSIS_REQUESTS = 2
+
+
+def analysis_phase(dev, cfg, params, card: str) -> None:
+    """The port's four checkers on the card, on the serve phase's weights:
+    the kernel contracts (PC401-PC405: every variant the dispatch picks,
+    queried from the library, against the Python model and the card's
+    opt-in limit; the K tail of all six kernels), the step budgets of a
+    slot engine (S4) and a paged one (P) on `ANALYSIS_REQUESTS` of the
+    serve phase's requests, the host-sync lint and the sharding coverage.
+    Any open finding fails the phase."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import contracts, coverage, lint, retrace
+    from repro_torch.analysis.findings import Baseline, apply_suppressions
+    from repro_torch.kernels import build
+    from repro_torch.serving import Engine, PagedEngine
+
+    t0 = time.perf_counter()
+    findings = []
+    rep: dict = {}
+    found = contracts.check(device=dev, report=rep)
+    findings += found
+    by_kind = collections.defaultdict(list)
+    for (kind, _), rec in rep["records"].items():
+        by_kind[kind].append(rec)
+    limit = rep["limit"]
+    log(f"[analysis] contracts: {len(rep['variants'])} kernel variants "
+        f"queried from the library, each equal to the Python launch model "
+        f"(PC401); opt-in shared memory per block {limit} B ({card})")
+    for kind, recs in sorted(by_kind.items()):
+        top = max(r["smem"] + r["static_smem"] for r in recs)
+        log(f"[analysis]   {kind}: {len(recs)} variants, dynamic "
+            f"{min(r['smem'] for r in recs)}-{max(r['smem'] for r in recs)}"
+            f" B, static {sorted({r['static_smem'] for r in recs})} B, "
+            f"largest {top} B ({top / limit:.1%} of the limit), registers "
+            f"{min(r['regs'] for r in recs)}-{max(r['regs'] for r in recs)},"
+            f" spills {max(r['local_bytes'] for r in recs)} B")
+        assert top <= limit, (kind, top, limit)
+    log(f"[analysis] K tail (K = {contracts.KTAIL[1]}) of quantize_rows, "
+        f"plane0, skinny, fused, stacked and flash: "
+        f"{'bit-exact' if not [f for f in found if f.code == 'PC404'] else 'PARTED'}"
+        f"; contracts {time.perf_counter() - t0:.1f}s")
+
+    loads = build.loads
+    want = {k: v for k, v in step_launches(cfg, 4, 1, False).items() if v}
+    trace = serve_requests(cfg, np.random.default_rng(0))[:ANALYSIS_REQUESTS]
+    for name, cls, kw in (("S4", Engine, {}),
+                          ("P", PagedEngine, dict(page_size=16))):
+        t1 = time.perf_counter()
+        eng = cls(cfg, params, capacity=4, max_len=256,
+                  prefill_buckets=(128,), device=dev, **kw)
+        watch = retrace.instrument_engine(eng)
+        for req in trace:
+            eng.submit(req)
+        eng.run_until_complete()
+        torch.cuda.synchronize()
+        findings += watch.findings()
+        for step, r in watch.report().items():
+            log(f"[analysis] {name} {step}: {r['calls']} calls, launches "
+                f"per call {r['launches_per_call']}, host syncs per call "
+                f"{r['syncs_per_call']} (declared {r['budget_syncs']}) at "
+                f"{r['sync_sites']}, one-time work after the first call "
+                f"{r['one_time_after_first']}")
+        decode = watch.report()["serving/engine:decode"]
+        assert decode["launches_per_call"] == [tuple(sorted(want.items()))], \
+            (decode, want)
+        assert decode["syncs_per_call"] == [Engine.HOST_SYNCS["decode"]]
+        log(f"[analysis] {name}: launches per decode step {want} equal to "
+            f"the formula; {time.perf_counter() - t1:.1f}s")
+        del eng
+        torch.cuda.empty_cache()
+    assert build.loads == loads == 1, (build.loads, loads)
+    log(f"[analysis] one kernel library build in the process")
+
+    t1 = time.perf_counter()
+    findings += lint.check(str(ROOT)) + coverage.check()
+    apply_suppressions(findings, Baseline.load(
+        str(ROOT / "analysis-baseline-torch.json")), str(ROOT))
+    open_ = [f for f in findings if not f.suppressed]
+    for f in open_:
+        log(f"[analysis] OPEN {f.render()}")
+    log(f"[analysis] jit + sharding {time.perf_counter() - t1:.1f}s; "
+        f"{len(open_)} open, {len(findings) - len(open_)} suppressed "
+        f"findings")
+    assert not open_, [f.render() for f in open_]
+    log(f"[analysis] {time.perf_counter() - t0:.1f}s")
 
 
 def one_device_tokens(dev, cfg) -> dict:
@@ -1569,83 +1691,15 @@ def paged_trace(cfg) -> list:
         for r, step in zip(out, steps) if r.request_id in PAGED_KEEP]
 
 
-def gemm_rows(cfg, b: int, s: int, prefill: bool) -> list[int]:
-    """The row count M of every approximate GEMM of one step, the LM head
-    (at M = b) last: a prefill of b prompts of s tokens, or a decode step
-    of b lanes (s = 1).  Per layer: 7 dense GEMMs under SwiGLU, 6 under
-    the GELU MLP; mamba2's in and out projections (2); the hybrid's 6 per
-    recurrent block (its w_rg / w_in run exact) and 7 per attention block
-    (26 x 6 + 12 x 7 = 240 for recurrentgemma-9b); Whisper's 8 per
-    decoder layer (self q, k, v, o; cross q, o; the MLP's two), and in
-    prefill its encoder's 6 per layer and its cross K/V (2 per decoder
-    layer, made once) at M = b x enc_seq; the vision model's 4 per
-    cross-attention block (q, o, and the image's k, v at M = b x
-    n_img_tokens, in every step).  An MoE layer runs its 4 attention
-    GEMMs at M = b x s, then top_k x 3 x n_experts expert GEMMs (every
-    expert, whether or not a token reached it) at M = the call's capacity,
-    and the shared expert's 3 at b x s; an interleaved model's dense
-    layers run 7 (grok-1: every layer MoE; llama4-maverick: one dense and
-    one MoE layer per superblock)."""
-    t = b * s
-    if cfg.is_moe:
-        from repro_torch.models import moe
-        cap = moe.capacity_of(t, cfg.n_experts, cfg.top_k,
-                              cfg.capacity_factor)
-        moe_layer = [t] * (4 + 3 * cfg.shared_expert) + \
-            [cap] * (cfg.top_k * 3 * cfg.n_experts)
-        n_moe = cfg.n_layers // cfg.moe_every
-        rows = moe_layer * n_moe + [t] * (7 * (cfg.n_layers - n_moe))
-        return rows + [b]
-    if cfg.family == "ssm":
-        rows = [t] * (2 * cfg.n_layers)
-    elif cfg.family == "hybrid":
-        n_attn = cfg.n_layers // 3
-        rows = [t] * (6 * (cfg.n_layers - n_attn) + 7 * n_attn)
-    elif cfg.family == "encdec":
-        rows = [t] * (8 * cfg.n_layers)
-        if prefill:
-            e = b * cfg.enc_seq
-            rows += [e] * (6 * cfg.n_enc_layers + 2 * cfg.n_layers)
-    else:
-        per_layer = 7 if cfg.mlp_style == "swiglu" else 6
-        rows = [t] * (per_layer * cfg.n_layers)
-        if cfg.cross_every:
-            n_cross = cfg.n_layers // cfg.cross_every
-            rows += [t] * (2 * n_cross) + \
-                [b * cfg.n_img_tokens] * (2 * n_cross)
-    return rows + [b]
-
-
 def step_launches(cfg, b: int, s: int, prefill: bool) -> dict:
-    """Kernel launches of one step (`gemm_rows`): each GEMM quantizes its
-    rows once and runs skinny at M <= 32, plane 0 above; a prefill runs
-    `flash_per_prefill` flash launches."""
-    from repro_torch.kernels import approx_qgemm as qk
-    rows = gemm_rows(cfg, b, s, prefill)
-    skinny = sum(m <= qk.SKINNY_MAX_M for m in rows)
-    return {"quantize_rows": len(rows), "approx_qgemm_skinny": skinny,
-            "approx_qgemm_plane0": len(rows) - skinny,
-            "flash_attention": flash_per_prefill(cfg, s) if prefill else 0,
-            "approx_qgemm_fused": 0, "approx_qgemm_stacked": 0}
-
-
-def flash_per_prefill(cfg, s: int = 128) -> int:
-    """Flash launches of one prefill of s tokens: one per self-attention
-    layer of an `lm` (the vision model's cross-attention takes the naive
-    impl up to 2^20 scores); Whisper's encoder layers (non-causal over its
-    frames) and decoder layers, and its cross-attention too where s equals
-    enc_seq (the reference's impl rule); none for mamba2 (no attention) or
-    the hybrid (its attention is windowed, which the reference routes to
-    the blockwise forward: its flash has no window); none where the config
-    takes another attention impl."""
-    if cfg.attn_impl != "flash":
-        return 0
-    if cfg.family == "lm":
-        return cfg.n_layers
-    if cfg.family == "encdec":
-        return cfg.n_enc_layers + cfg.n_layers * (2 if s == cfg.enc_seq
-                                                  else 1)
-    return 0
+    """Kernel launches of one step: a prefill of b prompts of s tokens, or
+    a decode step of b lanes (s = 1): each GEMM quantizes its rows once
+    and runs skinny at M <= 32, plane 0 above; a prefill runs flash once
+    per self-attention layer (`repro_torch.analysis.retrace.step_launches`
+    and its `gemm_rows`, the formula the analysis phase's budgets hold
+    the engines to)."""
+    from repro_torch.analysis import retrace
+    return retrace.step_launches(cfg, b, s, prefill)
 
 
 def paged_want(cfg, st: dict, trace, prefill_chunk, spec_k,
@@ -5271,7 +5325,8 @@ def main() -> int:
     if sys.argv[1:] == ["--tp-only"]:
         # the serve phase (its tokens), the tp phase, the fleet phase (its
         # world of ranks) and mamba2's S4 only
-        _, serve_tokens = serve_phase(dev, cfg)
+        _, serve_tokens, params = serve_phase(dev, cfg)
+        del params
         tp = tp_phase(dev, cfg, card, serve_tokens)
         fleet_phase(dev, cfg, card)
         model_serving(dev, configs.get_config(
@@ -5280,6 +5335,12 @@ def main() -> int:
             card, ["S4"])
         tp_hold_mamba(tp)
         log(f"[done] --tp-only {time.perf_counter() - t_start:.1f}s")
+        return 0
+    if sys.argv[1:] == ["--analysis-only"]:
+        # the serve phase (its weights) and the analysis phase
+        _, _, params = serve_phase(dev, cfg)
+        analysis_phase(dev, cfg, params, card)
+        log(f"[done] --analysis-only {time.perf_counter() - t_start:.1f}s")
         return 0
     if sys.argv[1:] == ["--dist-only"]:
         # the train phase (its one-device losses) and the dist_train phase
@@ -5293,7 +5354,10 @@ def main() -> int:
     autotune_launches = autotune_phase(dev, cfg, card)
     log(f"[autotune] {time.perf_counter() - t_start:.1f}s")
     # each kernel's launches come from the main path that runs it
-    launches, serve_tokens = serve_phase(dev, cfg)
+    launches, serve_tokens, params = serve_phase(dev, cfg)
+    analysis_phase(dev, cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
     paged_launches = paged_phase(dev, cfg, card)
     tp = tp_phase(dev, cfg, card, serve_tokens)
     log(f"[tp] {time.perf_counter() - t_start:.1f}s")

@@ -358,7 +358,9 @@ def _ga_step(gen: torch.Generator, pop: torch.Tensor, tables: dict,
     child[:, MULT_GENE] = torch.where(t["allowed"][mult], mult,
                                       t["exact_idx"])
     child = _snap_die_gene(child, t["die_ok"])
-    return child, fit[order[0]], pop[order[0]]
+    # the best by a one-element index: a 0-dim index is read on the host
+    best = order[:1]
+    return child, fit[best][0], pop[best][0]
 
 
 @dataclasses.dataclass

@@ -435,6 +435,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+int query_one(int bh, int sq, long long* out) {
+  constexpr size_t smem = fa_smem_bytes<T, D>();
+  constexpr int BQ = TileOf<T, D>::BQ;
+  return repro_query_fill((const void*)flash_kernel<T, D>, (long long)smem,
+                          (long long)smem, 32, dim3((sq + BQ - 1) / BQ, bh),
+                          out);
+}
+
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        int bh, int sq, int skv, int d, int causal,
@@ -448,7 +457,29 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
   }
 }
 
+template <typename T>
+int query_d(int bh, int sq, int d, long long* out) {
+  switch (d) {
+    case 32: return query_one<T, 32>(bh, sq, out);
+    case 64: return query_one<T, 64>(bh, sq, out);
+    case 128: return query_one<T, 128>(bh, sq, out);
+    case 256: return query_one<T, 256>(bh, sq, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// Query kernel 7 (query.cu): args (bh, sq, skv, d, is_bf16), as
+// repro_flash_attention takes them.
+int repro_query_flash(int kernel, const int* a, long long* out) {
+  const int bh = a[0], sq = a[1], skv = a[2], d = a[3];
+  if (kernel != 7 || bh < 1 || bh > 65535 || sq < 1 || skv < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return a[4] ? query_d<__nv_bfloat16>(bh, sq, d, out)
+              : query_d<float>(bh, sq, d, out);
+}
 
 REPRO_API int repro_flash_attention(const void* q, const void* k,
                                     const void* v, void* o, int bh, int sq,

@@ -543,6 +543,31 @@ bool lowrank_shape_ok(int m, int k, int n, int bn) {
   return (long long)(m / LR_BM) * (n / bn) <= 0x7FFFFFFFLL;
 }
 
+unsigned lowrank_blocks(int m, int n, int bn) {
+  return (unsigned)((long long)(m / LR_BM) * (n / bn));
+}
+
+// Threads and blocks of lowrank_b_planes_kernel over an (n, k) weight.
+constexpr int BP_THREADS = 256;
+unsigned b_planes_blocks(int n, int k) {
+  const size_t chunks = (size_t)n * k / 16;
+  return (unsigned)std::min((chunks + BP_THREADS - 1) / BP_THREADS,
+                            (size_t)132 * 16);
+}
+
+// Threads and blocks of plane0_reduce_kernel over an (m, n) output.
+constexpr int RED_THREADS = 64;
+unsigned reduce_blocks(int m, int n) {
+  const size_t mn = (size_t)m * n;
+  return (unsigned)((mn / 4 + RED_THREADS - 1) / RED_THREADS);
+}
+
+bool plane0_shape_ok(int m, int k, int n, int k_chunk) {
+  return m >= 1 && n >= 1 && k >= 1 && m % PL0_BM == 0 && n % PL0_BN == 0 &&
+         k % PL0_KT == 0 && k_chunk >= PL0_KT && k_chunk % PL0_KT == 0 &&
+         m / PL0_BM <= 65535 && (k + k_chunk - 1) / k_chunk <= 65535;
+}
+
 // a: A (kMap) or the A stack; bp: the weight planes (planes, n, k).
 template <int BN, bool kMap>
 cudaError_t lowrank_launch(const void* a, const void* bp, const void* fu,
@@ -557,8 +582,8 @@ cudaError_t lowrank_launch(const void* a, const void* bp, const void* fu,
   const cudaError_t err =
       repro_smem_limit<lowrank_kernel<BN, kMap>>(LrLayout<BN>::SMEM);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((long long)(m / LR_BM) * (n / BN));
-  lowrank_kernel<BN, kMap><<<blocks, LR_THREADS, LrLayout<BN>::SMEM, s>>>(
+  lowrank_kernel<BN, kMap>
+      <<<lowrank_blocks(m, n, BN), LR_THREADS, LrLayout<BN>::SMEM, s>>>(
       tm_a, tm_b, (const int8_t*)fu, (const float*)scales, (float*)out, m, k,
       n, planes, k_valid, mask_a);
   return cudaGetLastError();
@@ -566,15 +591,64 @@ cudaError_t lowrank_launch(const void* a, const void* bp, const void* fu,
 
 }  // namespace
 
+// Query kernels 1, 2, 4, 5, 6 (query.cu), with the arguments their C entry
+// points take:
+//   1 plane0_kernel            (m, k, n, k_chunk)
+//   2 plane0_reduce_kernel     (m, n, splits)
+//   4 lowrank_kernel<bn, true> (m, k, n, bn, rank)    the fused kernel
+//   5 lowrank_b_planes_kernel  (n, k, rank)
+//   6 lowrank_kernel<bn, false> (m, k, n, bn, planes) the stacked kernel
+int repro_query_qgemm(int kernel, const int* a, long long* out) {
+  const int bad = (int)cudaErrorInvalidValue;
+  switch (kernel) {
+    case 1:
+      if (!plane0_shape_ok(a[0], a[1], a[2], a[3])) return bad;
+      return repro_query_fill(
+          (const void*)plane0_kernel, PL0_SMEM, PL0_SMEM, PL0_THREADS,
+          dim3(a[2] / PL0_BN, a[0] / PL0_BM, (a[1] + a[3] - 1) / a[3]), out);
+    case 2:
+      if (a[0] < 1 || a[1] < 1 || a[2] < 2) return bad;
+      return repro_query_fill((const void*)plane0_reduce_kernel, 0, 0,
+                              RED_THREADS, dim3(reduce_blocks(a[0], a[1])),
+                              out);
+    case 4:
+    case 6: {
+      const int m = a[0], k = a[1], n = a[2], bn = a[3];
+      const int planes = kernel == 4 ? a[4] + 1 : a[4];
+      if (!lowrank_shape_ok(m, k, n, bn) || planes < 1 ||
+          planes > LR_MAX_RANK + 1) {
+        return bad;
+      }
+      const bool map = kernel == 4;
+      const void* f =
+          bn == 64 ? (map ? (const void*)lowrank_kernel<64, true>
+                          : (const void*)lowrank_kernel<64, false>)
+                   : (map ? (const void*)lowrank_kernel<128, true>
+                          : (const void*)lowrank_kernel<128, false>);
+      const long long smem =
+          bn == 64 ? LrLayout<64>::SMEM : LrLayout<128>::SMEM;
+      return repro_query_fill(f, smem, smem, LR_THREADS,
+                              dim3(lowrank_blocks(m, n, bn)), out);
+    }
+    case 5:
+      if (a[0] < 1 || a[1] < 1 || a[1] % 16 || a[2] < 0 ||
+          a[2] > LR_MAX_RANK) {
+        return bad;
+      }
+      return repro_query_fill((const void*)lowrank_b_planes_kernel, 0, 0,
+                              BP_THREADS, dim3(b_planes_blocks(a[0], a[1])),
+                              out);
+    default:
+      return bad;
+  }
+}
+
 REPRO_API int repro_qgemm_plane0(const void* a, const void* bt, void* out,
                                  void* ws, int m, int k, int n, int mask_a,
                                  int mask_b, int k_chunk, void* stream) {
-  if (m < 1 || n < 1 || k < 1 || m % PL0_BM || n % PL0_BN || k % PL0_KT ||
-      k_chunk < PL0_KT || k_chunk % PL0_KT || m / PL0_BM > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!plane0_shape_ok(m, k, n, k_chunk)) return (int)cudaErrorInvalidValue;
   const int splits = (k + k_chunk - 1) / k_chunk;
-  if (splits > 65535 || (splits > 1 && !ws)) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && !ws) return (int)cudaErrorInvalidValue;
   const cudaError_t err = repro_smem_limit<plane0_kernel>(PL0_SMEM);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -585,11 +659,8 @@ REPRO_API int repro_qgemm_plane0(const void* a, const void* bt, void* out,
   if (splits > 1) {
     // small blocks: a short grid (m n / 4 threads) still spreads its
     // splits-deep reads over many SMs
-    const size_t mn = (size_t)m * n;
-    const int threads = 64;
-    const size_t blocks = (mn / 4 + threads - 1) / threads;
-    plane0_reduce_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        (const int*)ws, (float*)out, mn, splits);
+    plane0_reduce_kernel<<<reduce_blocks(m, n), RED_THREADS, 0, s>>>(
+        (const int*)ws, (float*)out, (size_t)m * n, splits);
   }
   return (int)cudaGetLastError();
 }
@@ -605,13 +676,9 @@ REPRO_API int repro_qgemm_fused(const void* a, const void* bt, const void* fu,
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int planes = rank + 1;
-  const size_t chunks = (size_t)n * k / 16;
-  const int threads = 256;
-  const size_t blocks = std::min((chunks + threads - 1) / threads,
-                                 (size_t)132 * 16);
-  lowrank_b_planes_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-      (const int8_t*)bt, (const int8_t*)fv, (int8_t*)bplanes, chunks, planes,
-      repro_word_mask(mask_b));
+  lowrank_b_planes_kernel<<<b_planes_blocks(n, k), BP_THREADS, 0, s>>>(
+      (const int8_t*)bt, (const int8_t*)fv, (int8_t*)bplanes,
+      (size_t)n * k / 16, planes, repro_word_mask(mask_b));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const uint32_t ma = repro_word_mask(mask_a);

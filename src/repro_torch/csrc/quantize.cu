@@ -225,7 +225,40 @@ cudaError_t launch(const float* x, int8_t* q, float* s, int m, int k, int ld,
   }
 }
 
+// The register template's kernel for `vecs` units a lane (null past it).
+template <bool VEC, int V = 1>
+const void* rows_kernel(int vecs) {
+  if constexpr (V <= (VEC ? kMaxVecs : kMaxScalarVecs)) {
+    return vecs == V ? (const void*)quantize_rows_kernel<V, VEC>
+                     : rows_kernel<VEC, V + 1>(vecs);
+  } else {
+    return nullptr;
+  }
+}
+
+bool plan_ok(int lanes, int vecs, int threads) {
+  return lanes >= 1 && lanes <= kMaxThreads && (lanes & (lanes - 1)) == 0 &&
+         threads % lanes == 0 && threads <= kMaxThreads &&
+         (vecs != 0 || lanes == threads);
+}
+
 }  // namespace
+
+// Query kernel 0 (query.cu): args (m, k, vec, lanes, vecs, threads, blocks),
+// the plan repro_quantize_rows takes.  No dynamic shared memory.
+int repro_query_quantize(int kernel, const int* a, long long* out) {
+  const int vec = a[2], lanes = a[3], vecs = a[4], threads = a[5],
+            blocks = a[6];
+  if (kernel != 0 || !plan_ok(lanes, vecs, threads) || blocks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* f =
+      vecs == 0 ? (vec ? (const void*)quantize_long_rows_kernel<true>
+                       : (const void*)quantize_long_rows_kernel<false>)
+                : (vec ? rows_kernel<true>(vecs) : rows_kernel<false>(vecs));
+  if (!f) return (int)cudaErrorInvalidValue;
+  return repro_query_fill(f, 0, 0, threads, dim3((unsigned)blocks), out);
+}
 
 // x (row stride ld, 16-byte aligned with ld and k multiples of 4 when vec),
 // q (M, K) contiguous, scale (M,); lanes, vecs (0: the two-pass loop),
@@ -235,11 +268,7 @@ REPRO_API int repro_quantize_rows(const void* x, void* q, void* scale, int m,
                                   int threads, int blocks, int mask,
                                   void* stream) {
   if (m <= 0 || k <= 0) return (int)cudaGetLastError();
-  if (lanes < 1 || lanes > kMaxThreads || (lanes & (lanes - 1)) != 0 ||
-      threads % lanes != 0 || threads > kMaxThreads ||
-      (vecs == 0 && lanes != threads)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!plan_ok(lanes, vecs, threads)) return (int)cudaErrorInvalidValue;
   const uint32_t word = repro_word_mask(mask);
   const cudaStream_t st = (cudaStream_t)stream;
   const float* xf = (const float*)x;

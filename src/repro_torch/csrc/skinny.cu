@@ -397,7 +397,60 @@ cudaError_t skinny_dispatch(int planes, const CUtensorMap& tm,
   }
 }
 
+// Whether repro_qgemm_skinny takes (m, k, n, k_valid, rank, splits, gran).
+bool skinny_args_ok(int m, int k, int n, int k_valid, int rank, int splits,
+                    int gran) {
+  return m >= 1 && m <= 32 && k >= 16 && k % 16 == 0 && n >= 1 &&
+         k_valid >= 1 && k_valid <= k && rank >= 0 && rank <= SK_MAX_RANK &&
+         (gran == 32 || gran == SK_BK) && splits >= 1 && splits <= 65535 &&
+         splits <= (k + gran - 1) / gran;
+}
+
+// Activation rows in the MMA (8 NP) and the K boxes of activation planes a
+// block holds (`win`): those of the widest split, as many as fit the
+// activation budget.
+void skinny_layout(int m, int k, int planes, int splits, int gran, int* mp,
+                   int* win) {
+  *mp = m <= 8 ? 8 : 32;
+  const int units = (k + gran - 1) / gran;
+  int boxes = 1;
+  for (int z = 0; z < splits; ++z) {
+    const int kb = (int)((long long)z * units / splits) * gran;
+    const int ke = std::min(k, (int)((long long)(z + 1) * units / splits) *
+                                   gran);
+    boxes = std::max(boxes, (ke + SK_BK - 1) / SK_BK - kb / SK_BK);
+  }
+  const int fit = SK_ACT_BUDGET / (planes * *mp * SK_BK);
+  *win = std::max(1, std::min(boxes, fit));
+}
+
+template <int NP, int PLANES = 1>
+const void* skinny_fn(int planes) {
+  if constexpr (PLANES <= SK_MAX_RANK + 1) {
+    return planes == PLANES ? (const void*)skinny_kernel<NP, PLANES>
+                            : skinny_fn<NP, PLANES + 1>(planes);
+  } else {
+    return nullptr;
+  }
+}
+
 }  // namespace
+
+// Query kernel 3 (query.cu): args (m, k, n, rank, splits, gran), as
+// repro_qgemm_skinny takes them (k_valid = k).
+int repro_query_skinny(int kernel, const int* a, long long* out) {
+  const int m = a[0], k = a[1], n = a[2], rank = a[3], splits = a[4],
+            gran = a[5];
+  if (kernel != 3 || !skinny_args_ok(m, k, n, k, rank, splits, gran)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int mp, win;
+  skinny_layout(m, k, rank + 1, splits, gran, &mp, &win);
+  const void* f = mp == 8 ? skinny_fn<1>(rank + 1) : skinny_fn<4>(rank + 1);
+  return repro_query_fill(
+      f, sk_smem(rank + 1, mp, win), SK_SMEM_MAX, SK_THREADS,
+      dim3((unsigned)((n + SK_BM - 1) / SK_BM), (unsigned)splits), out);
+}
 
 // a (m, k) int8, bt (n, k) int8 K-major; fu, fv (rank, 256) int8 and scales
 // (rank + 1) f32, all three null at rank 0; ws the int32 workspace
@@ -410,29 +463,18 @@ REPRO_API int repro_qgemm_skinny(const void* a, const void* bt, const void* fu,
                                  int n, int k_valid, int rank, int mask_a,
                                  int mask_b, int splits, int gran,
                                  void* stream) {
-  if (m < 1 || m > 32 || k < 16 || k % 16 || n < 1 || k_valid < 1 ||
-      k_valid > k || rank < 0 || rank > SK_MAX_RANK ||
-      (gran != 32 && gran != SK_BK) || splits < 1 || splits > 65535 ||
-      splits > (k + gran - 1) / gran || !counters || (splits > 1 && !ws) ||
-      (rank && (!fu || !fv || !scales))) {
+  if (!skinny_args_ok(m, k, n, k_valid, rank, splits, gran) || !counters ||
+      (splits > 1 && !ws) || (rank && (!fu || !fv || !scales))) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap tm;
   if (!tensor_map_2d(&tm, bt, n, k, SK_BM)) return (int)cudaErrorInvalidValue;
-  const int planes = rank + 1, mp = m <= 8 ? 8 : 32;
-  // K boxes of the widest split, and as many as fit the activation budget
-  const int units = (k + gran - 1) / gran;
-  int boxes = 1;
-  for (int z = 0; z < splits; ++z) {
-    const int kb = (int)((long long)z * units / splits) * gran;
-    const int ke = std::min(k, (int)((long long)(z + 1) * units / splits) *
-                                   gran);
-    boxes = std::max(boxes, (ke + SK_BK - 1) / SK_BK - kb / SK_BK);
-  }
-  const int fit = SK_ACT_BUDGET / (planes * mp * SK_BK);
+  const int planes = rank + 1;
+  int mp, win;
+  skinny_layout(m, k, planes, splits, gran, &mp, &win);
   const SkArgs g{a, fu, fv, scales, ws, counters, out, m, k, n, k_valid,
-                 splits, gran, std::max(1, std::min(boxes, fit)),
-                 repro_word_mask(mask_a), repro_word_mask(mask_b)};
+                 splits, gran, win, repro_word_mask(mask_a),
+                 repro_word_mask(mask_b)};
   cudaStream_t s = (cudaStream_t)stream;
   return (int)(mp == 8 ? skinny_dispatch<1>(planes, tm, g, s)
                        : skinny_dispatch<4>(planes, tm, g, s));

@@ -54,12 +54,22 @@ SIGNATURES = {
     # q, k, v, o, bh, sq, skv, d, causal, is_bf16, scale, stream
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                               _P),
+    # kernel id, int args, long long out[QUERY_FIELDS]: launches nothing
+    # (csrc/query.cu)
+    "repro_kernel_query": (_I, _P, _P),
 }
+
+#: The fields of a query record, in csrc/common.cuh's ReproQueryField order.
+QUERY_FIELDS = ("smem", "smem_limit", "threads", "grid_x", "grid_y",
+                "grid_z", "static_smem", "regs", "max_threads", "attr_smem",
+                "local_bytes")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: what the last build did: {"seconds", "path", "built", "ptxas"}
 last_build: dict = {}
+#: times this process built or loaded the library (`load`): one at most
+loads = 0
 
 
 def build_dir() -> pathlib.Path:
@@ -134,9 +144,10 @@ def build() -> pathlib.Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    global _lib
+    global _lib, loads
     with _lock:
         if _lib is None:
+            loads += 1
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -153,6 +164,31 @@ def check(err: int, name: str) -> None:
     if err != 0:
         text = _lib.repro_cuda_error_string(err).decode() if _lib else ""
         raise RuntimeError(f"{name}: CUDA error {err} ({text}) at launch")
+
+
+def query(kernel: int, args: tuple[int, ...] = ()) -> dict:
+    """The library's host-only record of kernel variant `kernel` (an id of
+    `approx_qgemm.QUERY_IDS`) at `args`: what its launcher would request
+    and what the compiled kernel holds (`QUERY_FIELDS`).  Launches
+    nothing; builds the library at first use, as a launch would."""
+    lib = load()
+    arr = (ctypes.c_int * max(len(args), 1))(*args)
+    out = (ctypes.c_longlong * len(QUERY_FIELDS))()
+    check(lib.repro_kernel_query(kernel, ctypes.cast(arr, _P),
+                                 ctypes.cast(out, _P)),
+          f"repro_kernel_query({kernel}, {tuple(args)})")
+    return dict(zip(QUERY_FIELDS, out))
+
+
+def attr_calls() -> int:
+    """First-use cudaFuncSetAttribute calls (a kernel's shared-memory
+    opt-in) the library has made in this process; 0 before it is loaded."""
+    if _lib is None:
+        return 0
+    out = (ctypes.c_longlong * len(QUERY_FIELDS))()
+    check(_lib.repro_kernel_query(-1, None, ctypes.cast(out, _P)),
+          "repro_kernel_query(-1)")
+    return int(out[0])
 
 
 def stream_ptr(device) -> int:

@@ -129,6 +129,9 @@ class GemmPlan:
 #: (policy, m, k, n, mode, rank, device) -> GemmPlan, under `_plans_stamp`
 _plans: dict = {}
 _plans_stamp: tuple | None = None
+#: plans resolved (memo misses) in this process: one-time work, which a
+#: warm step does none of (`repro_torch.analysis.retrace`)
+plan_misses = 0
 
 
 def choose_gemm_path(policy: str | None, *, m: int, k: int, n: int,
@@ -138,7 +141,7 @@ def choose_gemm_path(policy: str | None, *, m: int, k: int, n: int,
     static plan, or the plain path, per the policy and the
     operands' device.  `mode` is the spec's mode and `rank` its low-rank
     rank (0 for exact/trunc)."""
-    global _plans_stamp
+    global _plans_stamp, plan_misses
     p = resolve(policy)
     dev = torch.device(device)
     stamp = (autotune.cache_path(), autotune.generation)
@@ -148,6 +151,7 @@ def choose_gemm_path(policy: str | None, *, m: int, k: int, n: int,
     key = (p, m, k, n, mode, rank, dev)
     plan = _plans.get(key)
     if plan is None:
+        plan_misses += 1
         plan = _plans[key] = _choose(p, m, k, n, dev, mode, rank)
     return plan
 

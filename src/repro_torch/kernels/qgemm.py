@@ -179,13 +179,13 @@ def skinny_splits(k: int, n: int, *, sm_count: int) -> tuple[int, int]:
     S is the least that brings the grid of ceil(N / 64) tiles to every SM
     and keeps each split within SKINNY_MAX_BOXES 128-byte boxes of K;
     units are whole boxes where K has enough of them, else 32 bytes (one
-    MMA step)."""
+    MMA step): `skinny_gran`'s unit for that count, so a plan asking for
+    the same count runs the same split."""
     tiles = -(-n // qk.SKINNY_BM)
     boxes = -(-k // qk.SKINNY_BOX)
     want = max(-(-sm_count // tiles), -(-boxes // qk.SKINNY_MAX_BOXES))
-    if want <= boxes:
-        return want, qk.SKINNY_BOX
-    return min(want, -(-k // 32)), 32
+    splits = min(want, -(-k // 32))
+    return splits, skinny_gran(k, splits)
 
 
 def skinny_gran(k: int, splits: int) -> int:
@@ -201,15 +201,21 @@ def skinny_gran(k: int, splits: int) -> int:
 #: arrival counters, both of which every call leaves at 0.  Grown, never
 #: shrunk; calls on one stream run in order, so they share them.
 _skinny_state: dict = {}
+#: allocations `_skinny_scratch` made in this process: one-time work, which
+#: a warm step does none of (`repro_torch.analysis.retrace`)
+scratch_grows = 0
 
 
 def _skinny_scratch(device: torch.device, tiles: int, ws_elems: int
                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    global scratch_grows
     counters, ws = _skinny_state.get(device.index, (None, None))
     if counters is None or counters.numel() < tiles:
+        scratch_grows += 1
         counters = torch.zeros(max(tiles, 1024), dtype=torch.int32,
                                device=device)
     if ws_elems and (ws is None or ws.numel() < ws_elems):
+        scratch_grows += 1
         ws = torch.zeros(ws_elems, dtype=torch.int32, device=device)
     _skinny_state[device.index] = (counters, ws)
     return counters, ws if ws_elems else None

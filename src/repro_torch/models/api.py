@@ -217,7 +217,7 @@ def chunk_step(params: Params, cache: dict, tokens: torch.Tensor,
     b, c = tokens.shape
     if b != 1:
         raise ValueError(f"chunk_step is single-request (got batch {b})")
-    n = c if n_valid is None else int(n_valid)
+    n = c if n_valid is None else int(n_valid)  # analysis: allow[JH101] a one-element n_valid is read once a chunk; the engines pass none
     logits = []
     for i in range(c):
         src = cache if i < n else {k: v.clone() for k, v in cache.items()}

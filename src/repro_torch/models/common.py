@@ -302,7 +302,8 @@ def prefill_length(true_len: torch.Tensor | None, s: int,
     """Cache "length" after prefilling s tokens: per-row (b,) with a
     true_len vector, scalar otherwise."""
     if true_len is None:
-        return torch.tensor(s, dtype=torch.int32, device=device)
+        # a fill on the device, not an upload from the host
+        return torch.full((), s, dtype=torch.int32, device=device)
     return true_len.to(torch.int32)
 
 

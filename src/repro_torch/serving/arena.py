@@ -227,8 +227,10 @@ class PagedArena:
         """Page-granular pool copy (copy-on-write): page `src[i]` to
         `dst[i]`."""
         dev = self.device
-        src = torch.as_tensor(src, dtype=torch.long, device=dev)
-        dst = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        src = torch.as_tensor(src, dtype=torch.long).to(dev,
+                                                        non_blocking=True)
+        dst = torch.as_tensor(dst, dtype=torch.long).to(dev,
+                                                        non_blocking=True)
         for key, axis in self.paged.items():
             pages = self.cache[key].unflatten(
                 axis, (self.n_pages, self.page_size))

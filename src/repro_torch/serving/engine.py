@@ -152,6 +152,12 @@ class Engine:
         it is made.
     """
 
+    #: Host syncs of each step on one device, which a CUDA graph over the
+    #: step must first remove (ROADMAP Queue 2): a decode step reads its
+    #: tokens (`_decode`), an admission its first token (`_admit`).
+    #: `repro_torch.analysis.retrace` holds a card run to them.
+    HOST_SYNCS = {"decode": 1, "prefill": 1}
+
     def __init__(self, cfg: ModelConfig, params: Any | None = None, *,
                  capacity: int = 4, max_len: int = 256,
                  prefill_buckets: tuple[int, ...] | None = None,
@@ -320,8 +326,9 @@ class Engine:
         """The slot's row joins decode with its first token."""
         lane = self._lane(slot_id)
         if lane is not None:
-            self._tok[lane, 0] = first_tok
-            self._idle[lane] = False
+            # fill_ takes the value as a kernel argument: no host copy
+            self._tok[lane, 0].fill_(first_tok)
+            self._idle[lane].fill_(False)
 
     # --- degradation tiers ------------------------------------------------
 
@@ -420,10 +427,11 @@ class Engine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n] = np.asarray(request.tokens, np.int64)
         return api.prefill(
-            self.exec_params, torch.from_numpy(padded).to(self.device),
+            self.exec_params,
+            torch.from_numpy(padded).to(self.device, non_blocking=True),
             self.cfg, self._spec, max_len=self.max_len, extras=extras,
-            true_len=torch.tensor([n], dtype=torch.int32,
-                                  device=self.device))
+            true_len=torch.tensor([n], dtype=torch.int32).to(
+                self.device, non_blocking=True))
 
     def _admit(self, request: Request, ready_wall: float,
                slot_id: int) -> None:
@@ -435,7 +443,7 @@ class Engine:
         gen = self._request_generator(sp)
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
-        first_tok = int(first[0])           # syncs the prefill
+        first_tok = int(first[0])  # analysis: allow[JH101] the first token to the host, which emits it
         self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._admitted += 1
 
@@ -502,7 +510,7 @@ class Engine:
         self._slots[slot_id] = None
         self._gens[slot_id] = None
         if (lane := self._lane(slot_id)) is not None:
-            self._idle[lane] = True
+            self._idle[lane].fill_(True)
         self._free.append(slot_id)
 
     def _shed(self, request: Request) -> None:
@@ -566,7 +574,7 @@ class Engine:
         self._arena.cache = cache
         tok = sampling.sample_tokens(logits[:, -1], *self._lane_sampling())
         self._tok = tok[:, None]
-        return self._all_rows(tok).cpu().numpy()   # syncs the step
+        return self._all_rows(tok).cpu().numpy()  # analysis: allow[JH101] the step's tokens to the host, which emits and evicts
 
     def step(self) -> None:
         """One engine tick: shed dead-on-arrival requests, admit due

@@ -81,7 +81,7 @@ from repro_torch.serving.types import Request, SpecStats
 def _sync(device: torch.device) -> None:
     """Wait for the device, so a host clock reading covers its work."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)  # analysis: allow[JH101] a prefill chunk's host clock covers its device work (the meter prices it)
 
 
 class _PagedSlot(_Slot):
@@ -130,6 +130,13 @@ class PagedEngine(Engine):
       spec_k: draft tokens proposed per speculative step.
       prefix_cache: hash-matched prompt-prefix page sharing on/off.
     """
+
+    #: The slot engine's, and: a chunk of a chunked prefill waits for the
+    #: device so its host clock covers it (`_sync`; the last chunk's
+    #: first-token read waits instead); a verify step reads its verdicts
+    #: (`_verify`); the draft steps read nothing.
+    HOST_SYNCS = {"decode": 1, "prefill": 1, "chunk": 1, "draft": 0,
+                  "verify": 1}
 
     def __init__(self, cfg: ModelConfig, params=None, *,
                  page_size: int = 16, n_pages: int | None = None,
@@ -234,7 +241,7 @@ class PagedEngine(Engine):
         idx = np.full((self.max_len,), TRASH_PAGE, np.int64)
         for j in range(lease.hit_tokens, n):
             idx[j] = lease.pages[j // ps] * ps + j % ps
-        return torch.from_numpy(idx).to(self.device)
+        return torch.from_numpy(idx).to(self.device, non_blocking=True)
 
     def _admit_ready(self, now: float) -> None:
         """Advance at most `chunk_budget` prefill chunks, then admit while
@@ -295,7 +302,7 @@ class PagedEngine(Engine):
         gen = self._request_generator(sp)
         first = sampling.sample_tokens(logits, [sp.temperature], [sp.top_k],
                                        [gen])
-        first_tok = int(first[0])           # syncs the prefill
+        first_tok = int(first[0])  # analysis: allow[JH101] the first token to the host, which emits it
         self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._admitted += 1
         self._install(request, req_cache, extras, slot_id, lease, gen,
@@ -316,10 +323,11 @@ class PagedEngine(Engine):
         self._admitted += 1
         t0 = time.perf_counter()
         _, workspace = api.prefill(
-            self.exec_params, torch.from_numpy(prompt).to(self.device),
+            self.exec_params,
+            torch.from_numpy(prompt).to(self.device, non_blocking=True),
             self.cfg, self._spec, max_len=self.max_len, extras=extras,
-            true_len=torch.tensor([c], dtype=torch.int32,
-                                  device=self.device))
+            true_len=torch.tensor([c], dtype=torch.int32).to(
+                self.device, non_blocking=True))
         _sync(self.device)
         self._note_prefill(request.request_id, time.perf_counter() - t0)
         self._chunks += 1
@@ -344,7 +352,8 @@ class PagedEngine(Engine):
         self._set_lane_extras(slot_id, extras)
         self._table_all[slot_id] = 0
         self._table_all[slot_id, :len(lease.pages)] = torch.tensor(
-            lease.pages, dtype=torch.int64)
+            lease.pages, dtype=torch.int64).to(self.device,
+                                               non_blocking=True)
         self._temps[slot_id] = sp.temperature
         self._topks[slot_id] = sp.top_k
         self._gens[slot_id] = gen
@@ -395,16 +404,17 @@ class PagedEngine(Engine):
         t0 = time.perf_counter()
         logits, job.workspace = api.chunk_step(
             self.exec_params, job.workspace,
-            torch.from_numpy(piece).to(self.device), self.cfg, self._spec,
-            job.extras)
+            torch.from_numpy(piece).to(self.device, non_blocking=True),
+            self.cfg, self._spec, job.extras)
         job.pos += take
         first_tok = None
         if job.pos >= n:
             sp = job.request.sampling
-            first_tok = int(sampling.sample_tokens(
+            first_tok = int(sampling.sample_tokens(  # analysis: allow[JH101] the first token to the host, which emits it
                 logits[:, take - 1], [sp.temperature], [sp.top_k],
                 [job.gen])[0])
-        _sync(self.device)
+        else:
+            _sync(self.device)     # the first token's read waits otherwise
         dt = time.perf_counter() - t0
         self._note_prefill(job.request.request_id, dt)
         self._chunk_s += dt
@@ -434,7 +444,7 @@ class PagedEngine(Engine):
         # makes lands in the trash page, so reused pages are never
         # corrupted by a stale lane, and it draws from no generator
         if (lane := self._lane(slot_id)) is not None:
-            self._arena.cache["length"][lane] = 0
+            self._arena.cache["length"][lane].fill_(0)
         self._table_all[slot_id] = 0
         self._temps[slot_id] = 0.0
 
@@ -501,7 +511,7 @@ class PagedEngine(Engine):
             cache[key] = view[key]
         cache["length"] = view["length"]
         self._tok = tok[:, None]
-        return self._all_rows(tok).cpu().numpy()   # syncs the step
+        return self._all_rows(tok).cpu().numpy()  # analysis: allow[JH101] the step's tokens to the host, which emits and evicts
 
     def _commit_rows(self, flat: torch.Tensor, rows: dict) -> None:
         """Write K/V `rows` (`PagedArena.rows_at`'s layout) to the pool
@@ -550,7 +560,7 @@ class PagedEngine(Engine):
         temps, topks, gens = self._lane_sampling()
         cache = arena.cache
         old_len = cache["length"]
-        kr = torch.from_numpy(k_row).to(self.device)
+        kr = torch.from_numpy(k_row).to(self.device, non_blocking=True)
         view = arena.view(cache, self._table)
         tok, lgs, rows, snaps = self._tok, [], [], []
         for i in range(k):
@@ -571,8 +581,9 @@ class PagedEngine(Engine):
             tok = torch.where(live[:, None], draft[:, i:i + 1], tok)
         e = torch.argmax(torch.stack(lgs, dim=1).float(), dim=-1)
         corr0 = sampling.sample_tokens(lgs[0], temps, topks, gens)
-        e, d, corr0 = e.cpu().numpy(), draft.cpu().numpy(), \
-            corr0.cpu().numpy()
+        # the verdicts, the drafts and the sampled corrections in one read
+        host = torch.cat([e, draft, corr0[:, None]], 1).cpu().numpy()  # analysis: allow[JH101] the step's verdicts to the host, which emits and evicts
+        e, d, corr0 = host[:, :k], host[:, k:2 * k], host[:, 2 * k]
         greedy = np.array([t <= 0.0 for t in temps])
         agree = np.cumprod(e == d, axis=1)
         a = np.minimum(np.where(greedy, agree.sum(axis=1), 0), k_row)
@@ -581,19 +592,20 @@ class PagedEngine(Engine):
         corr = np.where(greedy, e[host_lanes, np.minimum(a, k - 1)], corr0)
         emitted = np.where(np.arange(k)[None, :] < a[:, None], d,
                            corr[:, None])
-        mt = torch.from_numpy(m).to(self.device)
+        mt = torch.from_numpy(m).to(self.device, non_blocking=True)
         flat = torch.cat([arena.flat_rows(self._table, old_len + i, mt > i)
                           for i in range(k)])
         self._commit_rows(flat, {key: torch.cat([rw[key] for rw in rows])
                                  for key in arena.paged})
-        last = torch.from_numpy(np.maximum(m - 1, 0)).to(self.device)
+        last = torch.from_numpy(np.maximum(m - 1, 0)).to(self.device,
+                                                         non_blocking=True)
         for key in self._dense:
             cache[key] = _pick_snap([sn[key] for sn in snaps], last,
                                     arena.slot_axes[key])
         cache["length"] = old_len + mt.to(old_len.dtype)
         self._tok = torch.from_numpy(
             emitted[host_lanes, np.maximum(m - 1, 0)][:, None]).to(
-                self.device)
+                self.device, non_blocking=True)
         return emitted, m, a
 
     def _own_dense(self, view: dict) -> dict:
@@ -620,8 +632,9 @@ class PagedEngine(Engine):
         if self.split_rows:
             # every rank's lanes: (emitted | m | a) per lane, one gather
             packed = np.concatenate([emitted, mh[:, None], ah[:, None]], 1)
-            packed = self._all_rows(torch.from_numpy(packed).to(
-                self.device)).cpu().numpy()
+            gathered = self._all_rows(torch.from_numpy(packed).to(
+                self.device, non_blocking=True))
+            packed = gathered.cpu().numpy()  # analysis: allow[JH101] every data rank's verdicts to the host, which emits
             emitted, mh, ah = packed[:, :-2], packed[:, -2], packed[:, -1]
         self._spec_steps += 1
         # every decoding lane is charged alike, sampled or greedy

@@ -131,12 +131,12 @@ def _moe_fallback(name: str, shape: tuple[int, ...], mesh, fsdp_ax
 _PREPARED_ATTRS = frozenset({"w", "wq", "wq_t", "sw", "planes"})
 
 
-def param_pspec(path: tuple, arr_shape: tuple[int, ...], mesh,
-                fsdp: bool = True) -> Spec:
-    """Spec of a param leaf at `path` (dict keys as str, `PreparedWeight`
-    fields as `Attr`); int8 {"q", "s"} wrapper levels are skipped."""
-    fsdp_ax = "data" if fsdp else None
-    name = None
+def leaf_name(path: tuple) -> tuple[str | None, bool]:
+    """(the name a param leaf's rule is looked up by, whether the leaf is
+    a K-major copy): the last path part that is neither an int8 {"q",
+    "s"} wrapper level nor a `PreparedWeight` field.  `param_pspec` and
+    the coverage checker (`repro_torch.analysis.coverage`) both walk paths
+    through it."""
     kmajor = False
     for part in reversed(path):
         key = str(part)
@@ -145,8 +145,16 @@ def param_pspec(path: tuple, arr_shape: tuple[int, ...], mesh,
         if isinstance(part, Attr) and key in _PREPARED_ATTRS:
             kmajor = kmajor or key == "wq_t"
             continue
-        name = key
-        break
+        return key, kmajor
+    return None, kmajor
+
+
+def param_pspec(path: tuple, arr_shape: tuple[int, ...], mesh,
+                fsdp: bool = True) -> Spec:
+    """Spec of a param leaf at `path` (dict keys as str, `PreparedWeight`
+    fields as `Attr`); int8 {"q", "s"} wrapper levels are skipped."""
+    fsdp_ax = "data" if fsdp else None
+    name, kmajor = leaf_name(path)
     rules = _param_rules(fsdp_ax)
     if name not in rules:
         return ()  # norms, scalars, biases, gates: replicated

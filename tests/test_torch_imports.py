@@ -55,6 +55,11 @@ def test_no_module_imports_jax_or_the_jax_package():
     for name in ("train", "train.optimizer", "train.train_step",
                  "train.checkpoint", "launch.train"):
         assert f"repro_torch.{name}" in res["modules"]
+    # the analysis package, its __main__ among it: importing that runs
+    # no CLI (the probe would stop here)
+    for name in ("findings", "coverage", "lint", "contracts", "retrace",
+                 "cli", "__main__"):
+        assert f"repro_torch.analysis.{name}" in res["modules"]
     assert res["bad"] == []
 
 
